@@ -1,0 +1,108 @@
+"""colDeltaCor: per-cell correlation between expression deltas and velocity.
+
+Port of velocyto_tpu/ops/coldeltacor.py (dense variant).  For every cell
+``c`` and candidate cell ``i``::
+
+    A[:, i] = transform(e[:, i] - e[:, c])          # over genes
+    corr[c, i] = pearson(A[:, i], d[:, c])
+
+computed from the streamed moments S1 = sum A, S2 = sum A^2,
+S3 = sum A * b, sum b and sum b^2 (b = d[:, c]).  ``col_delta_cor``
+launches the hand-written CUDA kernel (kernels/coldeltacor_dense.cu) for
+CUDA tensors and runs the plain PyTorch version below for CPU tensors.
+
+Transforms keep the reference sign conventions of the JAX package:
+  - "linear":  A = delta
+  - "sqrt":    A = sign(delta) * sqrt(|delta| + psc); the *partial*
+               variant maps |delta| < 1e-16 to exactly 0
+  - "log10":   A = sign(delta) * log10(|delta| + psc); full variant maps
+               delta == 0 to -log10(psc), partial maps it to +log10(psc)
+
+All computation is float32.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+
+_LINEAR, _SQRT, _LOG10 = 0, 1, 2
+_TRANSFORMS = {"linear": _LINEAR, "sqrt": _SQRT, "log10": _LOG10}
+
+
+def _apply_transform(delta: torch.Tensor, transform: int, psc: float,
+                     partial: bool) -> torch.Tensor:
+    if transform == _LINEAR:
+        return delta
+    if transform == _SQRT:
+        mag = torch.sqrt(delta.abs() + psc)
+        if partial:
+            # |delta| < 1e-16 -> exactly 0 (speedboosted.pyx:373-374)
+            return torch.where(delta.abs() < 1e-16, 0.0,
+                               torch.where(delta > 0, mag, -mag))
+        # full variant: delta <= 0 goes to the negative branch
+        return torch.where(delta > 0, mag, -mag)
+    if transform == _LOG10:
+        mag = torch.log10(delta.abs() + psc)
+        if partial:
+            # `tmp >= 0` test (speedboosted.pyx:470)
+            return torch.where(delta >= 0, mag, -mag)
+        return torch.where(delta > 0, mag, -mag)
+    raise ValueError(f"unknown transform code {transform}")
+
+
+def _corr_from_moments(s1, s2, s3, sb1, sb2, n_genes: float):
+    num = s3 - s1 * (sb1 / n_genes)
+    var_a = s2 - s1 * s1 / n_genes
+    var_b = sb2 - sb1 * sb1 / n_genes
+    return num / (torch.sqrt(var_a) * torch.sqrt(var_b))
+
+
+def _col_delta_cor_dense_plain(emat: torch.Tensor, dmat: torch.Tensor,
+                               transform: int = _LINEAR, psc: float = 0.0,
+                               partial_semantics: bool = False
+                               ) -> torch.Tensor:
+    """Plain PyTorch dense colDeltaCor: (G, N) -> (N, N) f32, on the
+    inputs' device.  Blocked over center cells so the (G, B, N) delta
+    tensor stays near 128 MB (transcribes _dense_xla_rows, plus the
+    partial_semantics flag the Pallas kernel carries)."""
+    g, n = emat.shape
+    e = emat.to(torch.float32)
+    d = dmat.to(torch.float32)
+    block = max(1, min(n, (1 << 25) // max(1, g * n)))
+    out = torch.empty((n, n), dtype=torch.float32, device=e.device)
+    for c0 in range(0, n, block):
+        e_c = e[:, c0:c0 + block]                        # (G, B)
+        b = d[:, c0:c0 + block]                          # (G, B)
+        delta = e[:, None, :] - e_c[:, :, None]          # (G, B, N)
+        a = _apply_transform(delta, transform, psc, partial_semantics)
+        s1 = a.sum(0)                                    # (B, N)
+        s2 = (a * a).sum(0)
+        s3 = (a * b[:, :, None]).sum(0)
+        sb1 = b.sum(0)[:, None]
+        sb2 = (b * b).sum(0)[:, None]
+        out[c0:c0 + block] = _corr_from_moments(s1, s2, s3, sb1, sb2,
+                                                float(g))
+    return out
+
+
+def col_delta_cor(emat: torch.Tensor, dmat: torch.Tensor,
+                  transform: str = "linear", psc: float = 0.0,
+                  partial_semantics: bool = False) -> torch.Tensor:
+    """Dense colDeltaCor. emat/dmat: (genes, cells) tensors on one device.
+    Returns the (cells, cells) float32 correlations on that device.
+
+    Replaces reference colDeltaCor / colDeltaCorSqrt / colDeltaCorLog10
+    (velocyto/estimation.py:11-141) via the ``transform`` argument.  A
+    CUDA tensor goes through the hand-written kernel, a CPU tensor
+    through the plain version."""
+    tcode = _TRANSFORMS[transform]
+    if emat.is_cuda:
+        return kernels.coldeltacor_dense(
+            emat.to(torch.float32).contiguous(),
+            dmat.to(torch.float32).contiguous(), tcode, psc,
+            partial_semantics)
+    if emat.device.type == "cpu":
+        return _col_delta_cor_dense_plain(emat, dmat, tcode, psc,
+                                          partial_semantics)
+    raise ValueError(f"unsupported device {emat.device}")

@@ -1,0 +1,229 @@
+"""Device kNN graph: search, exact re-score, balance and smoothing.
+
+Port of velocyto_tpu/ops/knn_device.py:
+
+  candidate pass (f32 blocked distances, ops/knn.py)
+    -> exact re-score in f64 (diff-form, elementwise)
+    -> lexicographic (distance, index) ordering  [sklearn tie-breaks]
+    -> greedy degree-capped balancing in hub order (host loop,
+       ops/knn.py::balance_knn_loop)
+    -> compact (N, K) neighbor-index/weight arrays and the smoothing
+       convolution (reference velocyto/analysis.py:1006-1016)
+
+The host-facing csr views (graph_to_csr / weights_to_csr) are built on
+demand by VelocytoLoom's lazy ``.knn`` / ``.knn_smoothing_w``.
+"""
+from __future__ import annotations
+
+import warnings
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .knn import _candidate_plan, _knn_search_impl, balance_knn_loop, full_f32
+
+
+class KnnGraphDev(NamedTuple):
+    """Device kNN graph state.
+
+    For the balanced graph: ``idx``/``dist`` are the (N, k+1) balanced
+    rows (slot 0 = self, -1 = unset) in the reference's dsi_new/dist_new
+    layout.  For the plain graph: (N, k) non-self neighbors, ascending.
+    """
+    idx: torch.Tensor          # int64
+    dist: torch.Tensor         # float64
+    n: int
+
+
+def _as_tensor(data, dtype: torch.dtype, device) -> torch.Tensor:
+    if isinstance(data, torch.Tensor):
+        return data.to(dtype)
+    return torch.as_tensor(np.asarray(data), dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# exact f64 re-score + ordering
+# ---------------------------------------------------------------------------
+
+def _rescore_f64_impl(x64: torch.Tensor, idx: torch.Tensor, block: int,
+                      rows64: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Exact f64 squared distances sum((x_j - r_i)^2) of the gathered
+    candidates j = idx[i, :] from row i of rows64 (default: x64 itself),
+    blocked over rows.  Diff-form, so duplicates score exactly 0 and keep
+    sklearn-style tie groups."""
+    rows64 = x64 if rows64 is None else rows64
+    out = torch.empty(idx.shape, dtype=torch.float64, device=x64.device)
+    for r0 in range(0, idx.shape[0], block):
+        diff = x64[idx[r0:r0 + block]] - rows64[r0:r0 + block, None, :]
+        out[r0:r0 + block] = (diff * diff).sum(dim=-1)
+    return out
+
+
+def _reorder_truncate_impl(d2: torch.Tensor, idx: torch.Tensor, k: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Lexicographic (distance, index) ascending order, truncated to k:
+    sort by index, then stable-sort by distance (sklearn exact brute
+    force tie-breaking)."""
+    by_idx = torch.argsort(idx, dim=1, stable=True)
+    idx = idx.gather(1, by_idx)
+    d2 = d2.gather(1, by_idx)
+    order = torch.argsort(d2, dim=1, stable=True)[:, :k]
+    return d2.gather(1, order), idx.gather(1, order)
+
+
+def knn_search_dev(data, k: int, metric: str = "euclidean", device=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All-pairs kNN (self included first) on `device` (or on data's
+    device when data is a tensor).
+
+    Returns (dist (N, k) f64, idx (N, k) int64), ordered exactly like an
+    exact brute-force search (f64 re-score, (distance, index) order)."""
+    n = data.shape[0]
+    k = min(k, n)
+    x64 = _as_tensor(data, torch.float64, device)
+    if metric == "correlation":
+        x64 = x64 - x64.mean(dim=1, keepdim=True)
+        x64 = x64 / torch.linalg.norm(x64, dim=1, keepdim=True)
+    k2, blk = _candidate_plan(n, k)
+    _dc, cand = _knn_search_impl(_as_tensor(data, torch.float32, device),
+                                 k2, blk, metric)
+    # bound the (block, k2, D) f64 gather scratch to ~256 MB
+    rb = max(8, min(256, (1 << 25) // max(1, k2 * x64.shape[1])))
+    d2 = _rescore_f64_impl(x64, cand, rb)
+    d2, idx = _reorder_truncate_impl(d2, cand, k)
+    if metric == "correlation":
+        dist = d2 / 2.0
+    else:
+        dist = torch.sqrt(d2.clamp_min(0.0))
+    return dist, idx
+
+
+# ---------------------------------------------------------------------------
+# balance (hub order on the device, greedy loop on the host)
+# ---------------------------------------------------------------------------
+
+def _hub_order_impl(dsi: torch.Tensor) -> torch.Tensor:
+    """Visit order: descending in-degree of the raw candidate graph,
+    ties broken like np.argsort(l, kind='mergesort')[::-1] (stable
+    ascending, reversed -> larger index first among equals)."""
+    counts = torch.bincount(dsi.reshape(-1), minlength=dsi.shape[0])
+    return torch.argsort(counts, stable=True).flip(0)
+
+
+def balanced_knn_graph_dev(space, k: int, sight_k: int, maxl: int,
+                           metric: str = "euclidean",
+                           constraint: Optional[np.ndarray] = None,
+                           device=None) -> KnnGraphDev:
+    """Balanced kNN graph (BalancedKNN.kneighbors_graph semantics,
+    reference velocyto/neighbors.py:226-322): device search and hub
+    order, host balance, result back on the device."""
+    n = space.shape[0]
+    kk = min(sight_k + 1, n)
+    dist, dsi = knn_search_dev(space, kk, metric=metric, device=device)
+    lsi = _hub_order_impl(dsi)
+    cst = None if constraint is None else \
+        np.asarray(constraint).astype(np.int64)
+    dist_new, dsi_new, _l = balance_knn_loop(
+        dsi.cpu().numpy(), dist.cpu().numpy(), lsi.cpu().numpy(),
+        int(maxl), int(k), True, cst)
+    dev = dsi.device
+    return KnnGraphDev(idx=torch.as_tensor(dsi_new, device=dev),
+                       dist=torch.as_tensor(dist_new, device=dev), n=n)
+
+
+def knn_graph_dev(space, k: int, metric: str = "euclidean",
+                  device=None) -> KnnGraphDev:
+    """Plain kNN graph excluding self (knn_distance_matrix semantics)."""
+    n = space.shape[0]
+    kk = min(k + 1, n)
+    dist, idx = knn_search_dev(space, kk, metric=metric, device=device)
+    return KnnGraphDev(idx=idx[:, 1:], dist=dist[:, 1:], n=n)
+
+
+# ---------------------------------------------------------------------------
+# smoothing weights and convolution (reference analysis.py:1001-1016)
+# ---------------------------------------------------------------------------
+
+def _compact_weights_impl(idx: torch.Tensor, dist: torch.Tensor,
+                          diag: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-normalized smoothing weights in compact (N, K+1) form.
+
+    Replicates connectivity = (knn > 0); setdiag(diag);
+    w = row-normalize(connectivity): zero-distance entries (self slot,
+    self-fill, exact duplicates) drop out of the connectivity as they do
+    in the reference's csr construction, and the diagonal carries `diag`.
+    Entries are in ascending-index order per row, like the csr.
+    """
+    n = idx.shape[0]
+    present = (dist > 0).to(torch.float32)
+    self_col = torch.arange(n, dtype=torch.int64, device=idx.device)[:, None]
+    nbr_idx = torch.cat([self_col, idx.to(torch.int64)], dim=1)
+    vals = torch.cat([torch.full((n, 1), float(diag), dtype=torch.float32,
+                                 device=idx.device), present], dim=1)
+    w = vals / vals.sum(dim=1, keepdim=True)
+    key = torch.where(w > 0, nbr_idx, torch.iinfo(torch.int64).max)
+    order = torch.argsort(key, dim=1, stable=True)
+    return nbr_idx.gather(1, order), w.gather(1, order)
+
+
+def compact_weights_dev(g: KnnGraphDev, diag: float = 1.0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(nbr_idx, nbr_w) (N, K+1) device tensors; nbr_w rows sum to 1."""
+    return _compact_weights_impl(g.idx, g.dist, diag)
+
+
+def smooth_dev_multi(data_cols_list: Sequence[torch.Tensor],
+                     nbr_idx: torch.Tensor, nbr_w: torch.Tensor) -> list:
+    """Smooth several (G, N) matrices over cells in one pass:
+    out[:, i] = sum_k w[i, k] * data[:, idx[i, k]].
+
+    Each row block scatters its (B, K) weights into a dense (B, N) slab
+    and one f32 matmul contracts it with the gene-concatenated data.
+    Unset slots (index -1) carry weight 0 and are pointed at cell 0."""
+    gs = [d.shape[0] for d in data_cols_list]
+    data_rows = torch.cat([d.T for d in data_cols_list], dim=1)   # (N, ΣG)
+    n = data_rows.shape[0]
+    idx = nbr_idx.clamp_min(0)
+    # row blocks of up to 2048, with the (block, N) slab near 256 MB
+    block = min(2048, max(8, (1 << 26) // max(1, n)), max(8, n))
+    out = torch.empty_like(data_rows)
+    with full_f32():
+        for r0 in range(0, n, block):
+            ib = idx[r0:r0 + block]
+            slab = torch.zeros((ib.shape[0], n), dtype=torch.float32,
+                               device=data_rows.device)
+            slab.scatter_add_(1, ib, nbr_w[r0:r0 + block])
+            out[r0:r0 + block] = slab @ data_rows
+    outs, off = [], 0
+    for g in gs:
+        outs.append(out[:, off:off + g].T.contiguous())
+        off += g
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# host materialization (lazy .knn / .knn_smoothing_w views)
+# ---------------------------------------------------------------------------
+
+def graph_to_csr(g: KnnGraphDev):
+    """The reference csr form of the graph on the host
+    (BalancedKNN.kneighbors_graph / knn_distance_matrix layout)."""
+    from scipy import sparse
+    idx = g.idx.cpu().numpy().astype(np.int64)
+    dist = g.dist.cpu().numpy().astype(np.float64)
+    n, kw = idx.shape
+    return sparse.csr_matrix(
+        (dist.ravel(), idx.ravel(), np.arange(0, n * kw + 1, kw)),
+        shape=(g.n, g.n))
+
+
+def weights_to_csr(g: KnnGraphDev, diag: float = 1.0):
+    """The row-normalized smoothing-weight csr
+    (connectivity_to_weights((knn > 0) with setdiag(diag)))."""
+    from .smoothing import connectivity_to_weights
+    connectivity = (graph_to_csr(g) > 0).astype(float)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        connectivity.setdiag(diag)
+    return connectivity_to_weights(connectivity)
