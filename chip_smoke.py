@@ -1,17 +1,25 @@
 """Smoke run of velocyto_tpu_torch on one NVIDIA GPU: builds the CUDA
-kernels from this checkout, holds each against its plain PyTorch version
-on the card, times both, then drives the estimation pipeline end to end
-at 20,000 cells x 2,000 genes through the VelocytoLoom entry points and
-checks what comes out.
+kernels and the host sampler from this checkout, holds each kernel
+against its plain PyTorch version on the card and times both, checks the
+neighbour sampler against numpy, then drives three paths and checks what
+comes out:
+
+  - the estimation pipeline in full-correlation mode (knn_random=False,
+    dense colDeltaCor kernel) at 20,000 cells x 2,000 genes;
+  - the pipeline in its default mode (knn_random=True, sampled
+    colDeltaCor kernel), in bench_pipeline.py's configuration;
+  - the kernel bench, python3 -m velocyto_tpu_torch.bench (sampled and
+    dense kernels, FMA-chain probe).
 
     python3 chip_smoke.py
 
-Needs one CUDA device and nvcc (CUDA_HOME or the default toolkit path);
-imports nothing of JAX.  Exits non-zero, via an uncaught exception, on
-any failed phase; the last line of stdout is a JSON verdict printed only
-after every phase passed.
+Needs one CUDA device, nvcc (CUDA_HOME or the default toolkit path) and a
+host C++ compiler; imports nothing of JAX.  Exits non-zero, via an
+uncaught exception, on any failed phase; the last line of stdout is a
+JSON verdict printed only after every phase passed.
 """
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -22,9 +30,18 @@ import torch
 
 CELLS, GENES = 20000, 2000
 K, B_SIGHT, B_MAXL, N_NEIGHBORS = 500, 3000, 1500, 3500
+SAMPLED_FRACTION = 0.5
+NN_SAMPLED = int(SAMPLED_FRACTION * (N_NEIGHBORS + 1))     # 1750
 RTOL, ATOL = 2e-3, 2e-4          # the JAX tests' colDeltaCor tolerances
+FMA_RTOL = 1e-5                  # one rounding per step against two
 SPOT_ROWS = 256
 DEVICE = "cuda"
+# the transform/psc cases of the kernel checks (partial semantics are
+# the sampled kernel's only semantics)
+CASES = [("linear", 0.0, False), ("sqrt", 0.0, False),
+         ("sqrt", 1e-10, False), ("sqrt", 1.0, False),
+         ("log10", 1.0, False), ("sqrt", 1e-10, True),
+         ("log10", 1.0, True)]
 
 
 def synth(rng, n, g):
@@ -66,29 +83,43 @@ def device_phase():
     return name, smi
 
 
+def _ffma_count(lib):
+    """FFMA instructions in the SASS of the FMA probe's library, or None
+    where the toolkit has no cuobjdump."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    return sum(" FFMA " in line for line in sass.splitlines())
+
+
 def build_phase():
-    from velocyto_tpu_torch import kernels
+    from velocyto_tpu_torch import kernels, native
     phase("build")
     t0 = time.perf_counter()
-    lib = kernels.build()
-    print(f"# build: {time.perf_counter() - t0:.3f} s -> {lib.name}")
+    libs = kernels.build()             # one nvcc per source, in parallel
+    sampler = native.build()
+    print(f"# build: {time.perf_counter() - t0:.3f} s -> "
+          f"{sorted(p.name for p in libs.values())}, {sampler.name}")
     print(kernels.build_log.strip(), flush=True)
+    ffma = _ffma_count(libs["fma_probe"])
+    print(f"# fma_probe SASS: {ffma} FFMA instructions (8 chains x 128 "
+          f"steps = 1024 expected)", flush=True)
+    assert ffma is None or ffma >= 1024, f"probe folded: {ffma} FFMA"
 
 
-def _inputs(g, n, seed):
-    rng = np.random.RandomState(seed)
-    e = torch.tensor(rng.rand(g, n) * 10, dtype=torch.float32, device="cuda")
-    d = torch.tensor(rng.randn(g, n), dtype=torch.float32, device="cuda")
-    return e, d
-
-
-def _off_diag_err(got, want):
-    """max |got - want| off the diagonal (0/0 by construction), and
-    whether every off-diagonal entry is within RTOL/ATOL."""
-    off = ~torch.eye(got.shape[0], dtype=torch.bool, device=got.device)
-    diff = (got - want).abs()[off]
-    ok = bool(torch.all(diff <= ATOL + RTOL * want.abs()[off]))
-    return float(diff.max()), ok
+def _err(got, want, mask=None):
+    """max |got - want| (over mask), and whether every entry is within
+    RTOL/ATOL with NaNs in the same places."""
+    if mask is not None:
+        got, want = got[mask], want[mask]
+    same_nan = bool(torch.equal(torch.isnan(got), torch.isnan(want)))
+    fin = ~torch.isnan(want)
+    diff = (got[fin] - want[fin]).abs()
+    ok = same_nan and bool(torch.all(diff <= ATOL + RTOL * want[fin].abs()))
+    return (float(diff.max()) if diff.numel() else 0.0), ok
 
 
 def _time_ms(fn):
@@ -102,47 +133,201 @@ def _time_ms(fn):
     return start.elapsed_time(stop), out
 
 
-def kernel_phase(smi):
+def _in_turns(kernel_fn, plain_fn, n=3):
+    """Median ms of kernel and plain over n calls each, in turns, and the
+    last results."""
+    ms, plain_ms = [], []
+    got = want = None
+    for _ in range(n):
+        got = want = None
+        t, got = _time_ms(kernel_fn)
+        ms.append(t)
+        t, want = _time_ms(plain_fn)
+        plain_ms.append(t)
+    return statistics.median(ms), statistics.median(plain_ms), got, want
+
+
+def dense_phase(smi):
     from velocyto_tpu_torch.ops.coldeltacor import (
         _TRANSFORMS, _col_delta_cor_dense_plain, col_delta_cor)
-    phase("kernel against plain, on the card")
-    cases = [("linear", 0.0, False), ("sqrt", 0.0, False),
-             ("sqrt", 1e-10, False), ("sqrt", 1.0, False),
-             ("log10", 1.0, False), ("sqrt", 1e-10, True),
-             ("log10", 1.0, True)]
+    phase("dense kernel against plain, on the card")
     for g, n in ((37, 29), (2000, 2048)):
-        e, d = _inputs(g, n, seed=g)
-        for tf, psc, partial in cases:
+        rng = np.random.RandomState(g)
+        e = torch.tensor(rng.rand(g, n) * 10, dtype=torch.float32,
+                         device=DEVICE)
+        d = torch.tensor(rng.randn(g, n), dtype=torch.float32, device=DEVICE)
+        off = ~torch.eye(n, dtype=torch.bool, device=DEVICE)
+        for tf, psc, partial in CASES:
             got = col_delta_cor(e, d, tf, psc, partial_semantics=partial)
             torch.cuda.synchronize()
             want = _col_delta_cor_dense_plain(e, d, _TRANSFORMS[tf], psc,
                                               partial)
-            err, ok = _off_diag_err(got, want)
+            err, ok = _err(got, want, off)
             print(f"# check G={g} N={n} {tf} psc={psc} "
                   f"{'partial' if partial else 'full'}: max_abs_err={err!r}"
                   f" ok={ok}", flush=True)
             assert ok, f"kernel disagrees with plain: {tf} {psc} {partial}"
 
-    # the main path's shape and configuration: sqrt, psc 1e-10, full
-    e, d = _inputs(GENES, CELLS, seed=1)
-    tcode = _TRANSFORMS["sqrt"]
-    ms, got, plain_ms, want = [], None, [], None
-    for _ in range(3):                  # in turns: kernel, plain, ...
-        got = want = None
-        t, got = _time_ms(lambda: col_delta_cor(e, d, "sqrt", 1e-10))
-        ms.append(t)
-        t, want = _time_ms(
-            lambda: _col_delta_cor_dense_plain(e, d, tcode, 1e-10))
-        plain_ms.append(t)
-    err, ok = _off_diag_err(got, want)
-    ms, plain_ms = statistics.median(ms), statistics.median(plain_ms)
-    print(f"# time G={GENES} N={CELLS} sqrt psc=1e-10 on {smi}: kernel "
-          f"{ms!r} ms, plain {plain_ms!r} ms (median of 3, CUDA events); "
-          f"max_abs_err={err!r} ok={ok}", flush=True)
-    assert ok, "kernel disagrees with plain at the main path's shape"
+    # the full-mode path's shape and configuration: sqrt, psc 1e-10
+    rng = np.random.RandomState(1)
+    e = torch.tensor(rng.rand(GENES, CELLS) * 10, dtype=torch.float32,
+                     device=DEVICE)
+    d = torch.tensor(rng.randn(GENES, CELLS), dtype=torch.float32,
+                     device=DEVICE)
+    ms, plain_ms, got, want = _in_turns(
+        lambda: col_delta_cor(e, d, "sqrt", 1e-10),
+        lambda: _col_delta_cor_dense_plain(e, d, _TRANSFORMS["sqrt"], 1e-10))
+    err, ok = _err(got, want,
+                   ~torch.eye(CELLS, dtype=torch.bool, device=DEVICE))
+    print(f"# time dense G={GENES} N={CELLS} sqrt psc=1e-10 on {smi}: "
+          f"kernel {ms!r} ms, plain {plain_ms!r} ms (median of 3, CUDA "
+          f"events); max_abs_err={err!r} ok={ok}", flush=True)
+    assert ok, "dense kernel disagrees with plain at the path's shape"
     del got, want
     torch.cuda.empty_cache()
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err}
+
+
+def _sampled_case(g, n, m, nn, seed, idx_dtype):
+    """e_full (n, g), e_ctr / d_ctr / d_ctr2 (m, g) = the first m rows,
+    ixs (m, nn) distinct non-self neighbours, on the card."""
+    rng = np.random.RandomState(seed)
+    e = torch.tensor(rng.rand(n, g) * 10, dtype=torch.float32, device=DEVICE)
+    d = torch.tensor(rng.randn(m, g), dtype=torch.float32, device=DEVICE)
+    d2 = torch.tensor(rng.randn(m, g), dtype=torch.float32, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    keys = torch.rand((m, n), generator=gen, device=DEVICE)
+    keys[torch.arange(m, device=DEVICE), torch.arange(m, device=DEVICE)] = 2.
+    ixs = keys.argsort(dim=1)[:, :nn].to(idx_dtype).contiguous()
+    return e, e[:m], d, d2, ixs
+
+
+def sampled_phase(smi):
+    from velocyto_tpu_torch import kernels
+    from velocyto_tpu_torch.ops.coldeltacor import (
+        _TRANSFORMS, _col_delta_cor_partial_plain)
+    phase("sampled kernel against plain, on the card")
+    shapes = [(37, 29, 29, 13, torch.int64),
+              (GENES, CELLS, 2048, NN_SAMPLED, torch.int64),
+              (GENES, 3072, 3072, 512, torch.int32)]
+    for g, n, m, nn, idt in shapes:
+        e, e_ctr, d, d2, ixs = _sampled_case(g, n, m, nn, g + n, idt)
+        for tf, psc in sorted({(c[0], c[1]) for c in CASES}):
+            tc = _TRANSFORMS[tf]
+            got = kernels.coldeltacor_partial(e, e_ctr, d, ixs, tc, psc)
+            main, rndm = kernels.coldeltacor_partial(e, e_ctr, d, ixs, tc,
+                                                     psc, d_ctr2=d2)
+            got2 = kernels.coldeltacor_partial(e, e_ctr, d2, ixs, tc, psc)
+            torch.cuda.synchronize()
+            want = _col_delta_cor_partial_plain(e, e_ctr, d, ixs, tc, psc)
+            err, ok = _err(got, want)
+            err2, ok2 = _err(got2, _col_delta_cor_partial_plain(
+                e, e_ctr, d2, ixs, tc, psc))
+            bitwise = torch.equal(main, got) and torch.equal(rndm, got2)
+            dual_ok = _err(main, got)[1] and _err(rndm, got2)[1]
+            print(f"# check G={g} N={n} M={m} nn={nn} {idt} {tf} psc={psc}:"
+                  f" max_abs_err={max(err, err2)!r} ok={ok and ok2}; dual "
+                  f"vs two single calls ok={dual_ok} bitwise={bitwise}",
+                  flush=True)
+            assert ok and ok2 and dual_ok, f"sampled kernel: {tf} {psc}"
+        del e, e_ctr, d, d2, ixs
+
+    # the default-mode path's shape: all 20,000 rows, nn = 1750, the main
+    # field and the randomized control in one dual call
+    e, e_ctr, d, d2, ixs = _sampled_case(GENES, CELLS, CELLS, NN_SAMPLED, 7,
+                                         torch.int64)
+    tc = _TRANSFORMS["sqrt"]
+    ms, plain_ms, got, want = _in_turns(
+        lambda: kernels.coldeltacor_partial(e, e, d, ixs, tc, 1e-10,
+                                            d_ctr2=d2),
+        lambda: (_col_delta_cor_partial_plain(e, e, d, ixs, tc, 1e-10),
+                 _col_delta_cor_partial_plain(e, e, d2, ixs, tc, 1e-10)))
+    (err, ok), (err2, ok2) = _err(got[0], want[0]), _err(got[1], want[1])
+    err = max(err, err2)
+    single_ms = statistics.median(_time_ms(
+        lambda: kernels.coldeltacor_partial(e, e, d, ixs, tc, 1e-10))[0]
+        for _ in range(3))
+    gbps = CELLS * NN_SAMPLED * GENES * 4 / (ms / 1e3) / 1e9
+    print(f"# time sampled dual G={GENES} N={CELLS} nn={NN_SAMPLED} sqrt "
+          f"psc=1e-10 on {smi}: kernel {ms!r} ms (single call "
+          f"{single_ms!r} ms), plain (two calls) {plain_ms!r} ms (median "
+          f"of 3, CUDA events); gathered rows {gbps!r} GB/s; "
+          f"max_abs_err={err!r} ok={ok and ok2}", flush=True)
+    assert ok and ok2, "sampled kernel disagrees with plain at 20k"
+    del e, e_ctr, d, d2, ixs, got, want
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "single_ms": single_ms}
+
+
+def cross_check_phase():
+    """The two kernel families agree: the dense kernel with partial
+    semantics, read at sampled positions, against the sampled kernel."""
+    from velocyto_tpu_torch import kernels
+    from velocyto_tpu_torch.ops.coldeltacor import _TRANSFORMS
+    phase("dense (partial semantics) against sampled, on the card")
+    g, n, nn = GENES, 2048, 256
+    e_rows, _, d_rows, _, ixs = _sampled_case(g, n, n, nn, 11, torch.int64)
+    for tf, psc in (("sqrt", 1e-10), ("log10", 1.0), ("linear", 0.0)):
+        tc = _TRANSFORMS[tf]
+        dense = kernels.coldeltacor_dense(e_rows.T.contiguous(),
+                                          d_rows.T.contiguous(), tc, psc,
+                                          partial_semantics=True)
+        sampled = kernels.coldeltacor_partial(e_rows, e_rows, d_rows, ixs,
+                                              tc, psc)
+        err, ok = _err(sampled, dense.gather(1, ixs))
+        print(f"# cross-check G={g} N={n} nn={nn} {tf} psc={psc}: "
+              f"max_abs_err={err!r} ok={ok}", flush=True)
+        assert ok, f"dense and sampled kernels disagree: {tf}"
+
+
+def sampler_phase():
+    from velocyto_tpu_torch import native
+    phase("neighbour sampler against numpy")
+    n, nn_k, n_samp = 2000, 401, 200
+    p = np.linspace(0.5, 0.1, nn_k)
+    p /= p.sum()
+    got, draws, state = native.choice_noreplace_rows(15071990, n, nn_k,
+                                                     n_samp, p)
+    want, want_state = native.choice_rows_plain(15071990, n, nn_k, n_samp, p)
+    same = (np.array_equal(got, want) and state[0] == want_state[0]
+            and np.array_equal(state[1], want_state[1])
+            and state[2:] == want_state[2:])
+    print(f"# sampler N={n} nn_k={nn_k} n_samp={n_samp}: positions and "
+          f"final MT19937 state equal to the numpy loop: {same} "
+          f"({draws} doubles drawn)", flush=True)
+    assert same, "sampler differs from np.random.choice"
+    nn_k = N_NEIGHBORS + 1
+    p = np.linspace(0.5, 0.1, nn_k)
+    p /= p.sum()
+    t0 = time.perf_counter()
+    native.choice_noreplace_rows(15071990, CELLS, nn_k, NN_SAMPLED, p)
+    print(f"# sampler at the operating point (N={CELLS}, nn_k={nn_k}, "
+          f"n_samp={NN_SAMPLED}): {time.perf_counter() - t0:.3f} s host",
+          flush=True)
+
+
+def fma_phase(smi):
+    from velocyto_tpu_torch import bench, kernels
+    phase("FMA probe against plain, on the card")
+    worst = 0.0
+    for x in (torch.full((8192, 512), 0.4, device=DEVICE),
+              torch.empty((8192, 512), device=DEVICE).uniform_(-0.9, 0.9)):
+        got = kernels.fma_probe(x)
+        want = bench._fma_plain(x)
+        diff = (got - want).abs()
+        ok = bool(torch.all(diff <= FMA_RTOL * want.abs()))
+        worst = max(worst, float(diff.max()))
+        print(f"# check fma (8192, 512): max_abs_err={float(diff.max())!r} "
+              f"ok={ok}", flush=True)
+        assert ok, "FMA probe disagrees with plain"
+    ms = bench.device_seconds(lambda: kernels.fma_probe(x), reps=200) * 1e3
+    plain_ms = bench.device_seconds(lambda: bench._fma_plain(x), reps=3) * 1e3
+    tflops = x.numel() * bench.FMA_STEPS * bench.FMA_CHAINS * 2 / ms / 1e9
+    print(f"# time fma (8192, 512) on {smi}: kernel {ms!r} ms (mean of 200"
+          f" launches), plain {plain_ms!r} ms (mean of 3); {tflops!r} "
+          f"TFLOP/s", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": worst}
 
 
 def _brute_knn(x, rows, k):
@@ -158,12 +343,25 @@ def _brute_knn(x, rows, k):
     return np.stack(out)
 
 
-def pipeline_phase():
-    import velocyto_tpu_torch as vtt
+def _check_gammas(v, gamma_true):
     from scipy.stats import spearmanr
+    rho = float(spearmanr(v.gammas, gamma_true).correlation)
+    med, want = float(np.median(v.gammas)), 0.4 * float(np.median(gamma_true))
+    print(f"# gammas: spearman {rho!r} vs truth; median {med!r} vs "
+          f"0.4*median(truth) {want!r}", flush=True)
+    assert rho > 0.9, f"gamma spearman {rho}"
+    assert abs(med - want) <= 0.25 * want, f"gamma median {med} vs {want}"
+
+
+def pipeline_phase(knn_random):
+    """Drive the pipeline through the VelocytoLoom entry points with the
+    launch counts set to 0 just before; returns (stage seconds, total,
+    launch counts, the object, the true gammas)."""
+    import velocyto_tpu_torch as vtt
     from velocyto_tpu_torch import kernels
-    from velocyto_tpu_torch.ops import knn_device as kd
-    phase(f"pipeline {CELLS} cells x {GENES} genes")
+    mode = "default mode (knn_random=True)" if knn_random else \
+        "full mode (knn_random=False)"
+    phase(f"pipeline, {mode}, {CELLS} cells x {GENES} genes")
     t0 = time.perf_counter()
     S, U, gamma_true = synth(np.random.RandomState(0), CELLS, GENES)
     print(f"# synthesize: {time.perf_counter() - t0:.3f} s", flush=True)
@@ -197,17 +395,20 @@ def pipeline_phase():
         v.calculate_shift(assumption="constant_velocity")
         v.extrapolate_cell_at_t(delta_t=1.)
 
-    launches = {}
+    transition_launches = {}
 
     def _transition():
-        before = kernels.dense_launches
+        before = (kernels.dense_launches, kernels.partial_launches)
         v.estimate_transition_prob(
-            hidim="Sx_sz", embed="ts", transform="sqrt", knn_random=False,
-            n_neighbors=N_NEIGHBORS, calculate_randomized=True)
-        launches["transition"] = kernels.dense_launches - before
+            hidim="Sx_sz", embed="ts", transform="sqrt",
+            knn_random=knn_random, n_neighbors=N_NEIGHBORS,
+            sampled_fraction=SAMPLED_FRACTION, calculate_randomized=True)
+        transition_launches.update(
+            dense=kernels.dense_launches - before[0],
+            partial=kernels.partial_launches - before[1])
 
     torch.cuda.reset_peak_memory_stats()
-    kernels.dense_launches = 0          # count the main path's launches only
+    kernels.reset_counts()              # count this path's launches only
     t_all = time.perf_counter()
     stage("normalize", _norm)
     stage("pca", lambda: v.perform_PCA(which="S_norm", n_components=50))
@@ -222,27 +423,65 @@ def pipeline_phase():
     stage("grid_arrows", lambda: v.calculate_grid_arrows(
         smooth=0.5, steps=(40, 40), n_neighbors=100))
     total = time.perf_counter() - t_all
-    main_launches = kernels.dense_launches
+    launches = {"dense": kernels.dense_launches,
+                "partial": kernels.partial_launches,
+                "fma": kernels.fma_launches}
     peak = torch.cuda.max_memory_allocated()
-    print(f"# pipeline total: {total:.3f} s; dense kernel launches "
-          f"{main_launches} (transition stage {launches['transition']}); "
-          f"peak device memory {peak / 2**30:.2f} GiB", flush=True)
+    print(f"# pipeline total: {total:.3f} s; kernel launches {launches} "
+          f"(transition stage {transition_launches}); peak device memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
 
-    phase("checks")
-    assert launches["transition"] == 2 and main_launches == 2, \
-        f"expected 2 dense kernel launches, got {launches}, {main_launches}"
+    phase(f"checks, {mode}")
     for name in ("delta_embedding", "delta_embedding_random", "flow"):
         assert np.all(np.isfinite(getattr(v, name))), f"{name} not finite"
-    corr = v._get_dev("corrcoef")           # diagonal already set to 0
-    assert corr.shape == (CELLS, CELLS) and bool(torch.isfinite(corr).all())
-    assert bool(torch.isfinite(v._get_dev("corrcoef_random")).all())
-    rho = float(spearmanr(v.gammas, gamma_true).correlation)
-    med, want = float(np.median(v.gammas)), 0.4 * float(np.median(gamma_true))
-    print(f"# gammas: spearman {rho!r} vs truth; median {med!r} vs "
-          f"0.4*median(truth) {want!r}", flush=True)
-    assert rho > 0.9, f"gamma spearman {rho}"
-    assert abs(med - want) <= 0.25 * want, f"gamma median {med} vs {want}"
+    _check_gammas(v, gamma_true)
+    if knn_random:
+        # the dual form: main field and randomized control in one launch
+        assert launches == {"dense": 0, "partial": 1, "fma": 0} and \
+            transition_launches["partial"] == 1, launches
+        _check_sampled_state(v)
+    else:
+        assert launches == {"dense": 2, "partial": 0, "fma": 0} and \
+            transition_launches["dense"] == 2, launches
+        corr = v._get_dev("corrcoef")           # diagonal already set to 0
+        assert corr.shape == (CELLS, CELLS) and bool(torch.isfinite(corr).all())
+        assert bool(torch.isfinite(v._get_dev("corrcoef_random")).all())
+        _check_knn_rows(v)
+    return stages, total, launches, peak
 
+
+def _check_sampled_state(v):
+    """Every sampled neighbour lies in its cell's embedding kNN and is not
+    the cell itself; the compact state is finite and no dense (N, N) view
+    (correlations, probabilities, kNN mask) was built."""
+    from velocyto_tpu_torch.ops import knn_device as kd
+    ixs = v._compact_ixs_dev
+    nn_k = N_NEIGHBORS + 1
+    assert tuple(ixs.shape) == (CELLS, NN_SAMPLED), tuple(ixs.shape)
+    rows = torch.arange(CELLS, device=ixs.device)[:, None]
+    assert not bool((ixs == rows).any()), "a cell sampled itself"
+    _d, knn = kd.knn_search_dev(v.ts, nn_k + 1, device=v.device)
+    knn = knn.sort(dim=1).values
+    pos = torch.searchsorted(knn, ixs).clamp_max(nn_k)
+    assert bool((knn.gather(1, pos) == ixs).all()), \
+        "a sampled neighbour is outside the embedding kNN"
+    uniq = ixs.sort(dim=1).values
+    assert bool((uniq[:, 1:] != uniq[:, :-1]).all()), "repeated neighbour"
+    for name in ("_corr_dev", "_corr_rndm_dev"):
+        t = v.__dict__[name]
+        assert tuple(t.shape) == (CELLS, NN_SAMPLED) and \
+            bool(torch.isfinite(t).all()), name
+    dense = [k for k in v._LAZY_DENSE + ("embedding_knn",)
+             if k in v.__dict__ or k in v.__dict__.get("_dev_state", {})]
+    assert not dense, f"dense (N, N) state built: {dense}"
+    assert v.sampling_ixs.shape == (CELLS, NN_SAMPLED)
+    print(f"# sampled state: {CELLS} x {NN_SAMPLED} neighbours, none self, "
+          f"all within the {nn_k}-neighbour embedding kNN, no repeats; "
+          f"compact correlations finite; no (N, N) array", flush=True)
+
+
+def _check_knn_rows(v):
+    from velocyto_tpu_torch.ops import knn_device as kd
     rows = np.random.RandomState(1).choice(CELLS, SPOT_ROWS, replace=False)
     kk = B_SIGHT + 1                        # the balanced search's width
     _d, idx = kd.knn_search_dev(v.pcs, kk, device=v.device)
@@ -252,21 +491,63 @@ def pipeline_phase():
     print(f"# knn spot check: {SPOT_ROWS} rows x {kk} neighbours, "
           f"{n_bad} rows differ from host f64 brute force", flush=True)
     assert n_bad == 0, "kNN rows differ from the f64 brute force"
-    return stages, total, main_launches
+
+
+def bench_phase():
+    from velocyto_tpu_torch import bench, kernels
+    phase("kernel bench (python3 -m velocyto_tpu_torch.bench)")
+    kernels.reset_counts()              # count this path's launches only
+    result = bench.main()
+    launches = {"dense": kernels.dense_launches,
+                "partial": kernels.partial_launches,
+                "fma": kernels.fma_launches}
+    print(f"# bench launches {launches}", flush=True)
+    assert all(launches.values()), f"a bench kernel never ran: {launches}"
+    for key in ("value", "large_n_cells_per_sec", "dense_kernel_tflops_f32",
+                "fma_ceiling_tflops_f32"):
+        assert np.isfinite(result[key]) and result[key] > 0, key
+    return result, launches
 
 
 def main():
     _card, smi = device_phase()
     build_phase()
-    timing = kernel_phase(smi)
-    stages, total, launches = pipeline_phase()
-    print(json.dumps({"pipeline_s": total, "stages_s": stages}))
-    print(json.dumps({"kernels": [{
-        "name": "coldeltacor_dense", "route": "cuda",
-        "source": "velocyto_tpu_torch/kernels/coldeltacor_dense.cu",
-        "replaces": "velocyto_tpu/ops/coldeltacor.py:89",
-        "launches": launches, "max_abs_err": timing["max_abs_err"],
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"]}]}))
+    dense = dense_phase(smi)
+    sampled = sampled_phase(smi)
+    cross_check_phase()
+    sampler_phase()
+    fma = fma_phase(smi)
+    stages_full, total_full, launches_full, peak_full = \
+        pipeline_phase(knn_random=False)
+    torch.cuda.empty_cache()
+    stages_samp, total_samp, launches_samp, peak_samp = \
+        pipeline_phase(knn_random=True)
+    _bench, launches_bench = bench_phase()
+    print(json.dumps({"pipeline_full_s": total_full,
+                      "stages_full_s": stages_full,
+                      "peak_full_gib": peak_full / 2**30,
+                      "pipeline_default_s": total_samp,
+                      "stages_default_s": stages_samp,
+                      "peak_default_gib": peak_samp / 2**30}))
+    print(json.dumps({"kernels": [
+        {"name": "coldeltacor_dense", "route": "cuda",
+         "source": "velocyto_tpu_torch/kernels/coldeltacor_dense.cu",
+         "replaces": "velocyto_tpu/ops/coldeltacor.py:89",
+         "launches": launches_full["dense"],
+         "max_abs_err": dense["max_abs_err"], "ms": dense["ms"],
+         "plain_ms": dense["plain_ms"]},
+        {"name": "coldeltacor_partial", "route": "cuda",
+         "source": "velocyto_tpu_torch/kernels/coldeltacor_partial.cu",
+         "replaces": "velocyto_tpu/ops/coldeltacor.py:260",
+         "launches": launches_samp["partial"],
+         "max_abs_err": sampled["max_abs_err"], "ms": sampled["ms"],
+         "plain_ms": sampled["plain_ms"]},
+        {"name": "fma_probe", "route": "cuda",
+         "source": "velocyto_tpu_torch/kernels/fma_probe.cu",
+         "replaces": "bench.py:192",
+         "launches": launches_bench["fma"],
+         "max_abs_err": fma["max_abs_err"], "ms": fma["ms"],
+         "plain_ms": fma["plain_ms"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

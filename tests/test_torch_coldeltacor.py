@@ -92,8 +92,18 @@ def test_kernels_import_without_cuda():
     nothing at import, and its wrapper refuses CPU tensors instead of
     falling back."""
     assert kernels.dense_launches == 0
-    assert kernels._lib is None and kernels.DENSE_SOURCE.exists()
+    assert kernels._lib is None
+    assert [s.name for s in kernels.SOURCES] == [
+        "coldeltacor_dense.cu", "coldeltacor_partial.cu", "fma_probe.cu"]
     e = torch.zeros((4, 3))
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.coldeltacor_dense(e, e, 0, 0.0)
-    assert kernels.dense_launches == 0 and kernels._lib is None
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.coldeltacor_partial(e, e, e, torch.zeros((4, 2),
+                                                         dtype=torch.int64),
+                                    1, 1e-10)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.fma_probe(e)
+    assert kernels.dense_launches == kernels.partial_launches == \
+        kernels.fma_launches == 0
+    assert kernels._lib is None

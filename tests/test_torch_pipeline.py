@@ -361,12 +361,6 @@ def test_state_from_numpy_round_trips(runs):
                                   port._get_dev("Upred").numpy())
 
 
-def test_knn_random_is_not_ported(runs):
-    port = vtt.state_from_numpy({"S": runs["jax_v"].S}, "cpu")
-    with pytest.raises(NotImplementedError, match="sampled"):
-        port.estimate_transition_prob(knn_random=True)
-
-
 def test_loom_opens_through_port(tmp_path, golden):
     path = str(tmp_path / "t.loom")
     S, U = golden["S"], golden["U"]
@@ -411,6 +405,13 @@ v.calculate_embedding_shift(sigma_corr=0.05, expression_scaling=False)
 v.calculate_grid_arrows(smooth=0.5, steps=(6, 6), n_neighbors=10)
 assert np.isfinite(v.delta_embedding).all() and np.isfinite(v.flow).all()
 assert v.corrcoef.shape == (n, n)
+v.estimate_transition_prob(hidim="Sx_sz", embed="ts", knn_random=True,
+                           n_neighbors=20, sampled_fraction=0.5)
+v.calculate_embedding_shift(sigma_corr=0.05, expression_scaling=True)
+v.calculate_grid_arrows(smooth=0.5, steps=(6, 6), n_neighbors=10)
+assert v.sampling_ixs.shape == (n, 10) and v._corr_dev.shape == (n, 10)
+assert np.isfinite(v.delta_embedding).all() and np.isfinite(v.flow).all()
+assert np.isfinite(v.flow_rndm).all() and v.transition_prob.shape == (n, n)
 assert not any(m == "jax" or m.startswith(("jax.", "velocyto_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("JAX-FREE OK")

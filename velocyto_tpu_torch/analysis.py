@@ -6,21 +6,22 @@ velocyto/analysis.py:26-2470):
 
   normalize -> perform_PCA -> knn_imputation -> fit_gammas -> predict_U /
   calculate_velocity / calculate_shift / extrapolate_cell_at_t ->
-  estimate_transition_prob(knn_random=False) -> calculate_embedding_shift
+  estimate_transition_prob (sampled or full) -> calculate_embedding_shift
   -> calculate_grid_arrows
 
 Every object works on one explicit torch device (``device=``; the default
-is "cuda").  The heavy (genes, cells) stage outputs and the (cells,
-cells) correlation state stay on that device between stages; the numpy
-attributes the reference exposes are materialized lazily on first read.
-The dense colDeltaCor runs through the hand-written CUDA kernel on a
-CUDA device (ops/coldeltacor.py).  Host stages (normalization, PCA, the
-greedy kNN balance, the randomized-control permutation and the grid
-field) stay numpy/scipy, as in the JAX package.
+is "cuda").  The heavy (genes, cells) stage outputs and the correlation
+state stay on that device between stages; the numpy attributes the
+reference exposes are materialized lazily on first read.  Both
+colDeltaCor variants run through hand-written CUDA kernels on a CUDA
+device (ops/coldeltacor.py).  Host stages (normalization, PCA, the greedy
+kNN balance, the randomized-control permutation, the neighbour-sampling
+replay and the grid field) stay numpy/scipy/C++, as in the JAX package.
 """
 from __future__ import annotations
 
 import logging
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, List, Optional, Tuple, Union
 
 import numpy as np
@@ -28,9 +29,10 @@ import torch
 from scipy import sparse
 from scipy.stats import norm as normal
 
+from . import native
 from .io import loom as loomio
 from .ops import knn_device as kd
-from .ops.coldeltacor import col_delta_cor
+from .ops.coldeltacor import col_delta_cor, col_delta_cor_partial_compact
 from .ops.gamma import compute_fit_weights, fit_slope_weighted_offset
 from .ops.knn import _knn_query_impl, full_f32
 from .ops.pca import PCA
@@ -107,10 +109,12 @@ class VelocytoLoom:
     # authoritative again (the device entry is dropped).  Stage tensors
     # may alias each other (Sx_sz is Sx): nothing updates them in place.
 
-    # (cells, cells) state is exposed as float32, like the JAX package's
-    # host arrays; everything else as float64
-    _HOST_F32 = ("corrcoef", "corrcoef_random",
-                 "transition_prob", "transition_prob_random")
+    # the (cells, cells) state.  Full mode keeps it on the device and
+    # exposes it as float32, like the JAX package's host arrays (every
+    # other device-backed attribute as float64); knn_random mode builds
+    # it from the compact (cells, nn) state on first read
+    _LAZY_DENSE = ("corrcoef", "corrcoef_random",
+                   "transition_prob", "transition_prob_random")
 
     def __setattr__(self, name: str, value: Any) -> None:
         ds = self.__dict__.get("_dev_state")
@@ -124,6 +128,8 @@ class VelocytoLoom:
         d = self.__dict__
         if name in (d.get("_dev_state") or ()):
             return self._materialize_dev(name)
+        if name in self._LAZY_DENSE:
+            return self._materialize_dense(name)
         if name in ("knn", "knn_smoothing_w") and \
                 d.get("_knn_graph_dev") is not None:
             g = d["_knn_graph_dev"]
@@ -131,6 +137,16 @@ class VelocytoLoom:
                    kd.weights_to_csr(g, diag=d.get("_knn_diag", 1)))
             d[name] = out
             return out
+        if name == "_compact_ixs" and d.get("_compact_ixs_dev") is not None:
+            d[name] = d["_compact_ixs_dev"].cpu().numpy().astype(np.int64)
+            return d[name]
+        if name == "embedding_knn" and d.get("_compact_ixs_dev") is not None:
+            ixs = self._compact_ixs
+            n, nn = ixs.shape
+            d[name] = sparse.csr_matrix(
+                (np.ones(n * nn), ixs.ravel(), np.arange(0, n * nn + 1, nn)),
+                shape=(n, n))
+            return d[name]
         raise AttributeError(
             f"'{type(self).__name__}' object has no attribute '{name}'")
 
@@ -139,6 +155,15 @@ class VelocytoLoom:
         self.__dict__.pop(name, None)
         self.__dict__.setdefault("_dev_state", {})[name] = dev
         self.__dict__.setdefault("_dev_host_cache", {}).pop(name, None)
+
+    def _drop(self, *names: str) -> None:
+        """Forget attributes: host values, device tensors and cached host
+        views alike."""
+        d = self.__dict__
+        for name in names:
+            d.pop(name, None)
+            (d.get("_dev_state") or {}).pop(name, None)
+            (d.get("_dev_host_cache") or {}).pop(name, None)
 
     def _get_dev(self, name: str, dtype: torch.dtype = _F32) -> torch.Tensor:
         """`name` as a tensor on self.device (no transfer when the
@@ -153,7 +178,7 @@ class VelocytoLoom:
         dev = self.__dict__["_dev_state"][name]
         cache = self.__dict__.setdefault("_dev_host_cache", {})
         if name not in cache:
-            dt = np.float32 if name in self._HOST_F32 else np.float64
+            dt = np.float32 if name in self._LAZY_DENSE else np.float64
             cache[name] = dev.cpu().numpy().astype(dt)
         return cache[name]
 
@@ -408,18 +433,18 @@ class VelocytoLoom:
                                  random_seed: int = 15071990,
                                  **kwargs: Any) -> None:
         """Correlation-based transition probabilities to the embedding
-        neighborhood (reference :1452-1668), full-correlation mode: the
-        dense (N, N) colDeltaCor runs on the device (hand-written CUDA
-        kernel on a CUDA device), and the randomized control permutes
-        delta_S with numpy's global stream, like the JAX package.
+        neighborhood (reference :1452-1668).
 
-        knn_random=True (the sampled path, the reference default) is not
-        ported yet (ROADMAP.md A1): pass knn_random=False."""
-        if knn_random:
-            raise NotImplementedError(
-                "estimate_transition_prob(knn_random=True) -- the sampled "
-                "colDeltaCor path -- is not ported yet (ROADMAP.md A1, "
-                "'The sampled path'); use knn_random=False")
+        knn_random=True (the reference default): each cell is correlated
+        with a random sample of its embedding neighbours, drawn from
+        numpy's stream exactly as the reference draws them (a C++ replay
+        of its per-cell np.random.choice loop, ``native``).  The sampled
+        colDeltaCor (hand CUDA kernel on a CUDA device; the main field and
+        the randomized control in one pass) keeps the compact (N, nn)
+        correlations on the device; the dense (N, N) attributes are built
+        only when read.  knn_random=False: the dense colDeltaCor (hand
+        CUDA kernel on a CUDA device).  The randomized control permutes
+        delta_S with numpy's global stream, like the JAX package."""
         numba_random_seed(random_seed)
         self.which_hidim = hidim
 
@@ -467,26 +492,65 @@ class VelocytoLoom:
         N = embedding.shape[0]
         nn_k = min(n_neighbors + 1, N - 1)
 
-        hi_dim_t_rndm = None
-        if "pcs" in hidim:  # sic (reference :1531)
-            hi_dim = torch.as_tensor(
-                np.array(getattr(self, hidim).T[:, :ndims], order="C"),
-                dtype=_F64, device=self.device)
-            hi_dim_t = torch.as_tensor(
-                np.array(getattr(self, hidim + "_t").T[:, :ndims], order="C"),
-                dtype=_F64, device=self.device)
-        else:
-            hi_dim = self._get_dev(hidim, _F64)
-            hi_dim_t = hi_dim + self.used_delta_t * \
-                self._get_dev("delta_S", _F64)
-            if calculate_randomized:
-                # numpy's global stream, at the reference's point in the
-                # sequence: bit-identical to the JAX package's control
-                self.delta_S_rndm = np.copy(self.delta_S)
-                permute_rows_nsign(self.delta_S_rndm)
-                hi_dim_t_rndm = hi_dim + self.used_delta_t * \
-                    self._get_dev("delta_S_rndm", _F64)
+        if not knn_random:
+            self._estimate_full(hidim, ndims, transform, psc,
+                                calculate_randomized, embedding, nn_k)
+            return
+        p_samp = np.linspace(sampling_probs[0], sampling_probs[1], nn_k)
+        p_samp = p_samp / p_samp.sum()
+        n_samp = int(sampled_fraction * nn_k)
+        # the C++ replay releases the GIL: it samples while the
+        # permutation, the transform and the embedding kNN run here
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            sampling = pool.submit(native.choice_noreplace_rows, random_seed,
+                                   N, nn_k, n_samp, p_samp)
+            tf, emat, d_main, d_rndm = self._corr_inputs(
+                hidim, ndims, transform, psc, calculate_randomized,
+                sampled=True)
+            _dists, idx = kd.knn_search_dev(embedding, min(nn_k + 1, N),
+                                            device=self.device)
+            # the reference seeds here, then calls np.random.choice once
+            # per cell; the replay leaves numpy's stream where they would
+            np.random.seed(random_seed)
+            sampling_ixs, _draws, mt_state = sampling.result()
+        np.random.set_state(mt_state)
+        self.sampling_ixs = sampling_ixs
+        self.corr_calc = "knn_random"
+        neigh = _sample_neighbors_dev(
+            idx, torch.as_tensor(sampling_ixs, device=idx.device))
+        # embedding_knn materializes lazily from the sampled indices
+        self._drop("embedding_knn", "_compact_ixs")
+        self._compact_ixs_dev = neigh
 
+        corr = col_delta_cor_partial_compact(emat, d_main, neigh, tf, psc,
+                                             dmat_random=d_rndm)
+        corr_m, corr_r = corr if d_rndm is not None else (corr, None)
+        corr_m, had_nan = _fix_nans(corr_m)
+        if had_nan:
+            logging.warning(
+                "Nans encountered in corrcoef and corrected to 1s. If not "
+                "identical cells were present it is probably a small "
+                "isolated cluster converging after imputation.")
+        self._corr_dev = corr_m
+        # the reference overwrites corrcoef here but leaves any old
+        # transition_prob stale until the next embedding-shift call
+        self._drop("_compact_corr", "corrcoef", "_tp_sigma")
+        if corr_r is not None:
+            self._corr_rndm_dev, _ = _fix_nans(corr_r)
+            self._drop("_compact_corr_random", "corrcoef_random")
+
+    def _estimate_full(self, hidim: str, ndims: Optional[int],
+                       transform: str, psc: float, calculate_randomized: bool,
+                       embedding: np.ndarray, nn_k: int) -> None:
+        """estimate_transition_prob(knn_random=False): dense (N, N)
+        correlations against every cell, masked later by embedding_knn."""
+        self.corr_calc = "full"
+        self._drop("_corr_dev", "_corr_rndm_dev", "_compact_corr",
+                   "_compact_corr_random", "_compact_ixs", "_compact_ixs_dev",
+                   "_tp_sigma")
+        tf, emat, d_main, d_rndm = self._corr_inputs(
+            hidim, ndims, transform, psc, calculate_randomized, sampled=False)
+        N = embedding.shape[0]
         # embedding neighbors: device f32 candidate pass + f64 re-score
         # (sklearn's exact ordering and tie-breaks)
         _dists, idx = kd.knn_search_dev(embedding, min(nn_k + 1, N),
@@ -503,38 +567,176 @@ class VelocytoLoom:
             (np.ones(N * nn_k), neigh_full.cpu().numpy().ravel(),
              np.arange(0, N * nn_k + 1, nn_k)), shape=(N, N))
 
-        self.corr_calc = "full"
-        tf, emat, d_main, d_rndm = _transform_for_corr(
-            transform, psc, hi_dim, hi_dim_t, hi_dim_t_rndm)
-        emat = emat.to(_F32).contiguous()
-        corr = col_delta_cor(emat, d_main.to(_F32).contiguous(), tf, psc)
+        corr = col_delta_cor(emat, d_main, tf, psc)
         corr.fill_diagonal_(0.0)
         self._set_dev("corrcoef", corr)
-        if calculate_randomized:
-            corr_r = col_delta_cor(emat, d_rndm.to(_F32).contiguous(), tf,
-                                   psc)
+        if d_rndm is not None:
+            corr_r = col_delta_cor(emat, d_rndm, tf, psc)
             corr_r.fill_diagonal_(0.0)
             self._set_dev("corrcoef_random", corr_r)
 
+    def _corr_inputs(self, hidim: str, ndims: Optional[int], transform: str,
+                     psc: float, calculate_randomized: bool, sampled: bool):
+        """(kernel transform name, emat, dmat, dmat_random or None) as f32
+        (G, N) tensors for the colDeltaCor call (reference :1575-1601).
+
+        With calculate_randomized, first permutes delta_S into
+        delta_S_rndm with numpy's global stream at the reference's point
+        in the sequence (bit-identical to the JAX package's control).
+        The sampled gene-space path transforms on the device in f32 from
+        delta_S directly, as the JAX package does; the full path and the
+        "pcs" hidim transform in f64."""
+        if calculate_randomized:
+            # the sampled path permutes the f32 device delta_S, as the
+            # JAX package does; the full path the host delta_S
+            self.delta_S_rndm = (
+                self._get_dev("delta_S").cpu().numpy().astype(np.float64)
+                if sampled and "pcs" not in hidim else np.copy(self.delta_S))
+            permute_rows_nsign(self.delta_S_rndm)
+        if "pcs" in hidim:  # sic (reference :1531)
+            hi_dim, hi_dim_t = (torch.as_tensor(
+                np.array(getattr(self, name).T[:, :ndims], order="C"),
+                dtype=_F64, device=self.device)
+                for name in (hidim, hidim + "_t"))
+            tf, emat, d_of = _transform_for_corr(transform, psc, hi_dim)
+            d_main, d_rndm = d_of(hi_dim_t), None
+        else:
+            dt = self.used_delta_t
+            if sampled:
+                tf = _KERNEL_TRANSFORM[transform]
+                hi = self._get_dev(hidim)
+                emat = torch.log2(hi + psc) if transform == "logratio" else hi
+
+                def d_of_shift(name):
+                    return _corr_transform_dev(hi, self._get_dev(name), dt,
+                                               psc, transform)
+            else:
+                hi = self._get_dev(hidim, _F64)
+                tf, emat, d_of = _transform_for_corr(transform, psc, hi)
+
+                def d_of_shift(name):
+                    return d_of(hi + dt * self._get_dev(name, _F64))
+            d_main = d_of_shift("delta_S")
+            d_rndm = (d_of_shift("delta_S_rndm") if calculate_randomized
+                      else None)
+        return (tf, emat.to(_F32).contiguous(), d_main.to(_F32).contiguous(),
+                None if d_rndm is None else d_rndm.to(_F32).contiguous())
+
+    # ------------------------------------------------------------------
+    # lazy dense views of the compact correlation state
+    # ------------------------------------------------------------------
+    #
+    # estimate_transition_prob(knn_random=True) keeps only the compact
+    # (N, nn) sampled correlations, as device tensors.  The dense (N, N)
+    # corrcoef / transition_prob the reference API exposes
+    # (analysis.py:1604-1683) are f64 host arrays built on first read, so
+    # a pipeline that never reads them never pays for them.
+
+    def _compact_corr_host(self, which: str = "main") -> np.ndarray:
+        """Host f64 copy of the compact correlations, pulled from the
+        device on first use and cached."""
+        key = "_compact_corr" if which == "main" else "_compact_corr_random"
+        d = self.__dict__
+        if d.get(key) is None:
+            dev = d.get("_corr_dev" if which == "main" else "_corr_rndm_dev")
+            if dev is None:
+                raise AttributeError(key)
+            d[key] = dev.cpu().numpy().astype(np.float64)
+        return d[key]
+
+    def _compact_ixs_or_none(self) -> Optional[np.ndarray]:
+        ixs = self.__dict__.get("_compact_ixs")
+        if ixs is None and self.__dict__.get("_compact_ixs_dev") is not None:
+            ixs = self._compact_ixs          # lazy pull + cache
+        return ixs
+
+    def _materialize_dense(self, name: str) -> np.ndarray:
+        ixs = self._compact_ixs_or_none()
+        if ixs is None:
+            raise AttributeError(name)
+        cm = self._compact_corr_host(
+            "rndm" if name.endswith("_random") else "main")
+        if name.startswith("transition_prob"):
+            sig = self.__dict__.get("_tp_sigma")
+            if sig is None:                      # no embedding-shift call yet
+                raise AttributeError(name)
+            cm = np.exp(cm / sig)
+            cm = cm / cm.sum(1)[:, None]
+        n = ixs.shape[0]
+        dense = np.zeros((n, n), dtype=np.float64)
+        dense[np.arange(n)[:, None], ixs] = cm
+        self.__dict__[name] = dense
+        return dense
+
     def _has_rndm_state(self) -> bool:
-        return ("corrcoef_random" in self.__dict__ or "corrcoef_random" in
-                (self.__dict__.get("_dev_state") or ()))
+        """hasattr(self, 'corrcoef_random') without building a dense
+        view."""
+        d = self.__dict__
+        return ("corrcoef_random" in d or "_compact_corr_random" in d
+                or "corrcoef_random" in (d.get("_dev_state") or ())
+                or d.get("_corr_rndm_dev") is not None)
+
+    def _compact_state_valid(self) -> bool:
+        """Whether the compact (N, nn) correlation state stored by
+        estimate_transition_prob still corresponds to self.corrcoef.  If
+        the dense view was built (and perhaps edited by the caller), it
+        is spot-checked on a random sample of entries."""
+        d = self.__dict__
+        ixs_any = d.get("_compact_ixs")
+        if ixs_any is None:
+            ixs_any = d.get("_compact_ixs_dev")
+        if ixs_any is None or getattr(self, "corr_calc", None) != "knn_random":
+            return False
+        if d.get("_corr_dev") is None and d.get("_compact_corr") is None:
+            return False
+        dense = d.get("corrcoef")
+        if dense is None:
+            return True                      # never materialized => pristine
+        n = ixs_any.shape[0]
+        if dense.shape[0] != n:
+            return False
+        ixs = self._compact_ixs_or_none()
+        cm = self._compact_corr_host("main")
+        if ixs.shape != cm.shape:
+            return False
+        rng = np.random.RandomState(0)
+        r = rng.randint(0, n, size=min(256, n))
+        c = rng.randint(0, ixs.shape[1], size=len(r))
+        return bool(np.array_equal(dense[r, ixs[r, c]], cm[r, c]))
+
+    def _corr_dev_view(self, name: str) -> torch.Tensor:
+        """corrcoef / corrcoef_random on the device as the JAX package
+        reads them: it keeps the full mode's as host arrays, so an
+        in-place edit of the host view is honoured.  The view is uploaded
+        only if __getattr__ handed it out."""
+        cached = (self.__dict__.get("_dev_host_cache") or {}).get(name)
+        if cached is not None:
+            return torch.as_tensor(cached, dtype=_F32, device=self.device)
+        return self._get_dev(name)
 
     def calculate_embedding_shift(self, sigma_corr: float = 0.05,
                                   expression_scaling: bool = True,
                                   scaling_penalty: float = 1.0) -> None:
-        """Project velocity onto the embedding (reference :1670-1733),
-        dense form on the device, blocked over cells so the reference's
-        (2, N, N) unitary-vector tensor never exists."""
-        if self.corr_calc != "full":
+        """Project velocity onto the embedding (reference :1670-1733).
+
+        knn_random mode runs on the compact (N, nn) sampled form
+        (softmax, unit-vector contraction, expression scaling); the dense
+        transition_prob is built only when read.  Full mode, and a
+        corrcoef the caller replaced or edited, take the dense form,
+        blocked over cells so the reference's (2, N, N) unitary-vector
+        tensor never exists."""
+        if self.corr_calc not in ("full", "knn_random"):
             raise NotImplementedError(
-                f"corr_calc={self.corr_calc!r}: only the full mode is ported")
+                f"Weird value self.corr_calc={self.corr_calc}")
+        if self._compact_state_valid():
+            return self._calculate_embedding_shift_compact(
+                sigma_corr, expression_scaling, scaling_penalty)
         K = _dense_from_csr(self.embedding_knn, self.device)
         K_rowsum = K.sum(dim=1)
         have_rndm = self._has_rndm_state()
 
         def _softmax(name):
-            tp = torch.exp(self._get_dev(name) / sigma_corr) * K
+            tp = torch.exp(self._corr_dev_view(name) / sigma_corr) * K
             return tp / tp.sum(dim=1, keepdim=True)
 
         tp = _softmax("corrcoef")
@@ -568,6 +770,58 @@ class VelocytoLoom:
                 emb, tp_r, K, K_rowsum).cpu().numpy().astype(np.float64)
             if expression_scaling:
                 self.scaling_rndm = _scaling(tp_r, "delta_S_rndm")
+                self.delta_embedding_random = \
+                    self.delta_embedding_random * self.scaling_rndm[:, None]
+
+    def _calculate_embedding_shift_compact(self, sigma_corr: float,
+                                           expression_scaling: bool,
+                                           scaling_penalty: float) -> None:
+        """knn_random-mode embedding shift on the compact (N, nn) form:
+        the same math as the dense form (the kNN mask IS the sampled
+        candidate set) in O(N * nn)."""
+        d = self.__dict__
+        ixs = d.get("_compact_ixs_dev")
+        if ixs is None:
+            ixs = torch.as_tensor(self._compact_ixs, device=self.device)
+
+        def _p_dev(which):
+            # softmax over the sampled candidates; the dense
+            # transition_prob stays a lazy __getattr__ view
+            dev = d.get("_corr_dev" if which == "main" else "_corr_rndm_dev")
+            if dev is None:
+                dev = torch.as_tensor(self._compact_corr_host(which),
+                                      dtype=_F32, device=self.device)
+            return _compact_softmax(dev, float(sigma_corr))
+
+        self._drop("transition_prob")
+        self._tp_sigma = float(sigma_corr)
+        p_main = _p_dev("main")
+        have_rndm = self._has_rndm_state()
+        if have_rndm:
+            self._drop("transition_prob_random")
+            p_rndm = _p_dev("rndm")
+
+        emb = torch.as_tensor(np.asarray(self.embedding, np.float32),
+                              device=self.device)
+        self.delta_embedding = _embedding_shift_compact(
+            emb, ixs, p_main).cpu().numpy().astype(np.float64)
+
+        def _scaling(P, d_name):
+            num, den = _expr_scaling_compact(
+                hi_rows, self._get_dev(d_name).T.contiguous(), ixs, P)
+            return np.clip((num / den).cpu().numpy() / scaling_penalty, 0, 1)
+
+        if expression_scaling:
+            hi_rows = self._get_dev(self.which_hidim).T.contiguous()
+            self.scaling = _scaling(p_main, "delta_S")
+            self.delta_embedding = \
+                self.delta_embedding * self.scaling[:, None]
+
+        if have_rndm:
+            self.delta_embedding_random = _embedding_shift_compact(
+                emb, ixs, p_rndm).cpu().numpy().astype(np.float64)
+            if expression_scaling:
+                self.scaling_rndm = _scaling(p_rndm, "delta_S_rndm")
                 self.delta_embedding_random = \
                     self.delta_embedding_random * self.scaling_rndm[:, None]
 
@@ -657,11 +911,15 @@ def _shift_model2_dev(Sx_sz, Ux_sz, gammas, q, dt: float):
     return Sx_sz * egt + (1 - egt) * Ux_szo / gammas[:, None] - Sx_sz
 
 
-def _transform_for_corr(transform: str, psc: float, hi_dim: torch.Tensor,
-                        hi_dim_t: torch.Tensor,
-                        hi_dim_t_rndm: Optional[torch.Tensor]):
-    """(kernel transform name, emat, dmat, dmat_random) for the
-    colDeltaCor call, replicating reference :1575-1601 (f64)."""
+# estimate_transition_prob's transform -> the colDeltaCor kernels' transform
+_KERNEL_TRANSFORM = {"log": "log10", "logratio": "linear", "linear": "linear",
+                     "sqrt": "sqrt"}
+
+
+def _transform_for_corr(transform: str, psc: float, hi_dim: torch.Tensor):
+    """(kernel transform name, emat, d_of) for the colDeltaCor call, where
+    d_of(hi_dim_t) is the displacement matrix, replicating reference
+    :1575-1601 (f64)."""
     if transform == "logratio":
         log2hidim = torch.log2(hi_dim + psc)
 
@@ -676,10 +934,113 @@ def _transform_for_corr(transform: str, psc: float, hi_dim: torch.Tensor,
             if transform == "sqrt":
                 return torch.sqrt(delta.abs() + psc) * torch.sign(delta)
             return delta                                    # linear
-        tf = {"log": "log10", "linear": "linear", "sqrt": "sqrt"}[transform]
-        emat = hi_dim
-    return (tf, emat, _d(hi_dim_t),
-            None if hi_dim_t_rndm is None else _d(hi_dim_t_rndm))
+        tf, emat = _KERNEL_TRANSFORM[transform], hi_dim
+    return tf, emat, _d
+
+
+def _corr_transform_dev(hi32: torch.Tensor, d32: torch.Tensor, dt: float,
+                        psc: float, kind: str) -> torch.Tensor:
+    """The displacement transform of estimate_transition_prob (reference
+    :1575-1601) in f32 on the device, for the sampled gene-space path.
+    delta is dt * delta_S directly: the f64 (hi + dt*dS) - hi equals it to
+    one f64 ulp, below f32 resolution."""
+    delta = torch.tensor(dt, dtype=_F32) * d32
+    if kind == "log":
+        return torch.log10(delta.abs() + psc) * torch.sign(delta)
+    if kind == "sqrt":
+        return torch.sqrt(delta.abs() + psc) * torch.sign(delta)
+    if kind == "linear":
+        return delta
+    # logratio: log2(|hi_dim_t| + psc) - log2(hi_dim + psc)
+    return torch.log2((hi32 + delta).abs() + psc) - torch.log2(hi32 + psc)
+
+
+def _sample_neighbors_dev(idx: torch.Tensor, samp: torch.Tensor,
+                          row_offset: int = 0) -> torch.Tensor:
+    """The sampled neighbours: drop each row's own cell from the kNN
+    index rows idx (N, nn+1), then take the sampled column positions samp
+    (N, n_samp) of what is left, in one gather.  row_offset: global id of
+    idx's first row, for row-chunked calls (the self test compares global
+    ids)."""
+    n, cols = idx.shape
+    rows = torch.arange(n, dtype=idx.dtype, device=idx.device)[:, None] + \
+        row_offset
+    is_self = idx == rows
+    first_self = torch.where(is_self.any(1), is_self.to(torch.uint8).argmax(1),
+                             cols - 1)
+    # column j of the self-dropped rows is column j + (j >= first_self)
+    s = samp.to(torch.int64)
+    return idx.gather(1, s + (s >= first_self[:, None]).to(torch.int64))
+
+
+def _fix_nans(corr: torch.Tensor) -> Tuple[torch.Tensor, bool]:
+    """The reference's NaN handling (analysis.py:1604-1614): NaN -> 1.0.
+    The diagonal is never sampled, so fill_diagonal(0) is implicit.
+    Only the flag crosses to the host."""
+    nan = torch.isnan(corr)
+    if not bool(nan.any()):
+        return corr, False
+    return torch.where(nan, 1.0, corr), True
+
+
+def _compact_softmax(corr: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Row softmax of the compact (N, nn) correlations at temperature
+    sigma, f32."""
+    p = torch.exp(corr.to(_F32) / sigma)
+    return p / p.sum(dim=1, keepdim=True)
+
+
+def _embedding_shift_compact(emb: torch.Tensor, ixs: torch.Tensor,
+                             P: torch.Tensor) -> torch.Tensor:
+    """Compact embedding shift: per row i the kNN mask is the sampled
+    candidate set, so delta_i = sum_k P_ik unit(x_{ixs_ik} - x_i) -
+    mean_k unit(x_{ixs_ik} - x_i), in O(N * nn * D).  Blocked over rows,
+    with the (B, nn, D) gather near 32 MB."""
+    m, k = ixs.shape
+    d = emb.shape[1]
+    block = max(1, (1 << 23) // (k * d))
+    out = torch.empty((m, d), dtype=_F32, device=emb.device)
+    with full_f32():
+        for i0 in range(0, m, block):
+            diff = emb[ixs[i0:i0 + block]] - emb[i0:i0 + block, None, :]
+            nrm = torch.linalg.norm(diff, dim=-1, keepdim=True)
+            unit = torch.where(nrm > 0,
+                               diff / torch.where(nrm == 0, 1.0, nrm), 0.0)
+            out[i0:i0 + block] = torch.einsum(
+                "bk,bkd->bd", P[i0:i0 + block], unit) - unit.mean(dim=1)
+    return out
+
+
+def _expr_scaling_compact(hi_rows: torch.Tensor, d_rows: torch.Tensor,
+                          ixs: torch.Tensor, P: torch.Tensor, nt: int = 128
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Numerator and denominator of the expression-scaling cos-projection
+    (reference analysis.py:1714-1719) on the compact form:
+    estim_i = sum_k P_ik hi[ixs_ik] - mean_k hi[ixs_ik];
+    returns (<delta_S_i, estim_i>, ||estim_i||) per row, f32.
+
+    hi_rows / d_rows: (N, G) rows.  The neighbour axis is tiled (nt) so
+    the gathered (B, nt, G) tensor stays near 32 MB."""
+    m, k = ixs.shape
+    g = hi_rows.shape[1]
+    nt = min(nt, k)
+    block = max(1, (1 << 23) // (nt * g))
+    num = torch.empty(m, dtype=_F32, device=hi_rows.device)
+    den = torch.empty_like(num)
+    with full_f32():
+        for i0 in range(0, m, block):
+            ix, Pb = ixs[i0:i0 + block], P[i0:i0 + block]
+            est = torch.zeros((ix.shape[0], g), dtype=_F32,
+                              device=hi_rows.device)
+            total = torch.zeros_like(est)
+            for k0 in range(0, k, nt):
+                nb = hi_rows[ix[:, k0:k0 + nt]]                  # (B, nt, G)
+                est += torch.bmm(Pb[:, None, k0:k0 + nt], nb)[:, 0]
+                total += nb.sum(dim=1)
+            est -= total / k
+            num[i0:i0 + block] = (d_rows[i0:i0 + block] * est).sum(-1)
+            den[i0:i0 + block] = torch.sqrt((est * est).sum(-1))
+    return num, den
 
 
 def _dense_from_csr(m, device) -> torch.Tensor:

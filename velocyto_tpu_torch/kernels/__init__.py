@@ -1,16 +1,20 @@
 """Hand-written CUDA kernels of the port, built with nvcc and bound by ctypes.
 
-Each kernel's source lives beside this module.  It is compiled on first
-use (never at import, so the package imports on machines without CUDA)
-into ``_build/`` as a shared library with a plain C interface, named by
-the hash of its source so an edited source is rebuilt, and loaded with
-ctypes.  Wrappers take CUDA tensors only and raise on anything else; the
-plain PyTorch version of each kernel lives in the ops module that calls
-it (``ops/coldeltacor.py::_col_delta_cor_dense_plain``) and serves CPU
-tensors there.
+Each kernel's source (``*.cu``) lives beside this module.  It is compiled
+on first use (never at import, so the package imports on machines without
+CUDA) into ``_build/`` as a shared library with a plain C interface, one
+library per source named by the hash of that source, so an edit to any
+one of them rebuilds it.  The sources that need a build are compiled in
+parallel, one nvcc each.  Wrappers take CUDA tensors only and raise on
+anything else; the plain PyTorch version of each kernel lives in the
+module that calls it and serves CPU tensors there:
 
-``dense_launches`` counts the launches of the dense colDeltaCor kernel, so
-a run can show that its main path went through it.
+  coldeltacor_dense    ops/coldeltacor.py::_col_delta_cor_dense_plain
+  coldeltacor_partial  ops/coldeltacor.py::_col_delta_cor_partial_plain
+  fma_probe            bench.py::_fma_plain
+
+``dense_launches``, ``partial_launches`` and ``fma_launches`` count each
+kernel's launches, so a run can show that its main path went through it.
 """
 from __future__ import annotations
 
@@ -19,18 +23,34 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
 _HERE = Path(__file__).resolve().parent
 _BUILD = _HERE / "_build"
-DENSE_SOURCE = _HERE / "coldeltacor_dense.cu"
+SOURCES = sorted(_HERE.glob("*.cu"))
 
 dense_launches = 0      # launches of the dense colDeltaCor kernel
+partial_launches = 0    # launches of the sampled colDeltaCor kernel
+fma_launches = 0        # launches of the FMA-chain probe
 build_log = ""          # nvcc's output (-Xptxas -v) from the last build
 
-_lib = None
-_TILE = 64              # cells per block side, kTile in the source
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# source stem -> (exported C function, its argtypes)
+_SIGNATURES = {
+    "coldeltacor_dense": ("vtt_coldeltacor_dense",
+                          [_P, _P, _P, _I, _I, _I, _I, _F, _P]),
+    "coldeltacor_partial": ("vtt_coldeltacor_partial",
+                            [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                             _I, _F, _P]),
+    "fma_probe": ("vtt_fma_probe", [_P, _P, ctypes.c_int64, _P]),
+}
+
+_lib: Optional[Dict[str, Any]] = None   # ctypes functions, on first use
+_TILE = 64              # dense kernel: cells per block side, kTile
+_CHUNK = 256            # partial kernel: neighbours per block, kChunk
+_MAX_SMEM = 232448      # bytes of shared memory a block may use (sm_90)
 
 
 def _nvcc() -> str:
@@ -40,61 +60,82 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build() -> Path:
-    """Compile the kernels' source for sm_90a unless a library built from
-    the same source exists; returns the library's path.  Raises on any
-    compiler error."""
+def build() -> Dict[str, Path]:
+    """Compile every kernel source for sm_90a unless a library built from
+    the same source exists; returns {source stem: library path}.  Raises
+    on any compiler error."""
     global build_log
-    src = DENSE_SOURCE.read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:16]
-    lib = _BUILD / f"libvtt_kernels_{tag}.so"
-    if lib.exists():
-        return lib
+    libs, todo = {}, []
+    for src in SOURCES:
+        tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+        libs[src.stem] = lib = _BUILD / f"libvtt_{src.stem}_{tag}.so"
+        if not lib.exists():
+            todo.append((src, lib))
+    if not todo:
+        return libs
     _BUILD.mkdir(exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", str(tmp), str(DENSE_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)     # atomic: a concurrent build never loads half
-    build_log = proc.stdout + proc.stderr
-    return lib
+    procs = []
+    for src, lib in todo:
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-o", str(tmp), str(src)]
+        procs.append((src, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for src, lib, tmp, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"# nvcc {src.name} (rc {proc.returncode})\n{out}")
+        if proc.returncode == 0:
+            os.replace(tmp, lib)  # atomic: a concurrent build never loads half
+        else:
+            failed.append(src.name)
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{build_log}")
+    return libs
 
 
-def _load():
+def _fn(stem: str):
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.vtt_coldeltacor_dense
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        paths = build()
+        fns = {}
+        for name, (symbol, argtypes) in _SIGNATURES.items():
+            fn = getattr(ctypes.CDLL(str(paths[name])), symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+        _lib = fns
+    return _lib[stem]
 
 
-def _check_pair(emat: torch.Tensor, dmat: torch.Tensor) -> None:
-    for name, t in (("emat", emat), ("dmat", dmat)):
-        if not t.is_cuda:
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.dim() != 2:
-            raise ValueError(f"{name} must be 2-D (genes, cells)")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if emat.shape != dmat.shape:
-        raise ValueError(f"shape mismatch {tuple(emat.shape)} vs "
-                         f"{tuple(dmat.shape)}")
-    if emat.device != dmat.device:
-        raise ValueError("emat and dmat must be on the same device")
-    g, n = emat.shape
-    if g < 1 or n < 1 or n > 65535 * _TILE:      # gridDim.y <= 65535
-        raise ValueError(f"unsupported shape {tuple(emat.shape)}")
+def _check(name: str, t: torch.Tensor, dtypes=(torch.float32,),
+           dim: int = 2) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}, "
+                        f"got {t.dtype}")
+    if t.dim() != dim:
+        raise ValueError(f"{name} must be {dim}-D, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_same_device(**tensors: torch.Tensor) -> None:
+    devices = {t.device for t in tensors.values()}
+    if len(devices) != 1:
+        raise ValueError(f"{', '.join(tensors)} must be on one device")
+
+
+def _launch(stem: str, device: torch.device, *args) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _fn(stem)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{stem} launch failed: cudaError {rc}")
 
 
 def coldeltacor_dense(emat: torch.Tensor, dmat: torch.Tensor,
@@ -105,18 +146,85 @@ def coldeltacor_dense(emat: torch.Tensor, dmat: torch.Tensor,
     transform: 0 linear, 1 sqrt, 2 log10 (ops.coldeltacor._TRANSFORMS).
     Launches on the current stream and does not synchronise."""
     global dense_launches
-    _check_pair(emat, dmat)
+    _check("emat", emat)
+    _check("dmat", dmat)
+    if emat.shape != dmat.shape:
+        raise ValueError(f"shape mismatch {tuple(emat.shape)} vs "
+                         f"{tuple(dmat.shape)}")
+    _check_same_device(emat=emat, dmat=dmat)
+    g, n = emat.shape
+    if g < 1 or n < 1 or n > 65535 * _TILE:      # gridDim.y <= 65535
+        raise ValueError(f"unsupported shape {tuple(emat.shape)}")
     if transform not in (0, 1, 2):
         raise ValueError(f"unknown transform code {transform}")
-    lib = _load()
-    g, n = emat.shape
     out = torch.empty((n, n), dtype=torch.float32, device=emat.device)
-    with torch.cuda.device(emat.device):
-        stream = torch.cuda.current_stream(emat.device).cuda_stream
-        rc = lib.vtt_coldeltacor_dense(
-            emat.data_ptr(), dmat.data_ptr(), out.data_ptr(), g, n,
-            transform, int(bool(partial_semantics)), float(psc), stream)
-    if rc != 0:
-        raise RuntimeError(f"coldeltacor_dense launch failed: cudaError {rc}")
+    _launch("coldeltacor_dense", emat.device, emat.data_ptr(),
+            dmat.data_ptr(), out.data_ptr(), g, n, transform,
+            int(bool(partial_semantics)), float(psc))
     dense_launches += 1
     return out
+
+
+def coldeltacor_partial(e_full: torch.Tensor, e_ctr: torch.Tensor,
+                        d_ctr: torch.Tensor, ixs: torch.Tensor,
+                        transform: int, psc: float,
+                        d_ctr2: Optional[torch.Tensor] = None
+                        ) -> Union[torch.Tensor,
+                                   Tuple[torch.Tensor, torch.Tensor]]:
+    """Sampled colDeltaCor on the card, partial semantics.
+
+    e_full (N, G), e_ctr / d_ctr (M, G) f32 and ixs (M, nn) int32 or int64
+    CUDA tensors -> (M, nn) f32.  With d_ctr2 (M, G), returns the pair of
+    outputs for d_ctr and d_ctr2 from one pass over the gathered rows.
+    An index outside [0, N) gives NaN.  transform: 0 linear, 1 sqrt,
+    2 log10.  Launches on the current stream and does not synchronise."""
+    global partial_launches
+    rows = dict(e_full=e_full, e_ctr=e_ctr, d_ctr=d_ctr)
+    if d_ctr2 is not None:
+        rows["d_ctr2"] = d_ctr2
+    for name, t in rows.items():
+        _check(name, t)
+    _check("ixs", ixs, (torch.int32, torch.int64))
+    _check_same_device(ixs=ixs, **rows)
+    n, g = e_full.shape
+    m, nn = ixs.shape
+    for name in ("e_ctr", "d_ctr", "d_ctr2"):
+        if name in rows and rows[name].shape != (m, g):
+            raise ValueError(f"{name} must be ({m}, {g}), got "
+                             f"{tuple(rows[name].shape)}")
+    n_rows = 3 if d_ctr2 is not None else 2
+    if n < 1 or m < 1 or nn < 1 or m >= 2 ** 31 or n >= 2 ** 31 or \
+            -(-nn // _CHUNK) > 65535 or n_rows * g * 4 > _MAX_SMEM:
+        raise ValueError(f"unsupported shape: N={n}, G={g}, M={m}, nn={nn}")
+    if transform not in (0, 1, 2):
+        raise ValueError(f"unknown transform code {transform}")
+    out = torch.empty((m, nn), dtype=torch.float32, device=e_full.device)
+    out2 = torch.empty_like(out) if d_ctr2 is not None else None
+    _launch("coldeltacor_partial", e_full.device, e_full.data_ptr(),
+            e_ctr.data_ptr(), d_ctr.data_ptr(),
+            None if d_ctr2 is None else d_ctr2.data_ptr(), ixs.data_ptr(),
+            int(ixs.dtype == torch.int64), out.data_ptr(),
+            None if out2 is None else out2.data_ptr(), n, m, g, nn,
+            transform, float(psc))
+    partial_launches += 1
+    return out if out2 is None else (out, out2)
+
+
+def fma_probe(x: torch.Tensor) -> torch.Tensor:
+    """The FMA-chain ceiling probe on the card: f32 CUDA tensor of any
+    shape -> same shape.  Launches on the current stream and does not
+    synchronise."""
+    global fma_launches
+    _check("x", x, dim=x.dim())
+    if x.numel() < 1:
+        raise ValueError("x is empty")
+    out = torch.empty_like(x)
+    _launch("fma_probe", x.device, x.data_ptr(), out.data_ptr(), x.numel())
+    fma_launches += 1
+    return out
+
+
+def reset_counts() -> None:
+    """Set every launch count to 0."""
+    global dense_launches, partial_launches, fma_launches
+    dense_launches = partial_launches = fma_launches = 0

@@ -1,15 +1,18 @@
 """colDeltaCor: per-cell correlation between expression deltas and velocity.
 
-Port of velocyto_tpu/ops/coldeltacor.py (dense variant).  For every cell
-``c`` and candidate cell ``i``::
+Port of velocyto_tpu/ops/coldeltacor.py (dense and neighbour-sampled
+variants).  For every cell ``c`` and candidate cell ``i``::
 
     A[:, i] = transform(e[:, i] - e[:, c])          # over genes
     corr[c, i] = pearson(A[:, i], d[:, c])
 
 computed from the streamed moments S1 = sum A, S2 = sum A^2,
-S3 = sum A * b, sum b and sum b^2 (b = d[:, c]).  ``col_delta_cor``
-launches the hand-written CUDA kernel (kernels/coldeltacor_dense.cu) for
-CUDA tensors and runs the plain PyTorch version below for CPU tensors.
+S3 = sum A * b, sum b and sum b^2 (b = d[:, c]).  The dense variant
+takes every candidate (``col_delta_cor``), the sampled one the nn
+candidates ixs[c, :] of each cell (``col_delta_cor_partial_compact``).
+Each launches its hand-written CUDA kernel (kernels/coldeltacor_dense.cu,
+kernels/coldeltacor_partial.cu) for CUDA tensors and runs the plain
+PyTorch version below for CPU tensors.
 
 Transforms keep the reference sign conventions of the JAX package:
   - "linear":  A = delta
@@ -22,9 +25,12 @@ All computation is float32.
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple, Union
+
 import torch
 
 from .. import kernels
+from .knn import full_f32
 
 _LINEAR, _SQRT, _LOG10 = 0, 1, 2
 _TRANSFORMS = {"linear": _LINEAR, "sqrt": _SQRT, "log10": _LOG10}
@@ -105,4 +111,69 @@ def col_delta_cor(emat: torch.Tensor, dmat: torch.Tensor,
     if emat.device.type == "cpu":
         return _col_delta_cor_dense_plain(emat, dmat, tcode, psc,
                                           partial_semantics)
+    raise ValueError(f"unsupported device {emat.device}")
+
+
+def _col_delta_cor_partial_plain(e_full: torch.Tensor, e_ctr: torch.Tensor,
+                                 d_ctr: torch.Tensor, ixs: torch.Tensor,
+                                 transform: int = _LINEAR, psc: float = 0.0
+                                 ) -> torch.Tensor:
+    """Plain PyTorch sampled colDeltaCor with the partial transform
+    semantics (transcribes _partial_impl): e_full (N, G) gather source,
+    e_ctr / d_ctr (M, G) center rows, ixs (M, nn) global neighbour ids ->
+    (M, nn) f32 on the inputs' device.  Blocked over (center rows,
+    128-neighbour tiles) so the gathered (B, nt, G) tensor stays near
+    64 MB."""
+    m, g = e_ctr.shape
+    nn = ixs.shape[1]
+    nt = min(128, nn)
+    block = max(1, (1 << 24) // (nt * g))
+    e_full = e_full.to(torch.float32)
+    e_ctr = e_ctr.to(torch.float32)
+    d_ctr = d_ctr.to(torch.float32)
+    sb1 = d_ctr.sum(1)[:, None]
+    sb2 = (d_ctr * d_ctr).sum(1)[:, None]
+    out = torch.empty((m, nn), dtype=torch.float32, device=e_full.device)
+    with full_f32():
+        for r0 in range(0, m, block):
+            rows = e_ctr[r0:r0 + block]                           # (B, G)
+            b = d_ctr[r0:r0 + block, :, None]                     # (B, G, 1)
+            for k0 in range(0, nn, nt):
+                e_nb = e_full[ixs[r0:r0 + block, k0:k0 + nt]]     # (B, nt, G)
+                a = _apply_transform(e_nb - rows[:, None, :], transform,
+                                     psc, partial=True)
+                out[r0:r0 + block, k0:k0 + nt] = _corr_from_moments(
+                    a.sum(-1), (a * a).sum(-1), torch.bmm(a, b)[..., 0],
+                    sb1[r0:r0 + block], sb2[r0:r0 + block], float(g))
+    return out
+
+
+def col_delta_cor_partial_compact(
+        emat: torch.Tensor, dmat: torch.Tensor, ixs: torch.Tensor,
+        transform: str = "linear", psc: float = 0.0,
+        dmat_random: Optional[torch.Tensor] = None
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Sampled-neighbourhood colDeltaCor in the compact form.
+    emat/dmat: (genes, cells) tensors on one device; ixs: (cells, nn)
+    neighbour ids.  Returns the (cells, nn) float32 correlations on that
+    device, or, with ``dmat_random``, the pair for dmat and dmat_random
+    (the CUDA kernel gathers the neighbour rows once for both).
+
+    Replaces reference colDeltaCorpartial / colDeltaCorSqrtpartial /
+    colDeltaCorLog10partial (velocyto/estimation.py:36-62, 144-170).  A
+    CUDA tensor goes through the hand-written kernel, a CPU tensor
+    through the plain version."""
+    tcode = _TRANSFORMS[transform]
+    e_rows = emat.to(torch.float32).T.contiguous()
+    d_rows = [d.to(torch.float32).T.contiguous()
+              for d in (dmat, dmat_random) if d is not None]
+    if emat.is_cuda:
+        return kernels.coldeltacor_partial(e_rows, e_rows, d_rows[0],
+                                           ixs.contiguous(), tcode, psc,
+                                           *d_rows[1:])
+    if emat.device.type == "cpu":
+        outs = tuple(_col_delta_cor_partial_plain(e_rows, e_rows, d, ixs,
+                                                  tcode, psc)
+                     for d in d_rows)
+        return outs[0] if dmat_random is None else outs
     raise ValueError(f"unsupported device {emat.device}")
