@@ -1,7 +1,7 @@
 """Smoke run of velocyto_tpu_torch on one NVIDIA GPU: builds the CUDA
 kernels and the host sampler from this checkout, holds each kernel
 against its plain PyTorch version on the card and times both, checks the
-neighbour sampler against numpy, then drives three paths and checks what
+neighbour sampler against numpy, then drives four paths and checks what
 comes out:
 
   - the estimation pipeline in full-correlation mode (knn_random=False,
@@ -9,7 +9,16 @@ comes out:
   - the pipeline in its default mode (knn_random=True, sampled
     colDeltaCor kernel), in bench_pipeline.py's configuration;
   - the kernel bench, python3 -m velocyto_tpu_torch.bench (sampled and
-    dense kernels, FMA-chain probe).
+    dense kernels, FMA-chain probe);
+  - the tutorial session at 20,000 cells x 2,500 raw genes: the
+    detection and cluster gene filters, normalize_by_total and the
+    median renormalizations, PCA, balanced kNN imputation, the gamma fit
+    without offset, the phase-portrait filter, the velocity chain, the
+    sampled transition probabilities with expression scaling, the grid
+    field, prepare_markov / run_markov over every cell; then the fused
+    velocity_step on the session's state against the step-by-step chain,
+    and the six estimation.colDeltaCor* shims against their plain
+    versions (sklearn, h5py and matplotlib are not called).
 
     python3 chip_smoke.py
 
@@ -30,6 +39,10 @@ import torch
 
 CELLS, GENES = 20000, 2000
 K, B_SIGHT, B_MAXL, N_NEIGHBORS = 500, 3000, 1500, 3500
+# the tutorial session: GENES expressed genes plus a block of LOW_GENES
+# barely detected ones, cells in N_CLUSTERS clusters of the latent factors
+LOW_GENES, N_CLUSTERS, MARKOV_STEPS = 500, 12, 2500
+SHIM_CELLS, SHIM_NN = 3072, 512      # bench.py's shapes, for the shims
 SAMPLED_FRACTION = 0.5
 NN_SAMPLED = int(SAMPLED_FRACTION * (N_NEIGHBORS + 1))     # 1750
 RTOL, ATOL = 2e-3, 2e-4          # the JAX tests' colDeltaCor tolerances
@@ -46,8 +59,8 @@ CASES = [("linear", 0.0, False), ("sqrt", 0.0, False),
 
 def synth(rng, n, g):
     """bench_pipeline.py's synthetic generator, also returning the true
-    degradation rates: U ~ Poisson(0.4 gamma * base), S ~ Poisson(base)
-    over a rank-12 cell manifold."""
+    degradation rates and the (n, 12) latent cell factors: U ~ Poisson(0.4
+    gamma * base), S ~ Poisson(base) over a rank-12 cell manifold."""
     gamma_true = rng.uniform(0.2, 1.2, g)
     k_lat = 12
     zl = rng.gamma(2.0, 1.0, (n, k_lat))
@@ -56,7 +69,7 @@ def synth(rng, n, g):
     S = rng.poisson(base).astype(np.float32).T
     U = rng.poisson(0.4 * gamma_true[:, None] * base.T + 0.05).astype(
         np.float32)
-    return S, U, gamma_true
+    return S, U, gamma_true, zl
 
 
 def phase(name):
@@ -353,35 +366,69 @@ def _check_gammas(v, gamma_true):
     assert abs(med - want) <= 0.25 * want, f"gamma median {med} vs {want}"
 
 
-def pipeline_phase(knn_random):
-    """Drive the pipeline through the VelocytoLoom entry points with the
-    launch counts set to 0 just before; returns (stage seconds, total,
-    launch counts, the object, the true gammas)."""
-    import velocyto_tpu_torch as vtt
-    from velocyto_tpu_torch import kernels
-    mode = "default mode (knn_random=True)" if knn_random else \
-        "full mode (knn_random=False)"
-    phase(f"pipeline, {mode}, {CELLS} cells x {GENES} genes")
-    t0 = time.perf_counter()
-    S, U, gamma_true = synth(np.random.RandomState(0), CELLS, GENES)
-    print(f"# synthesize: {time.perf_counter() - t0:.3f} s", flush=True)
+def _stager(stages, smi):
+    """stage(name, fn): run fn between two synchronisations, record and
+    print its seconds on the host clock."""
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t
+        print(f"# stage {name}: {stages[name]:.3f} s on {smi}", flush=True)
+        return out
+    return stage
 
+
+def _launches():
+    from velocyto_tpu_torch import kernels
+    return {"dense": kernels.dense_launches,
+            "partial": kernels.partial_launches, "fma": kernels.fma_launches}
+
+
+def _uncounted(fn):
+    """fn() with its kernel launches left out of the path's counts (the
+    timing repeats of a call the path already made once)."""
+    from velocyto_tpu_torch import kernels
+    saved = (kernels.dense_launches, kernels.partial_launches,
+             kernels.fma_launches)
+    try:
+        return fn()
+    finally:
+        (kernels.dense_launches, kernels.partial_launches,
+         kernels.fma_launches) = saved
+
+
+def _new_loom(S, U, genes):
+    """A VelocytoLoom on the card holding S and U (no loom file: h5py is
+    not on the card's machine)."""
+    import velocyto_tpu_torch as vtt
     v = vtt.VelocytoLoom.__new__(vtt.VelocytoLoom)
     v.device = torch.device(DEVICE)
     v.S, v.U, v.A = S, U, np.zeros_like(S)
     v.initial_cell_size = v.S.sum(0)
     v.initial_Ucell_size = v.U.sum(0)
-    v.ca = {"CellID": np.array([f"c{i}" for i in range(CELLS)])}
-    v.ra = {"Gene": np.array([f"g{i}" for i in range(GENES)])}
-    stages = {}
+    v.ca = {"CellID": np.array([f"c{i}" for i in range(S.shape[1])])}
+    v.ra = {"Gene": np.array([f"g{i}" for i in range(genes)])}
+    return v
 
-    def stage(name, fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        stages[name] = time.perf_counter() - t
-        print(f"# stage {name}: {stages[name]:.3f} s", flush=True)
+
+def pipeline_phase(knn_random, smi):
+    """Drive the pipeline through the VelocytoLoom entry points with the
+    launch counts set to 0 just before; returns (stage seconds, total,
+    launch counts, peak device memory)."""
+    from velocyto_tpu_torch import kernels
+    mode = "default mode (knn_random=True)" if knn_random else \
+        "full mode (knn_random=False)"
+    phase(f"pipeline, {mode}, {CELLS} cells x {GENES} genes")
+    t0 = time.perf_counter()
+    S, U, gamma_true, _zl = synth(np.random.RandomState(0), CELLS, GENES)
+    print(f"# synthesize: {time.perf_counter() - t0:.3f} s host, on {smi}",
+          flush=True)
+
+    v = _new_loom(S, U, GENES)
+    stages = {}
+    stage = _stager(stages, smi)
 
     def _norm():
         v._normalize_S(relative_size=v.initial_cell_size,
@@ -423,11 +470,10 @@ def pipeline_phase(knn_random):
     stage("grid_arrows", lambda: v.calculate_grid_arrows(
         smooth=0.5, steps=(40, 40), n_neighbors=100))
     total = time.perf_counter() - t_all
-    launches = {"dense": kernels.dense_launches,
-                "partial": kernels.partial_launches,
-                "fma": kernels.fma_launches}
+    launches = _launches()
     peak = torch.cuda.max_memory_allocated()
-    print(f"# pipeline total: {total:.3f} s; kernel launches {launches} "
+    print(f"# pipeline total: {total:.3f} s on {smi}; kernel launches "
+          f"{launches} "
           f"(transition stage {transition_launches}); peak device memory "
           f"{peak / 2**30:.2f} GiB", flush=True)
 
@@ -493,6 +539,277 @@ def _check_knn_rows(v):
     assert n_bad == 0, "kNN rows differ from the f64 brute force"
 
 
+def _tutorial_data():
+    """synth at GENES genes plus LOW_GENES barely detected ones (too few
+    counts for the detection filter), the cells labelled by their
+    dominant latent factor; returns (S, U, true gammas of the expressed
+    genes, labels, colour dict)."""
+    rng = np.random.RandomState(3)
+    S, U, gamma_true, zl = synth(rng, CELLS, GENES)
+    S = np.concatenate([S, rng.poisson(0.0005, (LOW_GENES, CELLS)).astype(
+        np.float32)])
+    U = np.concatenate([U, rng.poisson(0.0002, (LOW_GENES, CELLS)).astype(
+        np.float32)])
+    labels = np.array([f"cl{i:02d}" for i in zl.argmax(1)], dtype=object)
+    colors = {f"cl{i:02d}": [i / N_CLUSTERS, 0.5, 1 - i / N_CLUSTERS]
+              for i in range(N_CLUSTERS)}
+    return S, U, gamma_true, labels, colors
+
+
+def tutorial_phase(smi):
+    """The tutorial session through the VelocytoLoom entry points, then
+    the fused velocity_step and the shims, with the launch counts set to
+    0 just before; returns (stage seconds, total, launch counts, peak
+    device memory, shim results, velocity_step ms)."""
+    import velocyto_tpu_torch as vtt
+    from velocyto_tpu_torch import kernels
+    genes = GENES + LOW_GENES
+    phase(f"tutorial session, {CELLS} cells x {genes} raw genes")
+    t0 = time.perf_counter()
+    S, U, gamma_true, labels, colors = _tutorial_data()
+    print(f"# synthesize: {time.perf_counter() - t0:.3f} s host, on {smi}",
+          flush=True)
+    v = _new_loom(S, U, genes)
+    stages, counts = {}, {}
+    stage = _stager(stages, smi)
+
+    def _filters():
+        v.normalize("S", size=True, log=False)
+        v.normalize("U", size=True, log=False)
+        v.score_detection_levels(min_expr_counts=40, min_cells_express=30)
+        v.filter_genes(by_detection_levels=True)
+        counts["detection"] = v.S.shape[0]
+        v.set_clusters(labels, cluster_colors_dict=colors)
+        v.score_cluster_expression(min_avg_U=0.02, min_avg_S=0.08)
+        v.filter_genes(by_cluster_expression=True)
+        counts["cluster_expression"] = v.S.shape[0]
+
+    def _norm():
+        v.normalize_by_total()
+        v.normalize_median(which="renormalize")
+
+    def _vel():
+        v.predict_U()
+        v.calculate_velocity()
+        v.calculate_shift(assumption="constant_velocity")
+        v.extrapolate_cell_at_t(delta_t=1.)
+
+    def _phase_portrait():
+        v.filter_genes_by_phase_portrait()
+        counts["phase_portrait"] = v.S.shape[0]
+
+    def _markov():
+        sd = float(np.std(v.ts))
+        v.prepare_markov(sigma_D=sd, sigma_W=0.5 * sd)
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()              # count this path's launches only
+    t_all = time.perf_counter()
+    stage("filters", _filters)
+    stage("normalize", _norm)
+    stage("pca", lambda: v.perform_PCA(which="S_norm", n_components=50))
+    stage("knn_imputation", lambda: v.knn_imputation(
+        k=K, balanced=True, b_sight=B_SIGHT, b_maxl=B_MAXL))
+    stage("normalize_median", v.normalize_median)
+    stage("fit_gammas", lambda: v.fit_gammas(limit_gamma=False,
+                                             fit_offset=False))
+    stage("phase_portrait", _phase_portrait)
+    stage("velocity", _vel)
+    v.ts = np.ascontiguousarray(v.pcs[:, :2])
+    stage("transition_prob", lambda: v.estimate_transition_prob(
+        hidim="Sx_sz", embed="ts", transform="sqrt", knn_random=True,
+        n_neighbors=N_NEIGHBORS, sampled_fraction=SAMPLED_FRACTION))
+    stage("embedding_shift", lambda: v.calculate_embedding_shift(
+        sigma_corr=0.05, expression_scaling=True))
+    stage("grid_arrows", lambda: v.calculate_grid_arrows(
+        smooth=0.5, steps=(40, 40), n_neighbors=100))
+    stage("prepare_markov", _markov)
+    stage("run_markov", lambda: v.run_markov(n_steps=MARKOV_STEPS))
+    session_total = time.perf_counter() - t_all
+    session_launches = _launches()
+    print(f"# session total: {session_total:.3f} s on {smi}; genes after "
+          f"each filter {counts}; kernel launches {session_launches}",
+          flush=True)
+    _check_session(v, counts, gamma_true, stages, smi)
+    step_ms = velocity_step_phase(v, smi)
+    shims = shims_phase(v, smi)
+    total = time.perf_counter() - t_all
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"# tutorial path total (session, velocity_step, shims): "
+          f"{total:.3f} s on {smi}; kernel launches {launches}; peak device "
+          f"memory {peak / 2**30:.2f} GiB", flush=True)
+    # the session's dual sampled launch, the check chain's and
+    # velocity_step's, and one launch of each shim
+    assert session_launches == {"dense": 0, "partial": 1, "fma": 0}, \
+        session_launches
+    assert launches == {"dense": 3, "partial": 6, "fma": 0}, launches
+    return stages, session_total, launches, peak, shims, step_ms
+
+
+def _check_session(v, counts, gamma_true, stages, smi):
+    from scipy.stats import spearmanr
+    phase("checks, tutorial session")
+    assert counts["detection"] == GENES, counts
+    assert GENES * 0.95 <= counts["cluster_expression"] <= GENES, counts
+    assert 0.4 * GENES <= counts["phase_portrait"] <= \
+        counts["cluster_expression"], counts
+    kept = np.array([int(g[1:]) for g in v.ra["Gene"]])
+    assert kept.max() < GENES, "a barely detected gene passed the filters"
+    rho = float(spearmanr(v.gammas, gamma_true[kept]).correlation)
+    print(f"# gammas (no offset) against the truth: spearman {rho!r}",
+          flush=True)
+    assert rho > 0.9, f"gamma spearman {rho}"
+    ds = v._dev_state
+    assert ds["Sx_sz"].shape[0] == len(kept) and ds["Sx_sz"].dtype == \
+        torch.float64, "phase-portrait filter left Sx_sz off the device"
+    for name in ("delta_embedding", "delta_embedding_random", "flow",
+                 "scaling"):
+        assert np.all(np.isfinite(getattr(v, name))), f"{name} not finite"
+    tr = ds["tr"]
+    assert tuple(tr.shape) == (CELLS, CELLS) and tr.dtype == torch.float64
+    row_err = float((tr.sum(1) - 1).abs().max())
+    diffused = np.asarray(v.diffused)
+    assert diffused.shape == (CELLS,) and np.all(diffused >= 0)
+    mass_err = abs(float(diffused.sum()) - 1)
+    assert row_err < 1e-9, f"tr rows sum to 1 +- {row_err}"
+    assert mass_err < 1e-4, f"diffused sums to 1 +- {mass_err}"
+    assert "tr" not in v.__dict__ and "tr" not in v._dev_host_cache, \
+        "a host csr of tr was built"
+    dense = [k for k in v._LAZY_DENSE if k in v.__dict__ or k in ds]
+    assert not dense, f"dense (N, N) state built: {dense}"
+    gbps = MARKOV_STEPS * CELLS * CELLS * 4 / stages["run_markov"] / 1e9
+    print(f"# markov: tr {CELLS} x {CELLS} float64 on the card, rows sum to "
+          f"1 within {row_err!r}; diffused >= 0, sums to 1 within "
+          f"{mass_err!r}; no host csr built; run_markov {MARKOV_STEPS} "
+          f"float32 steps read {gbps!r} GB/s of tr (stage clock) on {smi}",
+          flush=True)
+
+
+def velocity_step_phase(v, smi):
+    """The fused velocity_step on the session's state (its S_sz / U_sz,
+    kNN graph, embedding), against the step-by-step chain re-run from
+    the same state with the step's settings (the smoothing of those
+    S_sz / U_sz, maxmin weights with offset, no randomized control, no
+    expression scaling) at tests/test_velocity_model.py's tolerances;
+    returns its ms."""
+    from velocyto_tpu_torch.analysis import _compact_softmax
+    from velocyto_tpu_torch.models import velocity_step
+    from velocyto_tpu_torch.ops import knn_device as kd
+    phase("velocity_step against the chain, on the session's state")
+    v.knn_imputation(k=K, balanced=True, b_sight=B_SIGHT, b_maxl=B_MAXL)
+    v.fit_gammas(weights="maxmin", fit_offset=True, limit_gamma=False)
+    v.predict_U()
+    v.calculate_velocity()
+    v.calculate_shift(assumption="constant_velocity")
+    v.extrapolate_cell_at_t(delta_t=1.)
+    v.estimate_transition_prob(
+        hidim="Sx_sz", embed="ts", transform="sqrt", knn_random=True,
+        n_neighbors=N_NEIGHBORS, sampled_fraction=SAMPLED_FRACTION,
+        calculate_randomized=False)
+    v.calculate_embedding_shift(sigma_corr=0.05, expression_scaling=False)
+    nbr_idx, nbr_w = kd.compact_weights_dev(v._knn_graph_dev, v._knn_diag)
+    f32 = torch.float32
+    args = (torch.as_tensor(v.S_sz, dtype=f32, device=DEVICE),
+            torch.as_tensor(v.U_sz, dtype=f32, device=DEVICE),
+            nbr_idx.to(torch.int32), nbr_w,
+            torch.as_tensor(v.ts, dtype=f32, device=DEVICE),
+            v._compact_ixs_dev.to(torch.int32))
+    first_ms, out = _time_ms(lambda: velocity_step(*args))
+    ms = _uncounted(lambda: statistics.median(
+        _time_ms(lambda: velocity_step(*args))[0] for _ in range(3)))
+    chain = {"gammas": v.gammas, "q": v.q, "velocity": v._get_dev("velocity"),
+             "corr": v._corr_dev,
+             "transition_prob": _compact_softmax(v._corr_dev, 0.05),
+             "delta_embedding": v.delta_embedding}
+    tol = {"gammas": (2e-3, 2e-3), "q": (5e-3, 5e-3),
+           "velocity": (2e-3, 2e-2), "corr": (1e-3, 2e-3),
+           "transition_prob": (2e-3, 2e-4), "delta_embedding": (2e-3, 2e-4)}
+    errs, bad = {}, {}
+    for name, (rtol, atol) in tol.items():
+        got = getattr(out, name)
+        want = torch.as_tensor(np.asarray(chain[name]) if isinstance(
+            chain[name], np.ndarray) else chain[name], dtype=f32,
+            device=got.device)
+        diff = (got - want).abs()
+        errs[name] = float(diff.max())
+        bad[name] = int((diff > atol + rtol * want.abs()).sum())
+        assert bool(torch.isfinite(got).all()), f"velocity_step {name}"
+    assert not any(bad.values()), \
+        f"velocity_step disagrees with the chain: {errs}, outside {bad}"
+    print(f"# velocity_step G={v.S.shape[0]} N={CELLS} nn="
+          f"{args[5].shape[1]}: {ms!r} ms (median of 3 warm calls; first "
+          f"call {first_ms!r} ms) on {smi} (CUDA events); max abs err "
+          f"against the chain {errs}", flush=True)
+    return ms
+
+
+def shims_phase(v, smi):
+    """The six estimation.colDeltaCor* shims at G=GENES-ish, SHIM_CELLS
+    cells from the session (Sx_sz, delta_S), nn=SHIM_NN, each against
+    its plain version on the same card; returns {shim: (ms, plain ms,
+    max abs err)}."""
+    from velocyto_tpu_torch import estimation
+    from velocyto_tpu_torch.ops.coldeltacor import (
+        _TRANSFORMS, _col_delta_cor_dense_plain, _col_delta_cor_partial_plain)
+    phase(f"estimation shims against plain, {SHIM_CELLS} cells")
+    emat = np.ascontiguousarray(v.Sx_sz[:, :SHIM_CELLS])
+    dmat = np.ascontiguousarray(v.delta_S[:, :SHIM_CELLS])
+    _e, _c, _d, _d2, ixs_dev = _sampled_case(8, SHIM_CELLS, SHIM_CELLS,
+                                             SHIM_NN, 5, torch.int64)
+    ixs = ixs_dev.cpu().numpy()
+    e_dev = torch.as_tensor(emat, dtype=torch.float32, device=DEVICE)
+    d_dev = torch.as_tensor(dmat, dtype=torch.float32, device=DEVICE)
+    n = SHIM_CELLS
+    rows = torch.arange(n, device=DEVICE)[:, None]
+    off = ~torch.eye(n, dtype=torch.bool, device=DEVICE)
+
+    def plain(tf, psc, partial):
+        if not partial:
+            return _col_delta_cor_dense_plain(e_dev, d_dev, _TRANSFORMS[tf],
+                                              psc)
+        e_rows = e_dev.T.contiguous()
+        out = torch.zeros((n, n), dtype=torch.float64, device=DEVICE)
+        out[rows, ixs_dev] = _col_delta_cor_partial_plain(
+            e_rows, e_rows, d_dev.T.contiguous(), ixs_dev, _TRANSFORMS[tf],
+            psc).double()
+        return out
+
+    results = {}
+    for name, tf, psc in (("colDeltaCor", "linear", 0.0),
+                          ("colDeltaCorSqrt", "sqrt", 1e-10),
+                          ("colDeltaCorLog10", "log10", 1.0),
+                          ("colDeltaCorpartial", "linear", 0.0),
+                          ("colDeltaCorSqrtpartial", "sqrt", 1e-10),
+                          ("colDeltaCorLog10partial", "log10", 1.0)):
+        partial = name.endswith("partial")
+        shim = getattr(estimation, name)
+        args = (emat, dmat, ixs) if partial else (emat, dmat)
+        kw = {"device": DEVICE} if tf == "linear" else \
+            {"device": DEVICE, "psc": psc}
+        got = shim(*args, **kw)                   # numpy in, numpy out
+        want = plain(tf, psc, partial)
+        got_t = torch.as_tensor(got, device=DEVICE).to(want.dtype)
+        err, ok = _err(got_t, want, None if partial else off)
+        assert ok, f"shim {name} disagrees with its plain version"
+        del got, got_t, want
+        def _host_ms():                           # one warm call
+            t = time.perf_counter()
+            shim(*args, **kw)
+            return (time.perf_counter() - t) * 1e3
+        ms = _uncounted(lambda: statistics.median(
+            _host_ms() for _ in range(3)))
+        plain_ms = statistics.median(
+            _time_ms(lambda: plain(tf, psc, partial))[0] for _ in range(3))
+        results[name] = (ms, plain_ms, err)
+        print(f"# shim {name} G={emat.shape[0]} N={n}"
+              f"{f' nn={SHIM_NN}' if partial else ''}: {ms!r} ms (median of "
+              f"3 warm calls, host clock, numpy in and out) vs plain "
+              f"{plain_ms!r} ms (median of 3, CUDA events) on {smi}; "
+              f"max_abs_err={err!r} ok={ok}", flush=True)
+    return results
+
+
 def bench_phase():
     from velocyto_tpu_torch import bench, kernels
     phase("kernel bench (python3 -m velocyto_tpu_torch.bench)")
@@ -518,28 +835,37 @@ def main():
     sampler_phase()
     fma = fma_phase(smi)
     stages_full, total_full, launches_full, peak_full = \
-        pipeline_phase(knn_random=False)
+        pipeline_phase(knn_random=False, smi=smi)
     torch.cuda.empty_cache()
     stages_samp, total_samp, launches_samp, peak_samp = \
-        pipeline_phase(knn_random=True)
+        pipeline_phase(knn_random=True, smi=smi)
     _bench, launches_bench = bench_phase()
-    print(json.dumps({"pipeline_full_s": total_full,
+    torch.cuda.empty_cache()
+    stages_tut, total_tut, launches_tut, peak_tut, shims, step_ms = \
+        tutorial_phase(smi)
+    print(json.dumps({"card": smi, "pipeline_full_s": total_full,
                       "stages_full_s": stages_full,
                       "peak_full_gib": peak_full / 2**30,
                       "pipeline_default_s": total_samp,
                       "stages_default_s": stages_samp,
-                      "peak_default_gib": peak_samp / 2**30}))
+                      "peak_default_gib": peak_samp / 2**30,
+                      "tutorial_session_s": total_tut,
+                      "stages_tutorial_s": stages_tut,
+                      "peak_tutorial_gib": peak_tut / 2**30,
+                      "velocity_step_ms": step_ms,
+                      "shims_ms_plain_ms_err": shims}))
+    # launches: each kernel's count summed over the paths that run it
     print(json.dumps({"kernels": [
         {"name": "coldeltacor_dense", "route": "cuda",
          "source": "velocyto_tpu_torch/kernels/coldeltacor_dense.cu",
          "replaces": "velocyto_tpu/ops/coldeltacor.py:89",
-         "launches": launches_full["dense"],
+         "launches": launches_full["dense"] + launches_tut["dense"],
          "max_abs_err": dense["max_abs_err"], "ms": dense["ms"],
          "plain_ms": dense["plain_ms"]},
         {"name": "coldeltacor_partial", "route": "cuda",
          "source": "velocyto_tpu_torch/kernels/coldeltacor_partial.cu",
          "replaces": "velocyto_tpu/ops/coldeltacor.py:260",
-         "launches": launches_samp["partial"],
+         "launches": launches_samp["partial"] + launches_tut["partial"],
          "max_abs_err": sampled["max_abs_err"], "ms": sampled["ms"],
          "plain_ms": sampled["plain_ms"]},
         {"name": "fma_probe", "route": "cuda",

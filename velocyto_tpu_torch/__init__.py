@@ -1,21 +1,39 @@
-"""velocyto_tpu_torch: the estimation pipeline of velocyto_tpu on PyTorch.
+"""velocyto_tpu_torch: the analysis surface of velocyto_tpu on PyTorch.
 
 A port of velocyto_tpu (JAX/Pallas on TPU) to PyTorch with hand-written
 CUDA kernels for NVIDIA Hopper.  It keeps the JAX package's module names
-(analysis, ops.coldeltacor, ops.knn, ops.knn_device, ops.gamma, ops.pca,
-io.loom) and never imports jax.  Every object and function works on an
-explicit torch device; kernels build on first use (see ``kernels``).
+(analysis, estimation, diffusion, models.velocity, ops.coldeltacor,
+ops.knn, ops.knn_device, ops.gamma, ops.pca, ops.smoothing, io.loom) and
+never imports jax.  Every object and function works on an explicit torch
+device; kernels build on first use (see ``kernels``).
 """
 from . import kernels
-from .analysis import (VelocytoLoom, numba_random_seed, permute_rows_nsign,
-                       state_from_numpy)
-from .ops.coldeltacor import col_delta_cor
-from .ops.gamma import compute_fit_weights, fit_slope_weighted_offset
-from .ops.knn import balance_knn_loop, knn_balance
+from .analysis import (VelocytoLoom, colormap_fun, gaussian_kernel,
+                       numba_random_seed, permute_rows_nsign,
+                       scale_to_match_median, state_from_numpy)
+from .diffusion import Diffusion
+from .estimation import (colDeltaCor, colDeltaCorLog10, colDeltaCorLog10partial,
+                         colDeltaCorpartial, colDeltaCorSqrt,
+                         colDeltaCorSqrtpartial)
+from .ops.coldeltacor import col_delta_cor, col_delta_cor_partial
+from .ops.gamma import (clusters_stats, compute_fit_weights, fit_slope,
+                        fit_slope_offset, fit_slope_weighted,
+                        fit_slope_weighted_offset)
+from .ops.knn import (BalancedKNN, balance_knn_loop, knn_balance,
+                      knn_distance_matrix, knn_smooth_weights, make_mutual,
+                      min_n, take_top)
 from .ops.knn_device import knn_search_dev
 from .ops.pca import PCA
+from .ops.smoothing import connectivity_to_weights, convolve_by_sparse_weights
 
-__all__ = ["kernels", "VelocytoLoom", "numba_random_seed",
-           "permute_rows_nsign", "state_from_numpy", "col_delta_cor",
-           "compute_fit_weights", "fit_slope_weighted_offset",
-           "balance_knn_loop", "knn_balance", "knn_search_dev", "PCA"]
+__all__ = ["kernels", "VelocytoLoom", "colormap_fun", "gaussian_kernel",
+           "numba_random_seed", "permute_rows_nsign", "scale_to_match_median",
+           "state_from_numpy", "Diffusion", "colDeltaCor", "colDeltaCorLog10",
+           "colDeltaCorLog10partial", "colDeltaCorpartial", "colDeltaCorSqrt",
+           "colDeltaCorSqrtpartial", "col_delta_cor", "col_delta_cor_partial",
+           "clusters_stats", "compute_fit_weights", "fit_slope",
+           "fit_slope_offset", "fit_slope_weighted",
+           "fit_slope_weighted_offset", "BalancedKNN", "balance_knn_loop",
+           "knn_balance", "knn_distance_matrix", "knn_smooth_weights",
+           "make_mutual", "min_n", "take_top", "knn_search_dev", "PCA",
+           "connectivity_to_weights", "convolve_by_sparse_weights"]

@@ -1,28 +1,35 @@
-"""VelocytoLoom: the estimation pipeline of velocyto_tpu on PyTorch.
+"""VelocytoLoom: the analysis object of velocyto_tpu on PyTorch.
 
-Port of the estimation main path of velocyto_tpu/analysis.py (itself an
-API-parity re-implementation of the reference's analysis object,
-velocyto/analysis.py:26-2470):
+Port of velocyto_tpu/analysis.py (itself an API-parity re-implementation
+of the reference's analysis object, velocyto/analysis.py:26-2470):
 
-  normalize -> perform_PCA -> knn_imputation -> fit_gammas -> predict_U /
-  calculate_velocity / calculate_shift / extrapolate_cell_at_t ->
-  estimate_transition_prob (sampled or full) -> calculate_embedding_shift
-  -> calculate_grid_arrows
+  filter / score genes and cells -> normalize family -> perform_PCA ->
+  knn_imputation (or its precomputed / gene-axis forms) -> fit_gammas ->
+  filter_genes_by_phase_portrait -> predict_U / calculate_velocity /
+  calculate_shift / extrapolate_cell_at_t -> estimate_transition_prob
+  (sampled or full) -> calculate_embedding_shift -> calculate_grid_arrows
+  -> prepare_markov / run_markov
 
 Every object works on one explicit torch device (``device=``; the default
-is "cuda").  The heavy (genes, cells) stage outputs and the correlation
-state stay on that device between stages; the numpy attributes the
-reference exposes are materialized lazily on first read.  Both
-colDeltaCor variants run through hand-written CUDA kernels on a CUDA
-device (ops/coldeltacor.py).  Host stages (normalization, PCA, the greedy
-kNN balance, the randomized-control permutation, the neighbour-sampling
-replay and the grid field) stay numpy/scipy/C++, as in the JAX package.
+is "cuda").  The heavy (genes, cells) stage outputs, the correlation
+state and the Markov matrix stay on that device between stages; the
+numpy (or csr) attributes the reference exposes are materialized lazily
+on first read.  Both colDeltaCor variants run through hand-written CUDA
+kernels on a CUDA device (ops/coldeltacor.py).  Host stages (the
+filter/score family and the raw-count normalizations in float64, PCA,
+the greedy kNN balance, the randomized-control permutation, the
+neighbour-sampling replay and the grid field) stay numpy/scipy/C++, as in
+the JAX package.  score_cv_vs_mean, adjust_totS_totU and perform_TSNE
+import sklearn when called, and set_clusters without colours imports
+matplotlib, as the JAX package does.
 """
 from __future__ import annotations
 
 import logging
+import warnings
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, List, Optional, Tuple, Union
+from copy import deepcopy
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -30,12 +37,18 @@ from scipy import sparse
 from scipy.stats import norm as normal
 
 from . import native
+from .diffusion import Diffusion
 from .io import loom as loomio
 from .ops import knn_device as kd
 from .ops.coldeltacor import col_delta_cor, col_delta_cor_partial_compact
-from .ops.gamma import compute_fit_weights, fit_slope_weighted_offset
-from .ops.knn import _knn_query_impl, full_f32
+from .ops.gamma import (clusters_stats, compute_fit_weights, fit_slope,
+                        fit_slope_offset, fit_slope_weighted,
+                        fit_slope_weighted_offset)
+from .ops.knn import (BalancedKNN, _knn_query_impl, full_f32,
+                      knn_distance_matrix)
 from .ops.pca import PCA
+from .ops.smoothing import (connectivity_to_weights,
+                            convolve_by_sparse_weights_dev)
 
 _F32, _F64 = torch.float32, torch.float64
 
@@ -174,13 +187,236 @@ class VelocytoLoom:
         return torch.as_tensor(np.asarray(getattr(self, name)), dtype=dtype,
                                device=self.device)
 
-    def _materialize_dev(self, name: str) -> np.ndarray:
+    def _materialize_dev(self, name: str) -> Any:
         dev = self.__dict__["_dev_state"][name]
         cache = self.__dict__.setdefault("_dev_host_cache", {})
         if name not in cache:
-            dt = np.float32 if name in self._LAZY_DENSE else np.float64
-            cache[name] = dev.cpu().numpy().astype(dt)
+            if name == "tr":         # the reference's csr Markov matrix
+                cache[name] = sparse.csr_matrix(dev.cpu().numpy())
+            else:
+                dt = np.float32 if name in self._LAZY_DENSE else np.float64
+                cache[name] = dev.cpu().numpy().astype(dt)
         return cache[name]
+
+    def _host_view_or_dev(self, name: str) -> Any:
+        """The value stages read for `name`: the host view once
+        __getattr__ handed it out (it may have been edited in place, and
+        the JAX package would read the edit), else the device tensor."""
+        cached = (self.__dict__.get("_dev_host_cache") or {}).get(name)
+        if cached is not None:
+            return cached
+        return self.__dict__["_dev_state"][name]
+
+    # ------------------------------------------------------------------
+    # cell/gene bookkeeping (reference :137-201), host numpy
+    # ------------------------------------------------------------------
+
+    def filter_cells(self, bool_array: np.ndarray) -> None:
+        """Keep only cells where bool_array is True (reference :137-165)."""
+        self.S, self.U, self.A = (X[:, bool_array]
+                                  for X in (self.S, self.U, self.A))
+        self.initial_cell_size = self.initial_cell_size[bool_array]
+        self.initial_Ucell_size = self.initial_Ucell_size[bool_array]
+        for attr in ("ts", "size_factor"):
+            try:
+                setattr(self, attr, getattr(self, attr)[bool_array])
+            except AttributeError:
+                pass
+        self.ca = {k: v[bool_array] for k, v in self.ca.items()}
+        try:
+            self.cluster_labels = self.cluster_labels[bool_array]
+            self.colorandum = self.colorandum[bool_array, :]
+        except AttributeError:
+            pass
+
+    def set_clusters(self, cluster_labels: np.ndarray,
+                     cluster_colors_dict: Optional[Dict[str, List[float]]] = None,
+                     colormap: Any = None) -> None:
+        """Set cluster labels + colors (reference :167-201).  Without a
+        colour dict or a colormap, the default palette needs
+        matplotlib."""
+        self.cluster_labels = np.array(cluster_labels)
+        if self.cluster_labels.dtype == "O":
+            self.cluster_labels = self.cluster_labels.astype(np.bytes_)
+        if cluster_colors_dict:
+            self.colorandum = np.array([cluster_colors_dict[i]
+                                        for i in cluster_labels])
+            self.cluster_colors_dict = cluster_colors_dict
+            self.colormap = None
+        else:
+            if colormap is None:
+                self.colorandum = colormap_fun(self.cluster_ix)
+                cluster_uid = self.cluster_uid
+                self.cluster_colors_dict = {
+                    cluster_uid[i]: colormap_fun(np.array([i]))[0]
+                    for i in range(len(cluster_uid))}
+            else:
+                self.colormap = colormap
+                self.colorandum = self.colormap(self.cluster_ix)
+                cluster_uid = self.cluster_uid
+                self.cluster_colors_dict = {
+                    cluster_uid[i]: self.colormap(i)
+                    for i in range(len(cluster_uid))}
+
+    @property
+    def cluster_uid(self) -> np.ndarray:
+        return np.unique(self.cluster_labels)
+
+    @property
+    def cluster_ix(self) -> np.ndarray:
+        _, cluster_ix = np.unique(self.cluster_labels, return_inverse=True)
+        return cluster_ix
+
+    # ------------------------------------------------------------------
+    # gene scoring / filtering (reference :213-533), host numpy
+    # ------------------------------------------------------------------
+
+    def score_cv_vs_mean(self, N: int = 3000, min_expr_cells: int = 2,
+                         max_expr_avg: float = 20, min_expr_avg: int = 0,
+                         svr_gamma: Optional[float] = None,
+                         winsorize: bool = False,
+                         winsor_perc: Tuple[float, float] = (1, 99.5),
+                         sort_inverse: bool = False, which: str = "S",
+                         plot: bool = False) -> None:
+        """CV-vs-mean SVR noise model ranking (reference :213-342).
+
+        The SVR is sklearn's, imported here (ImportError without it); the
+        moments are numpy.  plot=True is not ported (plotting is not)."""
+        if plot:
+            raise NotImplementedError("plotting is not ported")
+        from sklearn.svm import SVR
+        M = self.S if which == "S" else self.U
+        if winsorize:
+            if min_expr_cells <= ((100 - winsor_perc[1]) * M.shape[1] * 0.01):
+                min_expr_cells = int(np.ceil(
+                    (100 - winsor_perc[1]) * M.shape[0] * 0.01)) + 2
+
+        detected_bool = ((M > 0).sum(1) > min_expr_cells) & \
+                        (M.mean(1) < max_expr_avg) & (M.mean(1) > min_expr_avg)
+        Mf = M[detected_bool, :]
+        if winsorize:
+            down, up = np.percentile(Mf, winsor_perc, 1)
+            Mfw = np.clip(Mf, down[:, None], up[:, None])
+            mu = Mfw.mean(1)
+            sigma = Mfw.std(1, ddof=1)
+        else:
+            mu = Mf.mean(1)
+            sigma = Mf.std(1, ddof=1)
+
+        cv = sigma / mu
+        log_m = np.log2(mu)
+        log_cv = np.log2(cv)
+
+        if svr_gamma is None:
+            svr_gamma = 150.0 / len(mu)
+        clf = SVR(gamma=svr_gamma)
+        clf.fit(log_m[:, None], log_cv)
+        ff = clf.predict(log_m[:, None])
+        score = log_cv - ff
+        if sort_inverse:
+            score = -score
+        nth_score = np.sort(score)[::-1][N] if N < len(score) \
+            else np.min(score) - 1e-16
+        full_score = np.zeros(detected_bool.shape)
+        full_score[~detected_bool] = np.min(score) - 1e-16
+        full_score[detected_bool] = score
+        if which == "S":
+            self.cv_mean_score = full_score
+            self.cv_mean_selected = self.cv_mean_score >= nth_score
+        else:
+            self.Ucv_mean_score = full_score
+            self.Ucv_mean_selected = self.Ucv_mean_score >= nth_score
+
+    def robust_size_factor(self, pc: float = 0.1, which: str = "both") -> None:
+        """Anders-Huber style size factors (reference :344-382)."""
+        def _sf(M, sel):
+            Y = np.log2(M[sel, :] + pc)
+            Y_avg = Y.mean(1)
+            sf = np.median(2 ** (Y - Y_avg[:, None]), axis=0)
+            return sf / np.mean(sf)
+        if which in ("both", "S"):
+            self.size_factor = _sf(self.S, self.cv_mean_selected)
+        if which in ("both", "U"):
+            self.Usize_factor = _sf(self.U, self.Ucv_mean_selected)
+
+    def score_cluster_expression(self, min_avg_U: float = 0.02,
+                                 min_avg_S: float = 0.08) -> None:
+        """Cluster-wise expression threshold (reference :384-403)."""
+        self.U_avgs, self.S_avgs = clusters_stats(
+            self.U, self.S, self.cluster_uid, self.cluster_ix, size_limit=40)
+        self.clu_avg_selected = (self.U_avgs.max(1) > min_avg_U) & \
+                                (self.S_avgs.max(1) > min_avg_S)
+
+    def score_detection_levels(self, min_expr_counts: int = 50,
+                               min_cells_express: int = 20,
+                               min_expr_counts_U: int = 0,
+                               min_cells_express_U: int = 0) -> None:
+        """Detection-level gene filter scores (reference :405-432)."""
+        S_sum = self.S.sum(1)
+        S_ncells = (self.S > 0).sum(1)
+        U_sum = self.U.sum(1)
+        U_ncells = (self.U > 0).sum(1)
+        self.detection_level_selected = (
+            (S_sum >= min_expr_counts) & (S_ncells >= min_cells_express) &
+            (U_sum >= min_expr_counts_U) & (U_ncells >= min_cells_express_U))
+
+    def filter_genes(self, by_detection_levels: bool = False,
+                     by_cluster_expression: bool = False,
+                     by_cv_vs_mean: bool = False,
+                     by_custom_array: Any = None,
+                     keep_unfiltered: bool = False) -> None:
+        """Apply gene filters to S/U/ra (reference :434-496)."""
+        if not np.any([by_detection_levels, by_cluster_expression,
+                       by_cv_vs_mean, type(by_custom_array) is np.ndarray]):
+            raise ValueError("At least one of the filtering methods needs "
+                             "to be True")
+        tmp_filter = np.ones(self.S.shape[0], dtype=bool)
+        if by_cluster_expression:
+            tmp_filter = tmp_filter & self.clu_avg_selected
+        if by_cv_vs_mean:
+            tmp_filter = tmp_filter & self.cv_mean_selected
+        if by_detection_levels:
+            tmp_filter = tmp_filter & self.detection_level_selected
+        if type(by_custom_array) is np.ndarray:
+            if by_custom_array.dtype == bool:
+                tmp_filter = tmp_filter & by_custom_array
+            else:
+                bool_negative = ~np.isin(np.arange(len(tmp_filter)),
+                                         by_custom_array)
+                tmp_filter[bool_negative] = False
+        if keep_unfiltered:
+            self.U_prefilter = sparse.csr_matrix(self.U)
+            self.S_prefilter = sparse.csr_matrix(self.S)
+            self.ra_prefilter = deepcopy(self.ra)
+        self.U = self.U[tmp_filter, :]
+        self.S = self.S[tmp_filter, :]
+        self.ra = {k: v[tmp_filter] for k, v in self.ra.items()}
+
+    def custom_filter_attributes(self, attr_names: List[str],
+                                 bool_filter: np.ndarray) -> None:
+        """Filter arbitrary attributes (reference :498-533).  A ".T"
+        suffix filters a 2-D array along its LAST axis instead of the
+        first; dicts are filtered value-wise.  A device-backed attribute
+        is read through its host view, and the filtered host value
+        becomes authoritative."""
+        for spec in attr_names:
+            last_axis = spec.endswith(".T")
+            name = spec[:-2] if last_axis else spec
+            obj = getattr(self, name)
+            if type(obj) is dict:
+                kept = {k: v[bool_filter] for k, v in obj.items()}
+            elif type(obj) is np.ndarray:
+                if obj.ndim > 1 and last_axis:
+                    kept = obj[..., bool_filter]
+                elif obj.ndim > 1:
+                    kept = obj[bool_filter, :]
+                else:
+                    kept = obj[bool_filter]
+            else:
+                raise NotImplementedError(
+                    f"The filtering of an object of type {type(obj)} "
+                    "is not defined")
+            setattr(self, name, kept)
 
     # ------------------------------------------------------------------
     # normalization (reference :535-904)
@@ -228,8 +464,218 @@ class VelocytoLoom:
         if log:
             self.U_norm = u_norm
 
+    # The imputed matrices live on the device, so their normalizations run
+    # there, in float64 like the JAX package's host arithmetic on them;
+    # Sx_sz / Ux_sz / Sx_norm / Ux_norm stay device-backed.
+
+    def _scale_cols_dev(self, M: torch.Tensor, factor: Any) -> torch.Tensor:
+        """factor * M on M's device in float64; factor is a scalar or one
+        value per cell (column)."""
+        return M * torch.as_tensor(np.asarray(factor, np.float64),
+                                   device=M.device)
+
+    def _set_scaled_dev(self, prefix: str, M: torch.Tensor, factor: Any,
+                        pcount: float, log: bool, clean: bool) -> None:
+        sz = self._scale_cols_dev(M, factor)
+        if clean:
+            sz = torch.nan_to_num(sz, nan=0.0, posinf=0.0, neginf=0.0)
+        self._set_dev(prefix + "_sz", sz)
+        if log:
+            self._set_dev(prefix + "_norm", torch.log2(sz + pcount))
+
+    def _normalize_Sx(self, size: bool = True, log: bool = True,
+                      pcount: float = 1, relative_size: Any = None,
+                      target_size: Any = None) -> None:
+        Sx = self._get_dev("Sx", _F64)
+        if size:
+            if relative_size is not None and np.any(relative_size):
+                self.xcell_size = relative_size
+            else:
+                self.xcell_size = Sx.sum(0).cpu().numpy()
+            self.xavg_size = (self.xcell_size.mean()
+                              if target_size is None else target_size)
+            self.xnorm_factor = self.xavg_size / self.xcell_size
+        else:
+            self.xnorm_factor = 1
+        self._set_scaled_dev("Sx", Sx, self.xnorm_factor, pcount, log,
+                             clean=False)
+
+    def _normalize_Ux(self, size: bool = True, log: bool = True,
+                      pcount: float = 1, use_Sx_size: bool = False,
+                      relative_size: Any = None, target_size: Any = None) -> None:
+        Ux = self._get_dev("Ux", _F64)
+        if size:
+            if use_Sx_size:
+                # sic: the reference tests for cell_size, not xcell_size
+                cell_size = (self.xcell_size if hasattr(self, "cell_size")
+                             else self._get_dev("Sx", _F64).sum(0).cpu().numpy())
+            elif type(relative_size) is np.ndarray:
+                cell_size = relative_size
+            else:
+                cell_size = Ux.sum(0).cpu().numpy()
+            self.xUcell_size = cell_size
+            avg_size = cell_size.mean() if target_size is None else target_size
+            self.xUavg_size = avg_size
+            with np.errstate(divide="ignore", invalid="ignore"):
+                norm_factor = avg_size / cell_size
+        else:
+            norm_factor = 1
+        self.xUnorm_factor = norm_factor
+        self._set_scaled_dev("Ux", Ux, norm_factor, pcount, log, clean=True)
+
+    def normalize(self, which: str = "both", size: bool = True,
+                  log: bool = True, pcount: float = 1,
+                  relative_size: Optional[np.ndarray] = None,
+                  use_S_size_for_U: bool = False,
+                  target_size: Tuple[Any, Any] = (None, None)) -> None:
+        """Normalization facade (reference :633-676): "both", "S", "U" on
+        the host raw counts; "imputed", "Sx", "Ux" on the device."""
+        if which in ("both", "S"):
+            self._normalize_S(size=size, log=log, pcount=pcount,
+                              relative_size=relative_size,
+                              target_size=target_size[0])
+        if which in ("both", "U"):
+            self._normalize_U(size=size, log=log, pcount=pcount,
+                              use_S_size=use_S_size_for_U,
+                              relative_size=relative_size,
+                              target_size=target_size[1])
+        if which in ("imputed", "Sx"):
+            self._normalize_Sx(size=size, log=log, pcount=pcount,
+                               relative_size=relative_size,
+                               target_size=target_size[0])
+        if which in ("imputed", "Ux"):
+            self._normalize_Ux(size=size, log=log, pcount=pcount,
+                               use_Sx_size=use_S_size_for_U,
+                               relative_size=relative_size,
+                               target_size=target_size[1])
+
+    def _min_Ucell_size(self, Ucell_size: np.ndarray,
+                        min_perc_U: float) -> float:
+        min_Ucell_size = np.percentile(Ucell_size, min_perc_U)
+        if min_Ucell_size < 2:
+            raise ValueError(
+                f"min_perc_U={min_perc_U} corresponds to total Unspliced of "
+                "1 molecule of less. Please choose higher value or filter "
+                "our these cell")
+        return min_Ucell_size
+
+    def _normalize_U_by_initial(self, min_Ucell_size: float,
+                                target_Ucell_size: float,
+                                skip_low_U_pop: bool) -> None:
+        if skip_low_U_pop:
+            self._normalize_U(
+                relative_size=np.clip(self.initial_Ucell_size,
+                                      min_Ucell_size, None),
+                target_size=target_Ucell_size)
+        else:
+            self._normalize_U(relative_size=self.initial_Ucell_size,
+                              target_size=target_Ucell_size)
+
+    def normalize_by_total(self, min_perc_U: float = 0.5, plot: bool = False,
+                           skip_low_U_pop: bool = True,
+                           same_size_UnS: bool = False) -> None:
+        """Size-normalize by the initial totals (reference :704-758)."""
+        target_cell_size = np.median(self.initial_cell_size)
+        min_Ucell_size = self._min_Ucell_size(self.initial_Ucell_size,
+                                              min_perc_U)
+        self.small_U_pop = self.initial_Ucell_size < min_Ucell_size
+        if same_size_UnS:
+            target_Ucell_size = target_cell_size
+        else:
+            target_Ucell_size = np.median(
+                self.initial_Ucell_size[~self.small_U_pop])
+        self._normalize_S(relative_size=self.initial_cell_size,
+                          target_size=target_cell_size)
+        self._normalize_U_by_initial(min_Ucell_size, target_Ucell_size,
+                                     skip_low_U_pop)
+
+    def normalize_by_size_factor(self, min_perc_U: float = 0.5,
+                                 plot: bool = False,
+                                 skip_low_U_pop: bool = True,
+                                 same_size_UnS: bool = False) -> None:
+        """Size-normalize by robust size factors (reference :760-815)."""
+        cell_size = self.S.sum(0)
+        Ucell_size = self.U.sum(0)
+        target_cell_size = np.median(cell_size)
+        min_Ucell_size = self._min_Ucell_size(Ucell_size, min_perc_U)
+        self.small_U_pop = Ucell_size < min_Ucell_size
+        if same_size_UnS:
+            target_Ucell_size = target_cell_size
+        else:
+            target_Ucell_size = np.median(Ucell_size[~self.small_U_pop])
+        self._normalize_S(relative_size=self.size_factor,
+                          target_size=target_cell_size)
+        self._normalize_U_by_initial(min_Ucell_size, target_Ucell_size,
+                                     skip_low_U_pop)
+
+    def adjust_totS_totU(self, skip_low_U_pop: bool = True,
+                         normalize_total: bool = False,
+                         fit_with_low_U: bool = True,
+                         svr_C: float = 100, svr_gamma: float = 1e-6,
+                         plot: bool = False) -> None:
+        """SVR-based U rescaling vs S totals (reference :817-867); the SVR
+        is sklearn's, imported here.  U_sz is a host array, edited in
+        place as in the JAX package; the next stage that reads it uploads
+        the edited values."""
+        from sklearn.svm import SVR
+        svr = SVR(C=svr_C, kernel="rbf", gamma=svr_gamma)
+        X, y = self.S_sz.sum(0), self.U_sz.sum(0)
+        if fit_with_low_U:
+            svr.fit(X[:, None], y)
+            predicted = svr.predict(X[:, None])
+        else:
+            svr.fit(X[~self.small_U_pop, None], y[~self.small_U_pop])
+            predicted = np.copy(y)
+            predicted[~self.small_U_pop] = svr.predict(
+                X[~self.small_U_pop, None])
+        adj_factor = predicted / y
+        adj_factor[~np.isfinite(adj_factor)] = 1
+        if skip_low_U_pop:
+            self.U_sz[:, ~self.small_U_pop] = \
+                self.U_sz[:, ~self.small_U_pop] * adj_factor[~self.small_U_pop]
+        else:
+            self.U_sz = self.U_sz * adj_factor
+        if normalize_total:
+            self.normalize_median(which="renormalize",
+                                  skip_low_U_pop=skip_low_U_pop)
+
+    def normalize_median(self, which: str = "imputed",
+                         skip_low_U_pop: bool = True) -> None:
+        """Median renormalization (reference :869-904).  "renormalize"
+        edits the host S_sz / U_sz (U_sz in place, as the JAX package
+        does); "imputed" rescales the device Sx / Ux into device-backed
+        Sx_sz / Ux_sz in float64 (the medians on the host, numpy's)."""
+        if not hasattr(self, "small_U_pop") and skip_low_U_pop:
+            self.small_U_pop = np.zeros(self.U_sz.shape[1], dtype=bool)
+        if which == "renormalize":
+            sums = self.S_sz.sum(0)
+            self.S_sz, _ = _scaled_pair(self.S_sz, np.median(sums) / sums,
+                                        0, False)
+            if skip_low_U_pop:
+                sub = self.U_sz[:, ~self.small_U_pop]
+                sums = sub.sum(0)
+                self.U_sz[:, ~self.small_U_pop] = sub * (
+                    np.median(sums) / sums)
+            else:
+                sums = self.U_sz.sum(0)
+                self.U_sz, _ = _scaled_pair(self.U_sz,
+                                            np.median(sums) / sums, 0, False)
+        elif which == "imputed":
+            Sx = self._get_dev("Sx", _F64)
+            sums = Sx.sum(0).cpu().numpy()
+            self._set_dev("Sx_sz", self._scale_cols_dev(
+                Sx, np.median(sums) / sums))
+            Ux = self._get_dev("Ux", _F64)
+            factor = np.ones(Ux.shape[1])
+            keep = ~self.small_U_pop if skip_low_U_pop else \
+                np.ones(Ux.shape[1], dtype=bool)
+            sums = Ux[:, torch.as_tensor(keep, device=Ux.device)].sum(0) \
+                .cpu().numpy()
+            factor[keep] = np.median(sums) / sums
+            self._set_dev("Ux_sz", self._scale_cols_dev(Ux, factor))
+
     # ------------------------------------------------------------------
-    # dimensionality reduction + smoothing (reference :678-702, :933-1023)
+    # dimensionality reduction + smoothing (reference :678-702, :933-1118)
     # ------------------------------------------------------------------
 
     def perform_PCA(self, which: str = "S_norm",
@@ -301,6 +747,55 @@ class VelocytoLoom:
         self._set_dev("Sx_sz", Sx)
         self._set_dev("Ux_sz", Ux)
 
+    def knn_imputation_precomputed(self, knn_smoothing_w: sparse.spmatrix,
+                                   maximum: bool = False) -> None:
+        """Smoothing with a precomputed (cells, cells) weight matrix
+        (reference :1025-1053), on the device; Sx/Ux and their _sz
+        aliases are device-backed."""
+        S_sz, U_sz = self._get_dev("S_sz"), self._get_dev("U_sz")
+        Sx = convolve_by_sparse_weights_dev(S_sz, knn_smoothing_w)
+        Ux = convolve_by_sparse_weights_dev(U_sz, knn_smoothing_w)
+        if maximum:
+            Sx, Ux = torch.maximum(S_sz, Sx), torch.maximum(U_sz, Ux)
+        for name, dev in (("Sx", Sx), ("Ux", Ux), ("Sx_sz", Sx),
+                          ("Ux_sz", Ux)):
+            self._set_dev(name, dev)
+
+    def gene_knn_imputation(self, k: int = 15, pca_space: bool = False,
+                            metric: str = "correlation", diag: float = 1,
+                            scale_weights: bool = True, balanced: bool = True,
+                            b_sight: int = 100, b_maxl: int = 18,
+                            n_jobs: int = 8) -> None:
+        """Gene-axis kNN smoothing of Sx_sz / Ux_sz (reference
+        :1055-1118): the gene kNN search on the device, the graph and its
+        weights in scipy.sparse on the host, the smoothing on the
+        device."""
+        if pca_space:
+            raise NotImplementedError("pca_space=True not supported here")
+        space = self._get_dev("Sx_sz", _F64)
+        if balanced:
+            bknn = BalancedKNN(k=k, sight_k=b_sight, maxl=b_maxl,
+                               mode="distance", metric=metric, n_jobs=n_jobs,
+                               device=self.device)
+            bknn.fit(space)
+            self.gknn = bknn.kneighbors_graph(mode="distance")
+        else:
+            self.gknn = knn_distance_matrix(space, metric=metric, k=k,
+                                            mode="distance", n_jobs=n_jobs,
+                                            device=self.device)
+        connectivity = (self.gknn > 0).astype(float)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            connectivity.setdiag(diag)
+        self.gknn_smoothing_w = connectivity_to_weights(connectivity).tocsr()
+        if scale_weights:
+            genes_total = space.sum(1).cpu().numpy()
+            self.gknn_smoothing_w = scale_to_match_median(
+                self.gknn_smoothing_w, genes_total)
+        for name in ("Sx_sz", "Ux_sz"):
+            self._set_dev(name, convolve_by_sparse_weights_dev(
+                self._get_dev(name).T, self.gknn_smoothing_w).T)
+
     # ------------------------------------------------------------------
     # gamma model (reference :1120-1260)
     # ------------------------------------------------------------------
@@ -314,37 +809,169 @@ class VelocytoLoom:
                    maxmin_perc: List[float] = [2, 98],
                    maxmin_weighted_pow: float = 15) -> None:
         """Fit per-gene degradation rates (reference :1120-1260) with the
-        closed-form weighted fit with offset (ops.gamma), on the device.
+        closed-form fits of ops.gamma, on the device.
 
-        Ported: all cells at steady state, weighted=True, fit_offset=True
-        (the reference defaults).  The other branches raise
-        NotImplementedError (ROADMAP.md A3)."""
+        With every cell at steady state the matrices and the weight
+        scheme stay on the device; with a steady-state subset the weights
+        are the JAX package's host float64 schemes and the subset is
+        uploaded."""
         if steady_state_bool:
             self.steady_state = steady_state_bool
         else:
             self.steady_state = np.ones(self.S.shape[1], dtype=bool)
-        if not (np.all(self.steady_state) and weighted and fit_offset):
-            raise NotImplementedError(
-                "fit_gammas is ported for all-steady-state weighted fits "
-                "with offset only (ROADMAP.md A3)")
+        all_ss = bool(np.all(self.steady_state))
+
         Sname = ("Sx_sz" if use_size_norm else "Sx") if use_imputed_data \
             else ("S_sz" if use_size_norm else "S")
         Uname = ("Ux_sz" if use_size_norm else "Ux") if use_imputed_data \
             else ("U_sz" if use_size_norm else "U")
-        tmpS = self._get_dev(Sname)
-        tmpU = self._get_dev(Uname)
-        if type(weights) is np.ndarray:
-            W = torch.as_tensor(weights, dtype=_F32, device=self.device)
+        if all_ss:
+            tmpS, tmpU = self._get_dev(Sname), self._get_dev(Uname)
         else:
-            need_xs = weights in ("maxmin_diag", "maxmin_double")
-            W = compute_fit_weights(
-                weights, tmpS, tmpU,
-                self._get_dev("Sx") if need_xs else None,
-                self._get_dev("Ux") if need_xs else None,
-                maxmin_perc, maxmin_weighted_pow)
-        self.gammas, self.q, self.R2 = fit_slope_weighted_offset(
-            tmpU, tmpS, W, return_R2=True, limit_gamma=limit_gamma)
+            tmpS, tmpU = getattr(self, Sname), getattr(self, Uname)
+
+        W = None
+        if weighted:
+            if type(weights) is np.ndarray:
+                W = weights
+            elif weights not in ("sum", "prod", "maxmin_weighted", "maxmin",
+                                 "maxmin_diag", "maxmin_double"):
+                raise NotImplementedError(
+                    f"weights={weights!r} is not a supported scheme")
+            elif all_ss:
+                need_xs = weights in ("maxmin_diag", "maxmin_double")
+                W = compute_fit_weights(
+                    weights, tmpS, tmpU,
+                    self._get_dev("Sx") if need_xs else None,
+                    self._get_dev("Ux") if need_xs else None,
+                    maxmin_perc, maxmin_weighted_pow)
+            else:
+                W = self._fit_weights_host(weights, tmpS, tmpU, maxmin_perc,
+                                           maxmin_weighted_pow)
+
+        if all_ss:
+            ssU, ssS = tmpU, tmpS
+        else:
+            ssU = tmpU[:, self.steady_state]
+            ssS = tmpS[:, self.steady_state]
+            if W is not None and np.shape(W)[1] == tmpS.shape[1]:
+                # weights over every cell, fit on the steady-state cells
+                # (the JAX package passes the full W here and raises)
+                W = np.asarray(W)[:, self.steady_state]
+        dev = self.device
+        if fit_offset:
+            if weighted:
+                self.gammas, self.q, self.R2 = fit_slope_weighted_offset(
+                    ssU, ssS, W, return_R2=True, limit_gamma=limit_gamma,
+                    device=dev)
+            else:
+                self.gammas, self.q = fit_slope_offset(ssU, ssS, device=dev)
+        elif fixperc_q:
+            if weighted:
+                self.gammas, self.q = fit_slope_weighted_offset(
+                    ssU, ssS, W, fixperc_q=True, return_R2=False,
+                    limit_gamma=limit_gamma, device=dev)
+            else:
+                self.gammas, self.q = fit_slope_offset(
+                    ssU, ssS, fixperc_q=True, device=dev)
+        else:
+            if weighted:
+                self.gammas, self.R2 = fit_slope_weighted(
+                    ssU, ssS, W, return_R2=True, limit_gamma=limit_gamma,
+                    device=dev)
+            else:
+                self.gammas = fit_slope(ssU, ssS, device=dev)
+            self.q = np.zeros_like(self.gammas)
         self.gammas[~np.isfinite(self.gammas)] = 0
+
+    def _fit_weights_host(self, weights: str, tmpS, tmpU, maxmin_perc,
+                          maxmin_weighted_pow):
+        """Host float64 weight schemes (reference analysis.py:1139-1191;
+        copied from the JAX package), for the steady-state subset path."""
+        if weights == "sum":
+            return (tmpS / np.percentile(tmpS, 99, 1)[:, None]) + \
+                (tmpU / np.percentile(tmpU, 99, 1)[:, None])
+        if weights == "prod":
+            return (tmpS / np.percentile(tmpS, 99, 1)[:, None]) * \
+                (tmpU / np.percentile(tmpU, 99, 1)[:, None])
+        if weights == "maxmin_weighted":
+            down, up = np.percentile(tmpS, maxmin_perc, 1)
+            Srange = np.clip(tmpS, down[:, None], up[:, None])
+            Srange = Srange - Srange.min(1)[:, None]
+            Srange = Srange / Srange.max(1)[:, None]
+            return 0.5 * (Srange ** maxmin_weighted_pow +
+                          (1 - Srange) ** maxmin_weighted_pow)
+        if weights == "maxmin":
+            down, up = np.percentile(tmpS, maxmin_perc, 1)
+            return ((tmpS <= down[:, None]) |
+                    (tmpS >= up[:, None])).astype(float)
+        Sx, Ux = self.Sx, self.Ux
+        denom_Sx = np.percentile(Sx, 99.9, 1)
+        if np.sum(denom_Sx == 0):
+            denom_Sx[denom_Sx == 0] = np.maximum(
+                np.max(Sx[denom_Sx == 0, :], 1), 0.001)
+        denom_Ux = np.percentile(Ux, 99.9, 1)
+        if np.sum(denom_Ux == 0):
+            denom_Ux[denom_Ux == 0] = np.maximum(
+                np.max(Ux[denom_Ux == 0, :], 1), 0.001)
+        X = Sx / denom_Sx[:, None] + Ux / denom_Ux[:, None]
+        down, up = np.percentile(X, maxmin_perc, axis=1)
+        W = ((X <= down[:, None]) | (X >= up[:, None])).astype(float)
+        if weights == "maxmin_double":
+            down, up = np.percentile(Sx, maxmin_perc, 1)
+            W = W + ((Sx <= down[:, None]) |
+                     (Sx >= up[:, None])).astype(float)
+        return W
+
+    def filter_genes_good_fit(self, minR: float = 0.1,
+                              min_gamma: float = 0.01) -> None:
+        """Deprecated alias of filter_genes_by_phase_portrait without the
+        correlation criterion (reference :1254-1265)."""
+        return self.filter_genes_by_phase_portrait(minR2=minR,
+                                                   min_gamma=min_gamma,
+                                                   minCorr=None)
+
+    def filter_genes_by_phase_portrait(self, minR2: float = 0.1,
+                                       min_gamma: float = 0.01,
+                                       minCorr: float = 0.1) -> None:
+        """Drop genes with bad phase portraits (reference :1267-1319).
+
+        The Sx_sz/Ux_sz correlation runs on the device in float64 (the JAX
+        package's host precision).  Device-backed matrices are filtered on
+        the device and stay device-backed, aliases kept (Sx_sz stays Sx);
+        a host view already handed out is filtered instead, so an edit of
+        it carries over, as it does in the JAX package."""
+        tmp_filter = np.ones(self.gammas.shape, dtype=bool)
+        if minR2 is not None:
+            R2_corrected = np.sqrt(np.abs(self.R2)) * np.sign(self.R2)
+            tmp_filter = tmp_filter & (R2_corrected > minR2)
+        if min_gamma is not None:
+            tmp_filter = tmp_filter & (self.gammas > min_gamma)
+        if minCorr is not None:
+            Corr = _paired_correlation_rows(
+                self._get_dev("Sx_sz", _F64), self._get_dev("Ux_sz", _F64))
+            tmp_filter = tmp_filter & (Corr.cpu().numpy() > minCorr)
+        self.ra = {k: v[tmp_filter] for k, v in self.ra.items()}
+        keep = torch.as_tensor(np.flatnonzero(tmp_filter), device=self.device)
+        dev_state = self.__dict__.get("_dev_state") or {}
+        filtered = {}                        # id(tensor) -> (tensor, rows)
+        for name in ("U", "U_sz", "U_norm", "Ux", "Ux_sz", "Ux_norm",
+                     "S", "S_sz", "S_norm", "Sx", "Sx_sz", "Sx_norm"):
+            if name in dev_state:
+                src = self._host_view_or_dev(name)
+                if isinstance(src, np.ndarray):
+                    self._set_dev(name, torch.as_tensor(
+                        src[tmp_filter], dtype=dev_state[name].dtype,
+                        device=self.device))
+                    continue
+                if id(src) not in filtered:
+                    filtered[id(src)] = (src, src.index_select(0, keep))
+                self._set_dev(name, filtered[id(src)][1])
+            elif name in self.__dict__:
+                setattr(self, name, self.__dict__[name][tmp_filter, :])
+        for name in ("gammas", "q", "R2"):
+            if name in self.__dict__:
+                setattr(self, name, self.__dict__[name][tmp_filter])
 
     # ------------------------------------------------------------------
     # velocity chain (reference :1321-1439), on the device
@@ -413,6 +1040,19 @@ class VelocytoLoom:
         self._set_dev(tname, torch.clamp_min(out, 0.0) if clip else out)
         if clip:
             self.used_delta_t = delta_t
+
+    def perform_TSNE(self, n_dims: int = 2, perplexity: float = 30,
+                     initial_pos: Optional[np.ndarray] = None,
+                     theta: float = 0.5, n_pca_dim: Optional[int] = None,
+                     max_iter: int = 1000) -> None:
+        """Barnes-Hut TSNE on the PCA space (reference :1441-1450); sklearn's,
+        imported here, exactly as the JAX package calls it."""
+        from sklearn.manifold import TSNE
+        if initial_pos is None:
+            initial_pos = "random"
+        bh_tsne = TSNE(n_components=n_dims, perplexity=perplexity,
+                       angle=theta, init=initial_pos, max_iter=max_iter)
+        self.ts = bh_tsne.fit_transform(self.pcs[:, :n_pca_dim])
 
     # ------------------------------------------------------------------
     # velocity -> embedding projection (reference :1452-1816)
@@ -883,22 +1523,187 @@ class VelocytoLoom:
             self.flow_norm_magnitude_rndm = np.linalg.norm(
                 self.flow_norm_rndm, axis=1)
 
+    # ------------------------------------------------------------------
+    # markov diffusion (reference :1818-1887), on the device
+    # ------------------------------------------------------------------
+
+    def _transition_prob_dev(self) -> torch.Tensor:
+        """transition_prob as a dense float64 (N, N) tensor on the device:
+        the host value when there is one (assigned, or a lazy view handed
+        out, perhaps edited), else the full mode's device tensor, else
+        built on the device from the compact knn_random state exactly as
+        the lazy view would be (softmax over the sampled candidates,
+        scattered)."""
+        d = self.__dict__
+        tp = d.get("transition_prob")
+        if tp is None and "transition_prob" in (d.get("_dev_state") or ()):
+            tp = self._host_view_or_dev("transition_prob")
+        if tp is not None:
+            return torch.as_tensor(tp, dtype=_F64, device=self.device)
+        sig = d.get("_tp_sigma")
+        if sig is None or self._compact_ixs_or_none() is None:
+            raise AttributeError("transition_prob")
+        ixs = d.get("_compact_ixs_dev")
+        if ixs is None:
+            ixs = torch.as_tensor(self._compact_ixs, device=self.device)
+        corr = d.get("_compact_corr")
+        corr = d["_corr_dev"] if corr is None else torch.as_tensor(
+            corr, device=self.device)
+        cm = torch.exp(corr.to(_F64) / sig)
+        cm = cm / cm.sum(dim=1, keepdim=True)
+        n = ixs.shape[0]
+        return torch.zeros((n, n), dtype=_F64, device=self.device).scatter_(
+            1, ixs.to(torch.int64), cm)
+
+    def prepare_markov(self, sigma_D: float, sigma_W: float,
+                       direction: str = "forward",
+                       cells_ixs: Optional[np.ndarray] = None) -> None:
+        """Build the Markov transition matrix (reference :1818-1863) in
+        float64 on the device.  tr stays device-resident; the reference's
+        csr form is built only when .tr is read."""
+        if direction not in ("forward", "backwards"):
+            raise NotImplementedError(
+                f"{direction} is not an implemented direction")
+        p = self._transition_prob_dev()
+        emb = np.asarray(self.embedding)
+        if cells_ixs is not None:
+            ix = torch.as_tensor(np.ascontiguousarray(cells_ixs),
+                                 dtype=torch.int64, device=self.device)
+            p = p.index_select(0, ix).index_select(1, ix)
+            emb = emb[cells_ixs, :]
+        if direction == "backwards":
+            p = p.T
+        self._set_dev("tr", _markov_matrix(
+            p, torch.as_tensor(emb, dtype=_F64, device=self.device),
+            sigma_D, sigma_W))
+
+    def run_markov(self, starting_p: Optional[np.ndarray] = None,
+                   n_steps: int = 2500,
+                   mode: str = "time_evolution") -> None:
+        """Run the diffusion (reference :1865-1887) on the device tr (or
+        the host tr when one was assigned or its csr view handed out)."""
+        ds = self.__dict__.get("_dev_state") or {}
+        tr = self._host_view_or_dev("tr") if "tr" in ds else self.tr
+        if starting_p is None:
+            starting_p = np.ones(tr.shape[0]) / tr.shape[0]
+        self.diffused = Diffusion(self.device).diffuse(
+            starting_p, tr, n_steps=n_steps, mode=mode)[0]
+
+    # ------------------------------------------------------------------
+    # deprecated one-shot defaults (reference :1889-1964)
+    # ------------------------------------------------------------------
+
+    def default_filter_and_norm(self, min_expr_counts: Optional[int] = None,
+                                min_cells_express: Optional[int] = None,
+                                N: Optional[int] = None,
+                                min_avg_U: Optional[float] = None,
+                                min_avg_S: Optional[float] = None) -> None:
+        """Heuristic filtering + normalization (reference :1889-1940);
+        needs sklearn (score_cv_vs_mean, adjust_totS_totU)."""
+        if min_expr_counts is None:
+            min_expr_counts = max(20, min(100, self.S.shape[1] * 2.25e-3))
+        if min_cells_express is None:
+            min_cells_express = max(10, min(50, self.S.shape[1] * 1.5e-3))
+        if N is None:
+            N = max(1000, min(int((self.S.shape[1] / 1000) ** (1 / 3) / 0.0008),
+                              5000))
+        if min_avg_U is None:
+            min_avg_U = 0.01
+        if min_avg_S is None:
+            min_avg_S = 0.08
+        self.normalize("S", size=True, log=False)
+        self.normalize("U", size=True, log=False)
+        self.score_detection_levels(min_expr_counts=min_expr_counts,
+                                    min_cells_express=min_cells_express)
+        self.filter_genes(by_detection_levels=True)
+        self.score_cv_vs_mean(N=N, max_expr_avg=40)
+        self.filter_genes(by_cv_vs_mean=True)
+        self.score_detection_levels(
+            min_expr_counts=0, min_cells_express=0,
+            min_expr_counts_U=int(min_expr_counts / 2) + 1,
+            min_cells_express_U=int(min_cells_express / 2) + 1)
+        if hasattr(self, "cluster_labels"):
+            self.score_cluster_expression(min_avg_U=min_avg_U,
+                                          min_avg_S=min_avg_S)
+            self.filter_genes(by_detection_levels=True,
+                              by_cluster_expression=True)
+        else:
+            self.filter_genes(by_detection_levels=True)
+        self.normalize_by_total()
+        self.adjust_totS_totU(normalize_total=True)
+
+    def default_fit_preparation(self, k: Optional[int] = None,
+                                n_comps: Optional[int] = None) -> None:
+        """Heuristic PCA + kNN smoothing (reference :1942-1964)."""
+        self.perform_PCA()
+        if n_comps is None:
+            n_comps = int(np.where(np.diff(np.diff(np.cumsum(
+                self.pca.explained_variance_ratio_)) > 0.002))[0][0])
+        if k is None:
+            k = int(min(1000, max(10, np.ceil(self.S.shape[1] * 0.02))))
+        self.knn_imputation(n_pca_dims=n_comps, k=k, balanced=True,
+                            b_sight=int(min(k * 8, self.S.shape[1] - 1)),
+                            b_maxl=int(min(k * 4, self.S.shape[1] - 1)))
+        self.normalize_median()
+
 
 def state_from_numpy(attrs: dict, device) -> VelocytoLoom:
     """A VelocytoLoom on `device` whose attributes are `attrs` (numpy
     arrays and scalars, as read from a JAX-package VelocytoLoom: S, U, ca,
-    ra and any stage output such as Sx_sz, gammas, q, delta_S, ts).
-    Host values are authoritative; stages upload what they read."""
+    ra, cluster_labels, steady_state, small_U_pop and any stage output
+    such as Sx_sz, gammas, q, delta_S, ts).  Host values are
+    authoritative and stages upload what they read, except the Markov
+    matrix tr (a csr or dense array), which goes to the device as the
+    float64 tensor prepare_markov leaves there."""
     v = VelocytoLoom.__new__(VelocytoLoom)
     v.device = torch.device(device)
     for name, value in attrs.items():
-        setattr(v, name, value)
+        if name == "tr":
+            dense = value.toarray() if sparse.issparse(value) else value
+            v._set_dev("tr", torch.as_tensor(np.asarray(dense), dtype=_F64,
+                                             device=v.device))
+        else:
+            setattr(v, name, value)
     return v
 
 
 # ---------------------------------------------------------------------------
 # device helpers
 # ---------------------------------------------------------------------------
+
+def _paired_correlation_rows(A: torch.Tensor, B: torch.Tensor
+                             ) -> torch.Tensor:
+    """Pearson correlation of row i of A with row i of B."""
+    A_m = A - A.mean(dim=1, keepdim=True)
+    B_m = B - B.mean(dim=1, keepdim=True)
+    return (A_m * B_m).sum(1) / (torch.linalg.norm(A_m, dim=1) *
+                                 torch.linalg.norm(B_m, dim=1))
+
+
+def _markov_matrix(p: torch.Tensor, emb: torch.Tensor, sigma_D: float,
+                   sigma_W: float) -> torch.Tensor:
+    """prepare_markov's transition matrix (reference :1835-1845), float64,
+    in row blocks (every step is row-wise): velocity transitions limited
+    to a gaussian neighbourhood of width sigma_D, the self-transition
+    pinned to the row max, blended 80/20 with a gaussian diffusion kernel
+    of width sigma_W, each term row-stochastic.  Distances are the
+    difference form of scipy's pdist."""
+    n = p.shape[0]
+    out = torch.empty((n, n), dtype=_F64, device=p.device)
+    block = max(1, min(n, (1 << 24) // max(1, n * emb.shape[1])))
+    for r0 in range(0, n, block):
+        rows = torch.arange(r0, min(n, r0 + block), device=p.device)
+        diff = emb[None, :, :] - emb[rows, None, :]
+        pair_d = torch.sqrt((diff * diff).sum(-1))                 # (B, N)
+        local = p[rows] * gaussian_kernel(pair_d, sigma=sigma_D)
+        local[torch.arange(len(rows), device=p.device), rows] = \
+            local.max(dim=1).values
+        noise = gaussian_kernel(pair_d, sigma=sigma_W)
+        blend = 0.8 * (local / local.sum(1, keepdim=True)) + \
+            0.2 * (noise / noise.sum(1, keepdim=True))
+        out[rows] = blend / blend.sum(1, keepdim=True)
+    return out
+
 
 def _eps_clip_dev(vel, upred, eps: float):
     msr = upred.max(dim=1).values * eps
@@ -1089,6 +1894,43 @@ def knn_query(data: np.ndarray, query: np.ndarray, k: int, device):
 # ---------------------------------------------------------------------------
 # module-level helpers (reference :2345-2470), host numpy
 # ---------------------------------------------------------------------------
+
+def _colors20():
+    import matplotlib.pyplot as plt
+    return np.vstack((plt.cm.tab20b(np.linspace(0., 1, 20))[::2],
+                      plt.cm.tab20c(np.linspace(0, 1, 20))[1::2]))
+
+
+def colormap_fun(x: np.ndarray) -> np.ndarray:
+    """The default cluster palette (needs matplotlib)."""
+    return _colors20()[np.mod(x, 20)]
+
+
+# Copied from velocyto_tpu/analysis.py::scale_to_match_median.
+def scale_to_match_median(sparse_matrix: sparse.csr_matrix,
+                          genes_total: np.ndarray) -> sparse.csc_matrix:
+    """Scale neighbor-gene weights to match median totals
+    (reference :2392-2404, :2423-2446; numba loop -> vectorized numpy)."""
+    data, indices, indptr = (sparse_matrix.data, sparse_matrix.indices,
+                             sparse_matrix.indptr)
+    new_data = np.zeros(data.shape)
+    for i in range(genes_total.shape[0]):
+        nz = genes_total[indices[indptr[i]:indptr[i + 1]]]
+        if len(nz) == 0:
+            continue
+        w = np.minimum(1, np.median(nz) / nz)
+        new_data[indptr[i]:indptr[i + 1]] = w * data[indptr[i]:indptr[i + 1]]
+    return sparse.csc_matrix((new_data, indices, indptr),
+                             shape=sparse_matrix.shape, copy=True)
+
+
+def gaussian_kernel(X, mu: float = 0, sigma: float = 1):
+    """Gaussian kernel (reference :2449-2451), on numpy arrays or
+    tensors."""
+    exp = torch.exp if isinstance(X, torch.Tensor) else np.exp
+    return exp(-(X - mu) ** 2 / (2 * sigma ** 2)) / \
+        np.sqrt(2 * np.pi * sigma ** 2)
+
 
 def numba_random_seed(value: int) -> None:
     """Seed the host RNG used by permute_rows_nsign (the reference seeds

@@ -9,7 +9,8 @@ variants).  For every cell ``c`` and candidate cell ``i``::
 computed from the streamed moments S1 = sum A, S2 = sum A^2,
 S3 = sum A * b, sum b and sum b^2 (b = d[:, c]).  The dense variant
 takes every candidate (``col_delta_cor``), the sampled one the nn
-candidates ixs[c, :] of each cell (``col_delta_cor_partial_compact``).
+candidates ixs[c, :] of each cell (``col_delta_cor_partial_compact``;
+``col_delta_cor_partial`` scatters that into the reference's dense form).
 Each launches its hand-written CUDA kernel (kernels/coldeltacor_dense.cu,
 kernels/coldeltacor_partial.cu) for CUDA tensors and runs the plain
 PyTorch version below for CPU tensors.
@@ -177,3 +178,21 @@ def col_delta_cor_partial_compact(
                      for d in d_rows)
         return outs[0] if dmat_random is None else outs
     raise ValueError(f"unsupported device {emat.device}")
+
+
+def col_delta_cor_partial(emat: torch.Tensor, dmat: torch.Tensor,
+                          ixs: torch.Tensor, transform: str = "linear",
+                          psc: float = 0.0) -> torch.Tensor:
+    """Sampled-neighbourhood colDeltaCor scattered into a dense (cells,
+    cells) float64 tensor (zero off the sampled positions, repeated
+    positions summed), for API parity with the reference
+    (velocyto/estimation.py:36-62, 144-170).  emat/dmat: (genes, cells),
+    ixs: (cells, nn), on one device."""
+    compact = col_delta_cor_partial_compact(emat, dmat, ixs, transform, psc)
+    n = emat.shape[1]
+    rows = torch.arange(n, device=compact.device).repeat_interleave(
+        ixs.shape[1])
+    out = torch.zeros((n, n), dtype=torch.float64, device=compact.device)
+    out.index_put_((rows, ixs.reshape(-1).to(torch.int64)),
+                   compact.reshape(-1).to(torch.float64), accumulate=True)
+    return out

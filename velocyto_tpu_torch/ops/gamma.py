@@ -1,11 +1,13 @@
 """Batched steady-state gamma (degradation-rate) fits over genes.
 
-Port of the weighted-offset fit and the weight schemes of
-velocyto_tpu/ops/gamma.py.  The reference loops genes in Python and calls
-scipy optimizers per gene (reference: velocyto/estimation.py:173-366);
-every one of those problems is a box-constrained quadratic in 1 or 2
-variables, solved here in closed form for all genes at once, one gene
-per row of a (genes, cells) tensor, in float32.
+Port of velocyto_tpu/ops/gamma.py: the four slope fits and the weight
+schemes.  The reference loops genes in Python and calls scipy optimizers
+per gene (reference: velocyto/estimation.py:173-366); every one of those
+problems is a box-constrained quadratic in 1 or 2 variables, solved here
+in closed form for all genes at once, one gene per row of a (genes,
+cells) tensor, in float32.  The public fits take tensors (computed on
+their device) or numpy arrays (uploaded to ``device``) and return host
+float32 arrays; ``clusters_stats`` stays host numpy.
 """
 from __future__ import annotations
 
@@ -13,6 +15,18 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+
+def _rows_f32(M, device) -> torch.Tensor:
+    """M as a float32 tensor: a tensor stays on its device, anything else
+    is uploaded to `device`."""
+    if isinstance(M, torch.Tensor):
+        return M.to(torch.float32)
+    return torch.as_tensor(np.asarray(M), dtype=torch.float32, device=device)
+
+
+def _host_f32(*ts: torch.Tensor) -> tuple:
+    return tuple(t.cpu().numpy().astype(np.float32) for t in ts)
 
 
 def _masked_percentile(v: torch.Tensor, mask: torch.Tensor, q: float
@@ -48,6 +62,65 @@ def _up_gamma_rows(Y: torch.Tensor, X: torch.Tensor, limit_gamma: bool
     return torch.where(med_y > med_x, up, 1.5)
 
 
+def _mask_degenerate(m: torch.Tensor, any_x: torch.Tensor,
+                     any_y: torch.Tensor, empty: float) -> torch.Tensor:
+    """A row without spliced signal gets `empty`, one without unspliced
+    signal 0 (the reference's per-gene guards)."""
+    return torch.where(~any_x, empty, torch.where(~any_y, 0.0, m))
+
+
+def _fixperc_rows(Y: torch.Tensor, X: torch.Tensor, W: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fixperc_q: the offset is the median of Y over the cells whose X is
+    at or below the row's 1st percentile; the slope is the (weighted) fit
+    through it, clipped to [0, 20]."""
+    every = torch.ones_like(X, dtype=torch.bool)
+    p1 = _masked_percentile(X, every, 1.0)
+    m1 = _masked_percentile(Y, X <= p1[:, None], 50.0)
+    m0 = torch.clamp((W * X * (Y - m1[:, None])).sum(1) /
+                     (W * X * X).sum(1), 0.0, 20.0)
+    return m0, m1
+
+
+def _slope_nnls_rows(Y: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """m = argmin_{m>=0} ||x m - y||^2 per row (reference _fit1_slope,
+    estimation.py:173-188: scipy nnls on one column)."""
+    m = torch.clamp_min((X * Y).sum(1) / (X * X).sum(1), 0.0)
+    return _mask_degenerate(m, (X != 0).any(1), (Y != 0).any(1), torch.nan)
+
+
+def _slope_weighted_rows(Y: torch.Tensor, X: torch.Tensor, W: torch.Tensor,
+                         limit_gamma: bool, lo: float, hi: float
+                         ) -> torch.Tensor:
+    """argmin_m sum w (x m - y)^2 over [lo, hi], or over [1e-8, the
+    limit_gamma cap] (reference _fit1_slope_weighted,
+    estimation.py:191-209)."""
+    m_free = (W * X * Y).sum(1) / (W * X * X).sum(1)
+    if limit_gamma:
+        m = torch.minimum(torch.clamp_min(m_free, 1e-8),
+                          _up_gamma_rows(Y, X, True))
+    else:
+        m = torch.clamp(m_free, lo, hi)
+    return _mask_degenerate(m, (X != 0).any(1), (Y != 0).any(1), torch.nan)
+
+
+def _slope_offset_rows(Y: torch.Tensor, X: torch.Tensor, fixperc_q: bool
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """OLS with intercept per row (reference _fit1_slope_offset,
+    estimation.py:244-264; leastsq on a linear residual is OLS)."""
+    any_x, any_y = (X != 0).any(1), (Y != 0).any(1)
+    if fixperc_q:
+        m, q = _fixperc_rows(Y, X, torch.ones_like(X))
+    else:
+        n = X.shape[1]
+        sx, sy = X.sum(1), Y.sum(1)
+        sxx, sxy = (X * X).sum(1), (X * Y).sum(1)
+        m = (n * sxy - sx * sy) / (n * sxx - sx * sx)
+        q = (sy - m * sx) / n
+    return (_mask_degenerate(m, any_x, any_y, torch.nan),
+            _mask_degenerate(q, any_x, any_y, 0.0))
+
+
 def _slope_weighted_offset_row(Y: torch.Tensor, X: torch.Tensor,
                                W: torch.Tensor, fixperc_q: bool,
                                limit_gamma: bool
@@ -65,14 +138,9 @@ def _slope_weighted_offset_row(Y: torch.Tensor, X: torch.Tensor,
     any_y = (Y != 0).any(dim=1)
 
     if fixperc_q:
-        every = torch.ones_like(X, dtype=torch.bool)
-        p1 = _masked_percentile(X, every, 1.0)
-        m1 = _masked_percentile(Y, X <= p1[:, None], 50.0)
-        m0 = torch.clamp((W * X * (Y - m1[:, None])).sum(1) /
-                         (W * X * X).sum(1), 0.0, 20.0)
-        m0 = torch.where(~any_x, torch.nan, torch.where(~any_y, 0.0, m0))
-        m1 = torch.where(~any_x, 0.0, torch.where(~any_y, 0.0, m1))
-        return m0, m1
+        m0, m1 = _fixperc_rows(Y, X, W)
+        return (_mask_degenerate(m0, any_x, any_y, torch.nan),
+                _mask_degenerate(m1, any_x, any_y, 0.0))
 
     mlo = torch.full_like(any_x, 1e-8, dtype=Y.dtype)
     mhi = _up_gamma_rows(Y, X, limit_gamma)
@@ -113,9 +181,8 @@ def _slope_weighted_offset_row(Y: torch.Tensor, X: torch.Tensor,
 
     m = torch.where(interior_ok, m_int, m_edge)
     q = torch.where(interior_ok, q_int, q_edge)
-    m = torch.where(~any_x, torch.nan, torch.where(~any_y, 0.0, m))
-    q = torch.where(~any_x, 0.0, torch.where(~any_y, 0.0, q))
-    return m, q
+    return (_mask_degenerate(m, any_x, any_y, torch.nan),
+            _mask_degenerate(q, any_x, any_y, 0.0))
 
 
 def _r2_rows(Y, X, m, q):
@@ -127,15 +194,43 @@ def _r2_rows(Y, X, m, q):
     return torch.where(torch.isfinite(r2), r2, -1e16)
 
 
-def fit_slope_weighted_offset(Y: torch.Tensor, X: torch.Tensor,
-                              W: torch.Tensor, fixperc_q: bool = False,
+# Public batched API (reference fit_slope*, estimation.py:267-366).  Y, X
+# (and W): (genes, cells) tensors, or numpy arrays uploaded to `device`.
+
+def fit_slope(Y, X, device="cuda") -> np.ndarray:
+    """Non-negative slope through the origin per gene; host float32."""
+    (m,) = _host_f32(_slope_nnls_rows(_rows_f32(Y, device),
+                                      _rows_f32(X, device)))
+    return m
+
+
+def fit_slope_weighted(Y, X, W, return_R2: bool = False,
+                       limit_gamma: bool = False,
+                       bounds: Tuple[float, float] = (0, 20),
+                       device="cuda"):
+    """Weighted slope through the origin per gene, clipped to `bounds`;
+    host float32 m (and R2)."""
+    Y, X, W = (_rows_f32(M, device) for M in (Y, X, W))
+    m = _slope_weighted_rows(Y, X, W, limit_gamma, float(bounds[0]),
+                             float(bounds[1]))
+    if return_R2:
+        return _host_f32(m, _r2_rows(Y, X, m, torch.zeros_like(m)))
+    return _host_f32(m)[0]
+
+
+def fit_slope_weighted_offset(Y, X, W, fixperc_q: bool = False,
                               return_R2: bool = True,
-                              limit_gamma: bool = False):
-    """Y, X, W: (genes, cells) tensors.  Returns host float32 (m, q[, R2])."""
-    Y, X, W = (t.to(torch.float32) for t in (Y, X, W))
+                              limit_gamma: bool = False, device="cuda"):
+    """Weighted slope with offset per gene; host float32 (m, q[, R2])."""
+    Y, X, W = (_rows_f32(M, device) for M in (Y, X, W))
     m, q = _slope_weighted_offset_row(Y, X, W, fixperc_q, limit_gamma)
-    out = [m, q] + ([_r2_rows(Y, X, m, q)] if return_R2 else [])
-    return tuple(t.cpu().numpy().astype(np.float32) for t in out)
+    return _host_f32(m, q, *([_r2_rows(Y, X, m, q)] if return_R2 else []))
+
+
+def fit_slope_offset(Y, X, fixperc_q: bool = False, device="cuda"):
+    """Unweighted slope with offset per gene; host float32 (m, q)."""
+    return _host_f32(*_slope_offset_rows(_rows_f32(Y, device),
+                                         _rows_f32(X, device), fixperc_q))
 
 
 # The fit_gammas weighting schemes (reference analysis.py:1139-1191) over
@@ -207,3 +302,23 @@ def compute_fit_weights(scheme: str, tmpS, tmpU, Sx, Ux,
     if scheme in ("maxmin_diag", "maxmin_double"):
         return _fit_weights_xs_impl(Sx, Ux, scheme, lo, hi)
     raise NotImplementedError(f"weights={scheme!r} is not a supported scheme")
+
+
+# Copied from velocyto_tpu/ops/gamma.py::clusters_stats (host numpy).
+def clusters_stats(U: np.ndarray, S: np.ndarray, clusters_uid: np.ndarray,
+                   cluster_ix: np.ndarray, size_limit: int = 40
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-cluster averages with a small-cluster fallback to the global
+    average (reference estimation.py:369-389)."""
+    U_avgs = np.zeros((S.shape[0], len(clusters_uid)))
+    S_avgs = np.zeros((S.shape[0], len(clusters_uid)))
+    for i, _uid in enumerate(clusters_uid):
+        cluster_filter = cluster_ix == i
+        n_cells = np.sum(cluster_filter)
+        if n_cells > size_limit:
+            U_avgs[:, i] = U[:, cluster_filter].mean(1)
+            S_avgs[:, i] = S[:, cluster_filter].mean(1)
+        else:
+            U_avgs[:, i] = U.mean(1)
+            S_avgs[:, i] = S.mean(1)
+    return U_avgs, S_avgs

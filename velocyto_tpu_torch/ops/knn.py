@@ -8,7 +8,9 @@ ordering live in ops/knn_device.py.
 
 The balance (reference velocyto/neighbors.py:11-140) is a greedy,
 order-dependent loop over the nodes in hub order; it runs on the host,
-one numpy-vectorised step per node.
+one numpy-vectorised step per node.  BalancedKNN and the mutual-kNN
+utilities (reference neighbors.py:186-451) run their search on a torch
+device and build scipy.sparse graphs on the host.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from scipy import sparse
 
 
 @contextlib.contextmanager
@@ -173,3 +176,165 @@ def knn_balance(dsi: np.ndarray, dist: Optional[np.ndarray] = None,
                                 return_distance=False, constraint=cst)
     return balance_knn_loop(dsi, dist, lsi, maxl, k,
                             return_distance=True, constraint=cst)
+
+
+def _search_host(data, k: int, metric: str, device
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """knn_search_dev on `device`, returned as host (dist f64, idx int64)."""
+    from .knn_device import knn_search_dev
+    dist, idx = knn_search_dev(data, k, metric=metric, device=device)
+    return dist.cpu().numpy(), idx.cpu().numpy()
+
+
+class BalancedKNN:
+    """sklearn-like estimator for the balanced kNN graph.
+
+    API parity with reference velocyto/neighbors.py:186-357; the initial
+    kNN search runs on `device` (ops/knn_device.py::knn_search_dev), the
+    balance on the host."""
+
+    def __init__(self, k: int = 50, sight_k: int = 100, maxl: int = 200,
+                 constraint: Optional[np.ndarray] = None,
+                 mode: str = "distance", metric: str = "euclidean",
+                 n_jobs: int = 4, device="cuda") -> None:
+        self.k = k
+        self.sight_k = sight_k
+        self.maxl = maxl
+        self.mode = mode
+        self.metric = metric
+        self.n_jobs = n_jobs
+        self.device = torch.device(device)
+        self.dist_new = self.dsi_new = self.l = None
+        self.bknn: Optional[sparse.csr_matrix] = None
+        self.constraint = constraint
+
+    @property
+    def n_samples(self) -> int:
+        return self.data.shape[0]
+
+    def fit(self, data: np.ndarray, sight_k: Optional[int] = None
+            ) -> "BalancedKNN":
+        self.data = data
+        self.fitdata = data
+        if sight_k is not None:
+            self.sight_k = sight_k
+        return self
+
+    def kneighbors(self, X: Optional[np.ndarray] = None,
+                   maxl: Optional[int] = None, mode: str = "distance"):
+        if X is not None:
+            self.data = X
+        if maxl is not None:
+            self.maxl = maxl
+        kk = min(self.sight_k + 1, self.fitdata.shape[0])
+        self.dist, self.dsi = _search_host(self.fitdata, kk, self.metric,
+                                           self.device)
+        self.dist_new, self.dsi_new, self.l = knn_balance(
+            self.dsi, self.dist, maxl=self.maxl, k=self.k,
+            constraint=self.constraint)
+        if mode == "connectivity":
+            self.dist = np.ones_like(self.dsi)
+            self.dist[:, 0] = 0
+        return self.dist_new, self.dsi_new, self.l
+
+    def kneighbors_graph(self, X: Optional[np.ndarray] = None,
+                         maxl: Optional[int] = None,
+                         mode: str = "distance") -> sparse.csr_matrix:
+        dist_new, dsi_new, _l = self.kneighbors(X=X, maxl=maxl, mode=mode)
+        self.bknn = sparse.csr_matrix(
+            (np.ravel(dist_new), np.ravel(dsi_new),
+             np.arange(0, dist_new.shape[0] * dist_new.shape[1] + 1,
+                       dist_new.shape[1])),
+            (self.n_samples, self.n_samples))
+        return self.bknn
+
+    def smooth_data(self, data_to_smooth: np.ndarray,
+                    X: Optional[np.ndarray] = None,
+                    maxl: Optional[int] = None,
+                    mutual: bool = False,
+                    only_increase: bool = True) -> np.ndarray:
+        from .smoothing import connectivity_to_weights
+        if self.bknn is None:
+            if X is not None or maxl is not None:
+                raise ValueError("graph was already fit with different "
+                                 "parameters")
+            self.kneighbors_graph(X=X, maxl=maxl, mode=self.mode)
+        if mutual:
+            connectivity = make_mutual(self.bknn > 0)
+        else:
+            connectivity = self.bknn.T > 0
+        connectivity = connectivity.tolil()
+        connectivity.setdiag(1)
+        w = connectivity_to_weights(connectivity).T
+        if not np.allclose(w.sum(0), 1):
+            raise ValueError("weight matrix need to sum to one over the "
+                             "columns")
+        if data_to_smooth.shape[1] == w.shape[0]:
+            result = sparse.csr_matrix.dot(data_to_smooth, w)
+        elif data_to_smooth.shape[0] == w.shape[0]:
+            result = sparse.csr_matrix.dot(data_to_smooth.T, w).T
+        else:
+            raise ValueError(
+                f"Incorrect size of matrix, none of the axis correspond "
+                f"to the one of graph. {w.shape}")
+        if only_increase:
+            return np.maximum(result, data_to_smooth)
+        return result
+
+
+# ---------------------------------------------------------------------------
+# Mutual kNN utilities (reference velocyto/neighbors.py:363-451)
+# ---------------------------------------------------------------------------
+
+def knn_distance_matrix(data: np.ndarray, metric: Optional[str] = None,
+                        k: int = 40, mode: str = "connectivity",
+                        n_jobs: int = 4, device="cuda") -> sparse.csr_matrix:
+    """kNN graph of data (samples, features) *excluding* self, like
+    sklearn kneighbors_graph(X=None); the search runs on `device`."""
+    kk = min(k + 1, data.shape[0])
+    dist, idx = _search_host(data, kk, metric or "euclidean", device)
+    dist, idx = dist[:, 1:], idx[:, 1:]
+    n, kk = idx.shape
+    data_vals = np.ones(n * kk) if mode == "connectivity" else dist.ravel()
+    return sparse.csr_matrix(
+        (data_vals, idx.ravel(), np.arange(0, n * kk + 1, kk)), (n, n))
+
+
+def make_mutual(knn: sparse.spmatrix) -> sparse.coo_matrix:
+    """Keep only mutual edges (reference neighbors.py:379-382)."""
+    return knn.minimum(knn.T)
+
+
+def min_n(row_data: np.ndarray, row_indices: np.ndarray, n: int):
+    i = row_data.argsort()[:n]
+    return row_data[i], row_indices[i]
+
+
+def take_top(matrix: sparse.spmatrix, n: int) -> sparse.lil_matrix:
+    """Keep the n smallest entries of each row (reference :403-411)."""
+    arr_ll = matrix.tolil(copy=True)
+    for i in range(arr_ll.shape[0]):
+        d, r = min_n(np.array(arr_ll.data[i]), np.array(arr_ll.rows[i]), n)
+        arr_ll.data[i] = d.tolist()
+        arr_ll.rows[i] = r.tolist()
+    return arr_ll
+
+
+def knn_smooth_weights(matrix: np.ndarray, metric: str = "euclidean",
+                       k_search: int = 20, k_mutual: int = 10,
+                       n_jobs: int = 10, device="cuda"
+                       ) -> Tuple[sparse.spmatrix, sparse.csr_matrix]:
+    """Mutual-kNN smoothing weights for a (genes, cells) expression matrix
+    (reference velocyto/neighbors.py:426-451): kNN search on `device` ->
+    mutualize -> keep k_mutual smallest per row -> row-normalize."""
+    if k_search < k_mutual:
+        raise ValueError("k_search needs to be bigger than k_mutual")
+    from .smoothing import connectivity_to_weights
+    knn = knn_distance_matrix(matrix.T, metric=metric, k=k_search,
+                              mode="distance", n_jobs=n_jobs, device=device)
+    mknn = make_mutual(knn)
+    top_mknn = take_top(mknn, k_mutual)
+    top_mknn.setdiag(1)
+    connectivity = top_mknn > 0
+    w = connectivity_to_weights(connectivity)
+    return w, knn
