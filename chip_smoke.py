@@ -5,9 +5,14 @@ neighbour sampler against numpy, then drives four paths and checks what
 comes out:
 
   - the estimation pipeline in full-correlation mode (knn_random=False,
-    dense colDeltaCor kernel) at 20,000 cells x 2,000 genes;
+    one dual launch of the dense colDeltaCor kernel for the main field
+    and the randomized control) at 20,000 cells x 2,000 genes;
   - the pipeline in its default mode (knn_random=True, sampled
-    colDeltaCor kernel), in bench_pipeline.py's configuration;
+    colDeltaCor kernel in embedding-locality order), in
+    bench_pipeline.py's configuration; the transition stage's dual
+    launch is then timed on its own inputs with the identity order and
+    with the locality order, in turns, and the two outputs compared
+    bitwise;
   - the kernel bench, python3 -m velocyto_tpu_torch.bench (sampled and
     dense kernels, FMA-chain probe);
   - the tutorial session at 20,000 cells x 2,500 raw genes: the
@@ -29,6 +34,7 @@ JSON verdict printed only after every phase passed.
 """
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -46,8 +52,13 @@ SHIM_CELLS, SHIM_NN = 3072, 512      # bench.py's shapes, for the shims
 SAMPLED_FRACTION = 0.5
 NN_SAMPLED = int(SAMPLED_FRACTION * (N_NEIGHBORS + 1))     # 1750
 RTOL, ATOL = 2e-3, 2e-4          # the JAX tests' colDeltaCor tolerances
+# H100 SXM data sheet: FP32 outside the tensor cores, HBM3 bandwidth; the
+# SFU rate is 16 MUFU ops per SM per clock at the 1.98 GHz boost clock
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+PEAK_MUFU = 16 * 132 * 1.98e9
 FMA_RTOL = 1e-5                  # one rounding per step against two
 SPOT_ROWS = 256
+DENSE_CHECK_SHAPES = ((37, 29), (2000, 2048))   # (G, N) of the dense checks
 DEVICE = "cuda"
 # the transform/psc cases of the kernel checks (partial semantics are
 # the sampled kernel's only semantics)
@@ -96,16 +107,71 @@ def device_phase():
     return name, smi
 
 
-def _ffma_count(lib):
-    """FFMA instructions in the SASS of the FMA probe's library, or None
-    where the toolkit has no cuobjdump."""
+def _sass(lib):
+    """The SASS of a kernel library, or None where the toolkit has no
+    cuobjdump."""
     from torch.utils.cpp_extension import CUDA_HOME
     tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
     if not os.path.exists(tool):
         return None
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+    return subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
+
+
+def _ffma_count(lib):
+    """FFMA instructions in the SASS of the FMA probe's library, or None
+    where the toolkit has no cuobjdump."""
+    sass = _sass(lib)
+    if sass is None:
+        return None
     return sum(" FFMA " in line for line in sass.splitlines())
+
+
+def _short_name(mangled):
+    """coldeltacor_dense_kernel<1,0,1> from a mangled kernel name."""
+    m = re.search(r"\d+([A-Za-z]\w*?_kernel)I(\w*?)EEv", mangled)
+    if not m:
+        return mangled
+    args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
+    return f"{m.group(1)}<{args}>"
+
+
+def _ptxas_usage(log):
+    """{kernel: (registers, spill store bytes, spill load bytes)} from the
+    -Xptxas -v output of a build."""
+    usage, name, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", line)
+        if m:
+            name = _short_name(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            usage[name] = (int(m.group(1)),) + spills
+            spills = (0, 0)
+    return usage
+
+
+def _mufu_counts(lib):
+    """{kernel: {MUFU op: count}} in the SASS of a library, or None where
+    the toolkit has no cuobjdump."""
+    sass = _sass(lib)
+    if sass is None:
+        return None
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            name = _short_name(m.group(1))
+            counts[name] = {}
+        m = re.search(r"\bMUFU\.(\w+)", line)
+        if m and name:
+            counts[name][m.group(1)] = counts[name].get(m.group(1), 0) + 1
+    return counts
 
 
 def build_phase():
@@ -117,6 +183,18 @@ def build_phase():
     print(f"# build: {time.perf_counter() - t0:.3f} s -> "
           f"{sorted(p.name for p in libs.values())}, {sampler.name}")
     print(kernels.build_log.strip(), flush=True)
+    usage = _ptxas_usage(kernels.build_log)
+    for name, (regs, st, ld) in sorted(usage.items()):
+        print(f"# ptxas {name}: {regs} registers, spill stores {st} B, "
+              f"spill loads {ld} B", flush=True)
+    spilled = {k: v for k, v in usage.items() if v[1] or v[2]}
+    assert not spilled, f"kernels spill registers: {spilled}"
+    # the step of every colDeltaCor kernel: one MUFU.SQRT (sqrt) or
+    # MUFU.LG2 (log10) per (pair, gene); RSQ and RCP are the per-pair
+    # epilogue's IEEE sqrt and division
+    for stem in ("coldeltacor_dense", "coldeltacor_partial"):
+        for name, ops in sorted((_mufu_counts(libs[stem]) or {}).items()):
+            print(f"# SASS {name}: MUFU {ops}", flush=True)
     ffma = _ffma_count(libs["fma_probe"])
     print(f"# fma_probe SASS: {ffma} FFMA instructions (8 chains x 128 "
           f"steps = 1024 expected)", flush=True)
@@ -133,6 +211,12 @@ def _err(got, want, mask=None):
     diff = (got[fin] - want[fin]).abs()
     ok = same_nan and bool(torch.all(diff <= ATOL + RTOL * want[fin].abs()))
     return (float(diff.max()) if diff.numel() else 0.0), ok
+
+
+def _bitwise(a, b):
+    """Same shape and the same 32-bit patterns (NaNs included)."""
+    return a.shape == b.shape and bool(torch.equal(a.view(torch.int32),
+                                                   b.view(torch.int32)))
 
 
 def _time_ms(fn):
@@ -160,15 +244,51 @@ def _in_turns(kernel_fn, plain_fn, n=3):
     return statistics.median(ms), statistics.median(plain_ms), got, want
 
 
+def _dual_matches_singles(e, d, d2, tf, psc, partial):
+    """One dual dense launch against two single launches: whether they
+    agree bitwise, the dual launch's ms and the first single one's."""
+    from velocyto_tpu_torch.ops.coldeltacor import col_delta_cor
+    dual_ms, (main, rndm) = _time_ms(lambda: col_delta_cor(
+        e, d, tf, psc, partial_semantics=partial, dmat_random=d2))
+    single_ms, one = _time_ms(lambda: col_delta_cor(
+        e, d, tf, psc, partial_semantics=partial))
+    two = col_delta_cor(e, d2, tf, psc, partial_semantics=partial)
+    return _bitwise(main, one) and _bitwise(rndm, two), dual_ms, single_ms
+
+
+def _with_clocks(fn):
+    """fn() while nvidia-smi samples the SM clock and the power draw every
+    100 ms; returns (fn's result, [(MHz, W), ...])."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(0.5)                 # let the sampler start
+        out = fn()
+    finally:
+        smi.terminate()
+        lines = smi.communicate()[0].splitlines()
+    samples = []
+    for line in lines:
+        try:
+            mhz, watts = (float(v) for v in line.split(","))
+        except ValueError:              # "[N/A]" or a cut line
+            continue
+        samples.append((mhz, watts))
+    return out, samples
+
+
 def dense_phase(smi):
     from velocyto_tpu_torch.ops.coldeltacor import (
         _TRANSFORMS, _col_delta_cor_dense_plain, col_delta_cor)
-    phase("dense kernel against plain, on the card")
-    for g, n in ((37, 29), (2000, 2048)):
+    phase("dense kernel against plain, dual against single, on the card")
+    for g, n in DENSE_CHECK_SHAPES:
         rng = np.random.RandomState(g)
         e = torch.tensor(rng.rand(g, n) * 10, dtype=torch.float32,
                          device=DEVICE)
         d = torch.tensor(rng.randn(g, n), dtype=torch.float32, device=DEVICE)
+        d2 = torch.tensor(rng.randn(g, n), dtype=torch.float32, device=DEVICE)
         off = ~torch.eye(n, dtype=torch.bool, device=DEVICE)
         for tf, psc, partial in CASES:
             got = col_delta_cor(e, d, tf, psc, partial_semantics=partial)
@@ -176,29 +296,82 @@ def dense_phase(smi):
             want = _col_delta_cor_dense_plain(e, d, _TRANSFORMS[tf], psc,
                                               partial)
             err, ok = _err(got, want, off)
+            bitwise = _dual_matches_singles(e, d, d2, tf, psc, partial)[0]
             print(f"# check G={g} N={n} {tf} psc={psc} "
                   f"{'partial' if partial else 'full'}: max_abs_err={err!r}"
-                  f" ok={ok}", flush=True)
+                  f" ok={ok}; dual vs two single calls bitwise={bitwise}",
+                  flush=True)
             assert ok, f"kernel disagrees with plain: {tf} {psc} {partial}"
+            assert bitwise, f"dual differs from single: {tf} {psc} {partial}"
 
-    # the full-mode path's shape and configuration: sqrt, psc 1e-10
+    # the full-mode path's shape: every case dual against single, then
+    # the path's configuration (sqrt, psc 1e-10) against plain and timed
     rng = np.random.RandomState(1)
     e = torch.tensor(rng.rand(GENES, CELLS) * 10, dtype=torch.float32,
                      device=DEVICE)
     d = torch.tensor(rng.randn(GENES, CELLS), dtype=torch.float32,
                      device=DEVICE)
+    d2 = torch.tensor(rng.randn(GENES, CELLS), dtype=torch.float32,
+                      device=DEVICE)
+
+    def _all_cases():
+        for tf, psc, partial in CASES:
+            bitwise, dual_ms, single_ms = _dual_matches_singles(
+                e, d, d2, tf, psc, partial)
+            print(f"# dual vs two single calls G={GENES} N={CELLS} {tf} "
+                  f"psc={psc} {'partial' if partial else 'full'}: "
+                  f"bitwise={bitwise}; dual {dual_ms!r} ms, single "
+                  f"{single_ms!r} ms (one call each, CUDA events)",
+                  flush=True)
+            assert bitwise, f"dual differs from single at 20k: {tf} {psc}"
+            torch.cuda.empty_cache()
+
+    _, clocks = _with_clocks(_all_cases)
+    if clocks:
+        mhz, watts = zip(*clocks)
+        print(f"# nvidia-smi over those {len(clocks)} samples: SM clock "
+              f"{min(mhz)!r}-{max(mhz)!r} MHz, power draw up to "
+              f"{max(watts)!r} W ({smi})", flush=True)
     ms, plain_ms, got, want = _in_turns(
         lambda: col_delta_cor(e, d, "sqrt", 1e-10),
         lambda: _col_delta_cor_dense_plain(e, d, _TRANSFORMS["sqrt"], 1e-10))
     err, ok = _err(got, want,
                    ~torch.eye(CELLS, dtype=torch.bool, device=DEVICE))
-    print(f"# time dense G={GENES} N={CELLS} sqrt psc=1e-10 on {smi}: "
-          f"kernel {ms!r} ms, plain {plain_ms!r} ms (median of 3, CUDA "
-          f"events); max_abs_err={err!r} ok={ok}", flush=True)
-    assert ok, "dense kernel disagrees with plain at the path's shape"
     del got, want
     torch.cuda.empty_cache()
-    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err}
+    dual_ms = statistics.median(_time_ms(
+        lambda: col_delta_cor(e, d, "sqrt", 1e-10, dmat_random=d2))[0]
+        for _ in range(3))
+    steps = CELLS * CELLS * GENES
+    print(f"# time dense G={GENES} N={CELLS} sqrt psc=1e-10 on {smi}: "
+          f"kernel {ms!r} ms, dual (two fields) {dual_ms!r} ms, plain "
+          f"{plain_ms!r} ms (median of 3, CUDA events); "
+          f"{steps / ms / 1e9!r} G(pair, gene)/s single; "
+          f"max_abs_err={err!r} ok={ok}", flush=True)
+    assert ok, "dense kernel disagrees with plain at the path's shape"
+    _print_sfu_floor("dense", steps)
+    del e, d, d2
+    torch.cuda.empty_cache()
+    # single call: 8 flop per (pair, gene), two (G, N) inputs, (N, N) out
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "dual_ms": dual_ms,
+            **_bound(8 * steps, (2 * GENES * CELLS + CELLS * CELLS) * 4)}
+
+
+def _print_sfu_floor(name, steps):
+    """The least time of `steps` (pair, gene) steps at one MUFU op each,
+    from the data sheet's rate: a derived figure, printed apart from the
+    measured ones."""
+    print(f"# {name} SFU floor (derived, not measured): {steps!r} MUFU ops "
+          f"at {PEAK_MUFU!r}/s = {steps / PEAK_MUFU * 1e3!r} ms", flush=True)
+
+
+def _bound(flop, nbytes):
+    """bound_ms and bound_by of a function doing `flop` FP32 operations
+    and moving `nbytes` compulsory bytes, at the H100 SXM peaks."""
+    t_ops, t_bytes = flop / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def _sampled_case(g, n, m, nn, seed, idx_dtype):
@@ -231,18 +404,23 @@ def sampled_phase(smi):
             main, rndm = kernels.coldeltacor_partial(e, e_ctr, d, ixs, tc,
                                                      psc, d_ctr2=d2)
             got2 = kernels.coldeltacor_partial(e, e_ctr, d2, ixs, tc, psc)
+            perm = torch.randperm(m, generator=torch.Generator().manual_seed(
+                m), dtype=torch.int32).to(DEVICE)
+            o_main, o_rndm = kernels.coldeltacor_partial(
+                e, e_ctr, d, ixs, tc, psc, d_ctr2=d2, order=perm)
             torch.cuda.synchronize()
             want = _col_delta_cor_partial_plain(e, e_ctr, d, ixs, tc, psc)
             err, ok = _err(got, want)
             err2, ok2 = _err(got2, _col_delta_cor_partial_plain(
                 e, e_ctr, d2, ixs, tc, psc))
-            bitwise = torch.equal(main, got) and torch.equal(rndm, got2)
-            dual_ok = _err(main, got)[1] and _err(rndm, got2)[1]
+            bitwise = _bitwise(main, got) and _bitwise(rndm, got2)
+            ordered = _bitwise(o_main, main) and _bitwise(o_rndm, rndm)
             print(f"# check G={g} N={n} M={m} nn={nn} {idt} {tf} psc={psc}:"
                   f" max_abs_err={max(err, err2)!r} ok={ok and ok2}; dual "
-                  f"vs two single calls ok={dual_ok} bitwise={bitwise}",
-                  flush=True)
-            assert ok and ok2 and dual_ok, f"sampled kernel: {tf} {psc}"
+                  f"vs two single calls bitwise={bitwise}; permuted center "
+                  f"order vs identity bitwise={ordered}", flush=True)
+            assert ok and ok2 and bitwise and ordered, \
+                f"sampled kernel: {tf} {psc}"
         del e, e_ctr, d, d2, ixs
 
     # the default-mode path's shape: all 20,000 rows, nn = 1750, the main
@@ -269,8 +447,14 @@ def sampled_phase(smi):
     assert ok and ok2, "sampled kernel disagrees with plain at 20k"
     del e, e_ctr, d, d2, ixs, got, want
     torch.cuda.empty_cache()
+    # dual call: 10 flop per (pair, gene); e, two displacement matrices,
+    # int64 indices in, two (N, nn) outputs
+    steps = CELLS * NN_SAMPLED * GENES
+    _print_sfu_floor("sampled", steps)
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-            "single_ms": single_ms}
+            "single_ms": single_ms,
+            **_bound(10 * steps, 3 * CELLS * GENES * 4 +
+                     CELLS * NN_SAMPLED * (8 + 2 * 4))}
 
 
 def cross_check_phase():
@@ -336,11 +520,13 @@ def fma_phase(smi):
         assert ok, "FMA probe disagrees with plain"
     ms = bench.device_seconds(lambda: kernels.fma_probe(x), reps=200) * 1e3
     plain_ms = bench.device_seconds(lambda: bench._fma_plain(x), reps=3) * 1e3
-    tflops = x.numel() * bench.FMA_STEPS * bench.FMA_CHAINS * 2 / ms / 1e9
+    flop = x.numel() * bench.FMA_STEPS * bench.FMA_CHAINS * 2
+    tflops = flop / ms / 1e9
     print(f"# time fma (8192, 512) on {smi}: kernel {ms!r} ms (mean of 200"
           f" launches), plain {plain_ms!r} ms (mean of 3); {tflops!r} "
           f"TFLOP/s", flush=True)
-    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": worst}
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": worst,
+            **_bound(flop, 2 * x.numel() * 4)}
 
 
 def _brute_knn(x, rows, k):
@@ -416,8 +602,9 @@ def _new_loom(S, U, genes):
 def pipeline_phase(knn_random, smi):
     """Drive the pipeline through the VelocytoLoom entry points with the
     launch counts set to 0 just before; returns (stage seconds, total,
-    launch counts, peak device memory)."""
-    from velocyto_tpu_torch import kernels
+    launch counts, peak device memory, and in the default mode the order
+    timing of the transition stage's dual launch)."""
+    from velocyto_tpu_torch import analysis, kernels
     mode = "default mode (knn_random=True)" if knn_random else \
         "full mode (knn_random=False)"
     phase(f"pipeline, {mode}, {CELLS} cells x {GENES} genes")
@@ -442,14 +629,24 @@ def pipeline_phase(knn_random, smi):
         v.calculate_shift(assumption="constant_velocity")
         v.extrapolate_cell_at_t(delta_t=1.)
 
-    transition_launches = {}
+    transition_launches, captured = {}, []
+    compact = analysis.col_delta_cor_partial_compact
+
+    def _capture(*args, **kw):
+        # the sampled call's inputs, kept for the order timing below
+        captured.append((args, kw))
+        return compact(*args, **kw)
 
     def _transition():
         before = (kernels.dense_launches, kernels.partial_launches)
-        v.estimate_transition_prob(
-            hidim="Sx_sz", embed="ts", transform="sqrt",
-            knn_random=knn_random, n_neighbors=N_NEIGHBORS,
-            sampled_fraction=SAMPLED_FRACTION, calculate_randomized=True)
+        analysis.col_delta_cor_partial_compact = _capture
+        try:
+            v.estimate_transition_prob(
+                hidim="Sx_sz", embed="ts", transform="sqrt",
+                knn_random=knn_random, n_neighbors=N_NEIGHBORS,
+                sampled_fraction=SAMPLED_FRACTION, calculate_randomized=True)
+        finally:
+            analysis.col_delta_cor_partial_compact = compact
         transition_launches.update(
             dense=kernels.dense_launches - before[0],
             partial=kernels.partial_launches - before[1])
@@ -481,19 +678,67 @@ def pipeline_phase(knn_random, smi):
     for name in ("delta_embedding", "delta_embedding_random", "flow"):
         assert np.all(np.isfinite(getattr(v, name))), f"{name} not finite"
     _check_gammas(v, gamma_true)
+    order_times = None
     if knn_random:
         # the dual form: main field and randomized control in one launch
         assert launches == {"dense": 0, "partial": 1, "fma": 0} and \
             transition_launches["partial"] == 1, launches
         _check_sampled_state(v)
+        assert len(captured) == 1, len(captured)
+        order_times = _uncounted(lambda: _order_timing(*captured[0], smi))
     else:
-        assert launches == {"dense": 2, "partial": 0, "fma": 0} and \
-            transition_launches["dense"] == 2, launches
+        # the dual form: main field and randomized control in one launch
+        assert launches == {"dense": 1, "partial": 0, "fma": 0} and \
+            transition_launches["dense"] == 1, launches
         corr = v._get_dev("corrcoef")           # diagonal already set to 0
         assert corr.shape == (CELLS, CELLS) and bool(torch.isfinite(corr).all())
         assert bool(torch.isfinite(v._get_dev("corrcoef_random")).all())
         _check_knn_rows(v)
-    return stages, total, launches, peak
+    return stages, total, launches, peak, order_times
+
+
+def _order_timing(args, kw, smi, n=3):
+    """The transition stage's dual sampled launch on its own inputs (the
+    pipeline's embedding-kNN samples), with the identity center order and
+    with the locality order, in turns (identity, ordered, ordered,
+    identity, ...); the two outputs must be bitwise equal.  Returns the
+    median ms of each."""
+    from velocyto_tpu_torch import kernels
+    from velocyto_tpu_torch.ops.coldeltacor import _TRANSFORMS
+    emat, d_main, ixs, tf, psc = args
+    order = kw["order"]
+    e_rows = emat.to(torch.float32).T.contiguous()
+    d_rows = d_main.to(torch.float32).T.contiguous()
+    d2_rows = kw["dmat_random"].to(torch.float32).T.contiguous()
+    # the path builds its sampled ids as int32: nothing is converted
+    assert ixs.dtype == torch.int32, ixs.dtype
+    tc = _TRANSFORMS[tf]
+
+    def run(o):
+        return kernels.coldeltacor_partial(e_rows, e_rows, d_rows, ixs, tc,
+                                           psc, d_ctr2=d2_rows, order=o)
+
+    times = {"identity": [], "locality": []}
+    outs = {}
+    turns = [("identity", None), ("locality", order)]
+    for i in range(n):
+        for name, o in (turns if i % 2 == 0 else turns[::-1]):
+            t, outs[name] = _time_ms(lambda: run(o))
+            times[name].append(t)
+    same = all(_bitwise(a, b) for a, b in zip(outs["identity"],
+                                              outs["locality"]))
+    ms_i = statistics.median(times["identity"])
+    ms_o = statistics.median(times["locality"])
+    n_cells, nn = ixs.shape
+    gbps = n_cells * nn * e_rows.shape[1] * 4 / (ms_o / 1e3) / 1e9
+    print(f"# time sampled dual on the pipeline's own indices "
+          f"(N={n_cells}, nn={nn}, G={e_rows.shape[1]}, {tf}) on {smi}: "
+          f"identity order {ms_i!r} ms, locality order {ms_o!r} ms (median "
+          f"of {n}, in turns, CUDA events); gathered rows {gbps!r} GB/s "
+          f"with the locality order; outputs bitwise equal: {same}",
+          flush=True)
+    assert same, "the center order changed the sampled kernel's output"
+    return {"identity_ms": ms_i, "ordered_ms": ms_o}
 
 
 def _check_sampled_state(v):
@@ -834,10 +1079,10 @@ def main():
     cross_check_phase()
     sampler_phase()
     fma = fma_phase(smi)
-    stages_full, total_full, launches_full, peak_full = \
+    stages_full, total_full, launches_full, peak_full, _ = \
         pipeline_phase(knn_random=False, smi=smi)
     torch.cuda.empty_cache()
-    stages_samp, total_samp, launches_samp, peak_samp = \
+    stages_samp, total_samp, launches_samp, peak_samp, order_ms = \
         pipeline_phase(knn_random=True, smi=smi)
     _bench, launches_bench = bench_phase()
     torch.cuda.empty_cache()
@@ -854,26 +1099,36 @@ def main():
                       "peak_tutorial_gib": peak_tut / 2**30,
                       "velocity_step_ms": step_ms,
                       "shims_ms_plain_ms_err": shims}))
-    # launches: each kernel's count summed over the paths that run it
+    # launches: each kernel's count summed over the paths that run it;
+    # ms / plain_ms: the kernel and its plain version on the same inputs
+    # (dense: one field; sampled: the dual call on uniform indices), with
+    # the path's own forms beside them (dense dual; sampled dual on the
+    # default pipeline's indices in both center orders)
     print(json.dumps({"kernels": [
         {"name": "coldeltacor_dense", "route": "cuda",
          "source": "velocyto_tpu_torch/kernels/coldeltacor_dense.cu",
          "replaces": "velocyto_tpu/ops/coldeltacor.py:89",
          "launches": launches_full["dense"] + launches_tut["dense"],
          "max_abs_err": dense["max_abs_err"], "ms": dense["ms"],
-         "plain_ms": dense["plain_ms"]},
+         "plain_ms": dense["plain_ms"], "bound_ms": dense["bound_ms"],
+         "bound_by": dense["bound_by"], "library_ms": None,
+         "dual_ms": dense["dual_ms"]},
         {"name": "coldeltacor_partial", "route": "cuda",
          "source": "velocyto_tpu_torch/kernels/coldeltacor_partial.cu",
          "replaces": "velocyto_tpu/ops/coldeltacor.py:260",
          "launches": launches_samp["partial"] + launches_tut["partial"],
          "max_abs_err": sampled["max_abs_err"], "ms": sampled["ms"],
-         "plain_ms": sampled["plain_ms"]},
+         "plain_ms": sampled["plain_ms"], "bound_ms": sampled["bound_ms"],
+         "bound_by": sampled["bound_by"], "library_ms": None,
+         "path_identity_ms": order_ms["identity_ms"],
+         "path_locality_ms": order_ms["ordered_ms"]},
         {"name": "fma_probe", "route": "cuda",
          "source": "velocyto_tpu_torch/kernels/fma_probe.cu",
          "replaces": "bench.py:192",
          "launches": launches_bench["fma"],
          "max_abs_err": fma["max_abs_err"], "ms": fma["ms"],
-         "plain_ms": fma["plain_ms"]}]}))
+         "plain_ms": fma["plain_ms"], "bound_ms": fma["bound_ms"],
+         "bound_by": fma["bound_by"], "library_ms": None}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -99,9 +99,15 @@ def test_kernels_import_without_cuda():
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.coldeltacor_dense(e, e, 0, 0.0)
     with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.coldeltacor_dense(e, e, 1, 1e-10, dmat2=e)
+    with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.coldeltacor_partial(e, e, e, torch.zeros((4, 2),
                                                          dtype=torch.int64),
                                     1, 1e-10)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.coldeltacor_partial(
+            e, e, e, torch.zeros((4, 2), dtype=torch.int32), 1, 1e-10,
+            d_ctr2=e, order=torch.arange(4, dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.fma_probe(e)
     assert kernels.dense_launches == kernels.partial_launches == \

@@ -40,7 +40,8 @@ from . import native
 from .diffusion import Diffusion
 from .io import loom as loomio
 from .ops import knn_device as kd
-from .ops.coldeltacor import col_delta_cor, col_delta_cor_partial_compact
+from .ops.coldeltacor import (col_delta_cor, col_delta_cor_partial_compact,
+                              locality_order)
 from .ops.gamma import (clusters_stats, compute_fit_weights, fit_slope,
                         fit_slope_offset, fit_slope_weighted,
                         fit_slope_weighted_offset)
@@ -1162,8 +1163,12 @@ class VelocytoLoom:
         self._drop("embedding_knn", "_compact_ixs")
         self._compact_ixs_dev = neigh
 
-        corr = col_delta_cor_partial_compact(emat, d_main, neigh, tf, psc,
-                                             dmat_random=d_rndm)
+        # the kernel takes the cells in embedding-locality order, so the
+        # rows it gathers for neighbouring cells are served by L2
+        corr = col_delta_cor_partial_compact(
+            emat, d_main, neigh, tf, psc, dmat_random=d_rndm,
+            order=locality_order(torch.as_tensor(embedding,
+                                                 device=neigh.device)))
         corr_m, corr_r = corr if d_rndm is not None else (corr, None)
         corr_m, had_nan = _fix_nans(corr_m)
         if had_nan:
@@ -1207,11 +1212,12 @@ class VelocytoLoom:
             (np.ones(N * nn_k), neigh_full.cpu().numpy().ravel(),
              np.arange(0, N * nn_k + 1, nn_k)), shape=(N, N))
 
-        corr = col_delta_cor(emat, d_main, tf, psc)
+        # the main field and the randomized control in one kernel launch
+        corr = col_delta_cor(emat, d_main, tf, psc, dmat_random=d_rndm)
+        corr, corr_r = corr if d_rndm is not None else (corr, None)
         corr.fill_diagonal_(0.0)
         self._set_dev("corrcoef", corr)
-        if d_rndm is not None:
-            corr_r = col_delta_cor(emat, d_rndm, tf, psc)
+        if corr_r is not None:
             corr_r.fill_diagonal_(0.0)
             self._set_dev("corrcoef_random", corr_r)
 
@@ -1766,7 +1772,8 @@ def _sample_neighbors_dev(idx: torch.Tensor, samp: torch.Tensor,
     index rows idx (N, nn+1), then take the sampled column positions samp
     (N, n_samp) of what is left, in one gather.  row_offset: global id of
     idx's first row, for row-chunked calls (the self test compares global
-    ids)."""
+    ids).  Returns int32 ids (cell counts stay below 2**31), the dtype the
+    sampled kernel reads."""
     n, cols = idx.shape
     rows = torch.arange(n, dtype=idx.dtype, device=idx.device)[:, None] + \
         row_offset
@@ -1775,7 +1782,8 @@ def _sample_neighbors_dev(idx: torch.Tensor, samp: torch.Tensor,
                              cols - 1)
     # column j of the self-dropped rows is column j + (j >= first_self)
     s = samp.to(torch.int64)
-    return idx.gather(1, s + (s >= first_self[:, None]).to(torch.int64))
+    return idx.gather(1, s + (s >= first_self[:, None]).to(torch.int64)
+                      ).to(torch.int32)
 
 
 def _fix_nans(corr: torch.Tensor) -> Tuple[torch.Tensor, bool]:

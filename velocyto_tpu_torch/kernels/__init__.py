@@ -3,8 +3,8 @@
 Each kernel's source (``*.cu``) lives beside this module.  It is compiled
 on first use (never at import, so the package imports on machines without
 CUDA) into ``_build/`` as a shared library with a plain C interface, one
-library per source named by the hash of that source, so an edit to any
-one of them rebuilds it.  The sources that need a build are compiled in
+library per source named by the hash of that source and the shared
+headers (``*.cuh``), so an edit to any of them rebuilds what it touches.  The sources that need a build are compiled in
 parallel, one nvcc each.  Wrappers take CUDA tensors only and raise on
 anything else; the plain PyTorch version of each kernel lives in the
 module that calls it and serves CPU tensors there:
@@ -30,6 +30,7 @@ import torch
 _HERE = Path(__file__).resolve().parent
 _BUILD = _HERE / "_build"
 SOURCES = sorted(_HERE.glob("*.cu"))
+HEADERS = sorted(_HERE.glob("*.cuh"))
 
 dense_launches = 0      # launches of the dense colDeltaCor kernel
 partial_launches = 0    # launches of the sampled colDeltaCor kernel
@@ -40,15 +41,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # source stem -> (exported C function, its argtypes)
 _SIGNATURES = {
     "coldeltacor_dense": ("vtt_coldeltacor_dense",
-                          [_P, _P, _P, _I, _I, _I, _I, _F, _P]),
+                          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
     "coldeltacor_partial": ("vtt_coldeltacor_partial",
-                            [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                            [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _F, _P]),
     "fma_probe": ("vtt_fma_probe", [_P, _P, ctypes.c_int64, _P]),
 }
 
 _lib: Optional[Dict[str, Any]] = None   # ctypes functions, on first use
-_TILE = 64              # dense kernel: cells per block side, kTile
+_TILE_C = 64            # dense kernel: centers per block, kTC
 _CHUNK = 256            # partial kernel: neighbours per block, kChunk
 _MAX_SMEM = 232448      # bytes of shared memory a block may use (sm_90)
 
@@ -66,8 +67,9 @@ def build() -> Dict[str, Path]:
     on any compiler error."""
     global build_log
     libs, todo = {}, []
+    headers = b"".join(h.read_bytes() for h in HEADERS)
     for src in SOURCES:
-        tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+        tag = hashlib.sha256(src.read_bytes() + headers).hexdigest()[:16]
         libs[src.stem] = lib = _BUILD / f"libvtt_{src.stem}_{tag}.so"
         if not lib.exists():
             todo.append((src, lib))
@@ -140,35 +142,46 @@ def _launch(stem: str, device: torch.device, *args) -> None:
 
 def coldeltacor_dense(emat: torch.Tensor, dmat: torch.Tensor,
                       transform: int, psc: float,
-                      partial_semantics: bool = False) -> torch.Tensor:
+                      partial_semantics: bool = False,
+                      dmat2: Optional[torch.Tensor] = None
+                      ) -> Union[torch.Tensor,
+                                 Tuple[torch.Tensor, torch.Tensor]]:
     """Dense colDeltaCor on the card: (G, N) f32 CUDA tensors -> (N, N).
+    With dmat2 (G, N), returns the pair of outputs for dmat and dmat2 from
+    one pass, each bitwise equal to a single call.
 
     transform: 0 linear, 1 sqrt, 2 log10 (ops.coldeltacor._TRANSFORMS).
     Launches on the current stream and does not synchronise."""
     global dense_launches
-    _check("emat", emat)
-    _check("dmat", dmat)
-    if emat.shape != dmat.shape:
-        raise ValueError(f"shape mismatch {tuple(emat.shape)} vs "
-                         f"{tuple(dmat.shape)}")
-    _check_same_device(emat=emat, dmat=dmat)
+    mats = dict(emat=emat, dmat=dmat)
+    if dmat2 is not None:
+        mats["dmat2"] = dmat2
+    for name, t in mats.items():
+        _check(name, t)
+        if t.shape != emat.shape:
+            raise ValueError(f"shape mismatch {tuple(emat.shape)} vs "
+                             f"{name} {tuple(t.shape)}")
+    _check_same_device(**mats)
     g, n = emat.shape
-    if g < 1 or n < 1 or n > 65535 * _TILE:      # gridDim.y <= 65535
+    if g < 1 or n < 1 or n > 65535 * _TILE_C:    # gridDim.y <= 65535
         raise ValueError(f"unsupported shape {tuple(emat.shape)}")
     if transform not in (0, 1, 2):
         raise ValueError(f"unknown transform code {transform}")
     out = torch.empty((n, n), dtype=torch.float32, device=emat.device)
+    out2 = torch.empty_like(out) if dmat2 is not None else None
     _launch("coldeltacor_dense", emat.device, emat.data_ptr(),
-            dmat.data_ptr(), out.data_ptr(), g, n, transform,
-            int(bool(partial_semantics)), float(psc))
+            dmat.data_ptr(), None if dmat2 is None else dmat2.data_ptr(),
+            out.data_ptr(), None if out2 is None else out2.data_ptr(), g, n,
+            transform, int(bool(partial_semantics)), float(psc))
     dense_launches += 1
-    return out
+    return out if out2 is None else (out, out2)
 
 
 def coldeltacor_partial(e_full: torch.Tensor, e_ctr: torch.Tensor,
                         d_ctr: torch.Tensor, ixs: torch.Tensor,
                         transform: int, psc: float,
-                        d_ctr2: Optional[torch.Tensor] = None
+                        d_ctr2: Optional[torch.Tensor] = None,
+                        order: Optional[torch.Tensor] = None
                         ) -> Union[torch.Tensor,
                                    Tuple[torch.Tensor, torch.Tensor]]:
     """Sampled colDeltaCor on the card, partial semantics.
@@ -176,8 +189,15 @@ def coldeltacor_partial(e_full: torch.Tensor, e_ctr: torch.Tensor,
     e_full (N, G), e_ctr / d_ctr (M, G) f32 and ixs (M, nn) int32 or int64
     CUDA tensors -> (M, nn) f32.  With d_ctr2 (M, G), returns the pair of
     outputs for d_ctr and d_ctr2 from one pass over the gathered rows.
-    An index outside [0, N) gives NaN.  transform: 0 linear, 1 sqrt,
-    2 log10.  Launches on the current stream and does not synchronise."""
+    An index outside [0, N) gives NaN; int64 indices are converted to the
+    kernel's int32 (N < 2**31).  order: an optional (M,) int32 permutation
+    of the centers; the blocks take the centers in that order (a locality
+    order lets L2 serve the gathered rows), and the output is the same
+    with any order.  It is not checked here (that would cost a sync):
+    a center it leaves out keeps its output row unwritten, so callers
+    pass a permutation (``ops.coldeltacor.col_delta_cor_partial_compact``
+    checks one).  transform: 0 linear, 1 sqrt, 2 log10.  Launches on
+    the current stream and does not synchronise."""
     global partial_launches
     rows = dict(e_full=e_full, e_ctr=e_ctr, d_ctr=d_ctr)
     if d_ctr2 is not None:
@@ -185,25 +205,34 @@ def coldeltacor_partial(e_full: torch.Tensor, e_ctr: torch.Tensor,
     for name, t in rows.items():
         _check(name, t)
     _check("ixs", ixs, (torch.int32, torch.int64))
-    _check_same_device(ixs=ixs, **rows)
+    tensors = dict(ixs=ixs, **rows)
+    if order is not None:
+        _check("order", order, (torch.int32,), dim=1)
+        tensors["order"] = order
+    _check_same_device(**tensors)
     n, g = e_full.shape
     m, nn = ixs.shape
     for name in ("e_ctr", "d_ctr", "d_ctr2"):
         if name in rows and rows[name].shape != (m, g):
             raise ValueError(f"{name} must be ({m}, {g}), got "
                              f"{tuple(rows[name].shape)}")
+    if order is not None and order.shape != (m,):
+        raise ValueError(f"order must be ({m},), got {tuple(order.shape)}")
     n_rows = 3 if d_ctr2 is not None else 2
-    if n < 1 or m < 1 or nn < 1 or m >= 2 ** 31 or n >= 2 ** 31 or \
-            -(-nn // _CHUNK) > 65535 or n_rows * g * 4 > _MAX_SMEM:
+    if n < 1 or m < 1 or nn < 1 or n >= 2 ** 31 - 1 or \
+            m * -(-nn // _CHUNK) >= 2 ** 31 or n_rows * g * 4 > _MAX_SMEM:
         raise ValueError(f"unsupported shape: N={n}, G={g}, M={m}, nn={nn}")
     if transform not in (0, 1, 2):
         raise ValueError(f"unknown transform code {transform}")
+    if ixs.dtype == torch.int64:
+        # out-of-range ids stay out of range (-1 or N) in int32
+        ixs = ixs.clamp(-1, n).to(torch.int32)
     out = torch.empty((m, nn), dtype=torch.float32, device=e_full.device)
     out2 = torch.empty_like(out) if d_ctr2 is not None else None
     _launch("coldeltacor_partial", e_full.device, e_full.data_ptr(),
             e_ctr.data_ptr(), d_ctr.data_ptr(),
             None if d_ctr2 is None else d_ctr2.data_ptr(), ixs.data_ptr(),
-            int(ixs.dtype == torch.int64), out.data_ptr(),
+            None if order is None else order.data_ptr(), out.data_ptr(),
             None if out2 is None else out2.data_ptr(), n, m, g, nn,
             transform, float(psc))
     partial_launches += 1

@@ -11,27 +11,41 @@
 // gathered once for both outputs, and each output equals a single call.
 //
 // What bounds it: the row gather.  Each (center, neighbour) pair reads one
-// 4G-byte row of e_full in sampled order and does ~10 operations per gene
-// on it, so at the 20k-cell operating point (nn = 1750, G = 2000) one call
-// reads N * nn * G * 4 = 280 GB: >= 84 ms at 3.35 TB/s, while the moment
-// arithmetic is well under that.  A 24.6 MB source (3,072 cells) stays in
-// the 50 MB L2; a 160 MB one (20,000 cells) does not.
+// 4G-byte row of e_full in sampled order, so at the 20k-cell operating
+// point (nn = 1750, G = 2000) one call gathers N * nn * G * 4 = 280 GB,
+// while its compulsory bytes are about 1 GB (0.33 ms at 3.35 TB/s) and its
+// arithmetic 7.0e10 (pair, gene) steps: 10.4 ms of FP32 at 67 TFLOP/s,
+// 16.7 ms of SFU at one MUFU op per step.  Served from device memory the
+// gather takes >= 84 ms.  Cells in index order are not neighbours, so
+// blocks that take centers in index order gather unrelated rows and the
+// 50 MB L2 serves few of them twice.
 //
-// What the design does about it: one block per (center row, chunk of 256
-// neighbours).  The center row and its displacement row(s) are staged once
-// in shared memory (2 or 3 x 4G bytes) with Sb and Sb2 reduced there, so
-// the only device-memory traffic per pair is the neighbour row itself.
-// Each warp takes one neighbour at a time and streams its row with
-// coalesced 16-byte loads (4-byte loads when G is not a multiple of 4);
-// S1, S2 and S3 are reduced with warp shuffles.  The dual form halves the
-// bytes of the transition stage.
-//
-// Numerics follow _apply_transform(partial=True) and _corr_from_moments of
-// the JAX package: f32 throughout, IEEE sqrtf/log10f (build without
-// --use_fast_math), and the partial sign quirks:
+// What the design does about it:
+//   - a center order: block b serves center order[b / n_chunks] (identity
+//     when no order is given), and consecutive blocks take one center's
+//     256-neighbour chunks in turn.  The caller passes a locality order of
+//     the embedding (ops/coldeltacor.py::locality_order); centers close in
+//     the embedding share most of their kNN candidates, so the blocks in
+//     flight gather from a few thousand distinct rows that L2 can hold.
+//     The order changes no output: each output is computed by the same
+//     code from the same inputs;
+//   - the center row and its displacement row(s) are staged once in shared
+//     memory with Sb and Sb2 reduced there; each warp then takes 4
+//     neighbours at a time, so one set of 16-byte shared loads of the
+//     center values serves 4 gathered rows (0.19 shared loads per step)
+//     and each lane keeps 4 independent 16-byte row loads in flight;
+//   - the lean step of coldeltacor_step.cuh (one MUFU op per step);
+//   - int32 indices: the pipeline builds its sampled ids as int32, so the
+//     path converts nothing (the wrapper converts int64 ids of other
+//     callers).
+// The order must be a permutation of the centers (the public entry point
+// ops/coldeltacor.py::col_delta_cor_partial_compact checks it): a center
+// left out keeps its output row unwritten, and an entry out of range is
+// skipped here rather than dereferenced.
+// Numerics: see coldeltacor_step.cuh; the partial sign quirks:
 //   sqrt:  |delta| < 1e-16 maps to exactly 0
 //   log10: delta == 0 takes the positive branch (`delta >= 0` test)
-// An index outside [0, N) is not read; its output is NaN.
+// An index outside [0, N) is not dereferenced; its output is NaN.
 //
 // C interface (bound with ctypes): vtt_coldeltacor_partial returns the
 // cudaError_t of the launch as an int; 0 means the kernel was queued.
@@ -40,24 +54,18 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "coldeltacor_step.cuh"
+
 namespace {
+
+using vtt::kLinear;
+using vtt::kLog10;
+using vtt::kSqrt;
 
 constexpr int kThreads = 256;             // 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 256;               // neighbours per block
-constexpr int kLinear = 0, kSqrt = 1, kLog10 = 2;
-
-template <int TF>
-__device__ __forceinline__ float transform_partial(float delta, float psc) {
-  if (TF == kLinear) return delta;
-  if (TF == kSqrt) {
-    if (fabsf(delta) < 1e-16f) return 0.0f;
-    const float mag = sqrtf(fabsf(delta) + psc);
-    return delta > 0.0f ? mag : -mag;
-  }
-  const float mag = log10f(fabsf(delta) + psc);
-  return delta >= 0.0f ? mag : -mag;
-}
+constexpr int kQuad = 4;                  // neighbours per warp at a time
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -66,40 +74,21 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float corr(float s1, float s2, float s3, float sb1,
-                                      float sb2, float gf) {
-  const float num = s3 - s1 * (sb1 / gf);
-  const float var_a = s2 - s1 * s1 / gf;
-  const float var_b = sb2 - sb1 * sb1 / gf;
-  return num / (sqrtf(var_a) * sqrtf(var_b));
-}
-
 struct Args {
   const float* e_full;   // (N, G) gather source
   const float* e_ctr;    // (M, G) center rows
   const float* d_ctr;    // (M, G) displacement rows
   const float* d_ctr2;   // (M, G) second displacement rows, or null
-  const void* ixs;       // (M, nn) int32 or int64 neighbour ids
+  const int* ixs;        // (M, nn) neighbour ids
+  const int* order;      // (M,) permutation of the centers, or null
   float* out;            // (M, nn)
   float* out2;           // (M, nn), or null
-  int N, M, G, nn;
+  int N, M, G, nn, n_chunks;
   float psc;
 };
 
-// Adds the moments of one gene to the running sums.
-template <int TF, bool DUAL>
-__device__ __forceinline__ void accumulate(float e_nb, float e_c, float b,
-                                           float b2, float psc, float& s1,
-                                           float& s2, float& s3, float& s4) {
-  const float a = transform_partial<TF>(e_nb - e_c, psc);
-  s1 += a;
-  s2 += a * a;
-  s3 += a * b;
-  if (DUAL) s4 += a * b2;
-}
-
-template <int TF, bool DUAL, typename IDX, bool VEC>
-__global__ void __launch_bounds__(kThreads)
+template <int TF, bool DUAL, bool VEC>
+__global__ void __launch_bounds__(kThreads, 2)
 coldeltacor_partial_kernel(Args p) {
   extern __shared__ float4 smem4[];
   float* ec = reinterpret_cast<float*>(smem4);   // [G] center row
@@ -108,7 +97,10 @@ coldeltacor_partial_kernel(Args p) {
   __shared__ float red[kWarps][4];
 
   const int G = p.G;
-  const int m = blockIdx.x;
+  const int pos = blockIdx.x / p.n_chunks;
+  const int chunk = blockIdx.x - pos * p.n_chunks;
+  const int m = p.order != nullptr ? p.order[pos] : pos;
+  if (m < 0 || m >= p.M) return;               // not a permutation entry
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const size_t crow = (size_t)m * (size_t)G;
@@ -151,91 +143,119 @@ coldeltacor_partial_kernel(Args p) {
   }
 
   const float gf = (float)G;
-  const IDX* ixs = static_cast<const IDX*>(p.ixs) + (size_t)m * (size_t)p.nn;
-  const int k_end = min(p.nn, (int)(blockIdx.y + 1) * kChunk);
-  for (int k = blockIdx.y * kChunk + warp; k < k_end; k += kWarps) {
-    const long long j = (long long)ixs[k];
-    const bool ok = j >= 0 && j < p.N;
-    float s1 = 0.0f, s2 = 0.0f, s3 = 0.0f, s4 = 0.0f;
-    if (ok) {
-      const float* row = p.e_full + (size_t)j * (size_t)G;
-      if (VEC) {
-        const float4* row4 = reinterpret_cast<const float4*>(row);
-        const float4* ec4 = reinterpret_cast<const float4*>(ec);
-        const float4* b4 = reinterpret_cast<const float4*>(b);
-        const float4* b24 = reinterpret_cast<const float4*>(b2);
-        const int g4n = G / 4;
-#pragma unroll 4
-        for (int g4 = lane; g4 < g4n; g4 += 32) {
-          const float4 v = __ldg(row4 + g4);
-          const float4 c = ec4[g4];
-          const float4 bb = b4[g4];
-          const float4 bb2 = DUAL ? b24[g4] : bb;
-          accumulate<TF, DUAL>(v.x, c.x, bb.x, bb2.x, p.psc, s1, s2, s3, s4);
-          accumulate<TF, DUAL>(v.y, c.y, bb.y, bb2.y, p.psc, s1, s2, s3, s4);
-          accumulate<TF, DUAL>(v.z, c.z, bb.z, bb2.z, p.psc, s1, s2, s3, s4);
-          accumulate<TF, DUAL>(v.w, c.w, bb.w, bb2.w, p.psc, s1, s2, s3, s4);
+  const float psc = p.psc;
+  const int* ixs = p.ixs + (size_t)m * (size_t)p.nn;
+  const int k_end = min(p.nn, (chunk + 1) * kChunk);
+  for (int k0 = chunk * kChunk + kQuad * warp; k0 < k_end;
+       k0 += kQuad * kWarps) {
+    // a slot past k_end or with an index out of range reads row 0 (never
+    // written out), so the loop below has no per-slot branch
+    const float* row[kQuad];
+    bool ok[kQuad];
+#pragma unroll
+    for (int u = 0; u < kQuad; ++u) {
+      const int j = k0 + u < k_end ? ixs[k0 + u] : -1;
+      ok[u] = j >= 0 && j < p.N;
+      row[u] = p.e_full + (size_t)(ok[u] ? j : 0) * (size_t)G;
+    }
+    float s1[kQuad], s2[kQuad], s3[kQuad], s4[kQuad];
+#pragma unroll
+    for (int u = 0; u < kQuad; ++u) s1[u] = s2[u] = s3[u] = s4[u] = 0.0f;
+    if (VEC) {
+      const float4* ec4 = reinterpret_cast<const float4*>(ec);
+      const float4* b4 = reinterpret_cast<const float4*>(b);
+      const float4* b24 = reinterpret_cast<const float4*>(b2);
+      const int g4n = G / 4;
+#pragma unroll 2
+      for (int g4 = lane; g4 < g4n; g4 += 32) {
+        float4 v[kQuad];
+#pragma unroll
+        for (int u = 0; u < kQuad; ++u)
+          v[u] = __ldg(reinterpret_cast<const float4*>(row[u]) + g4);
+        const float4 c = ec4[g4];
+        const float4 bb = b4[g4];
+        const float4 bb2 = DUAL ? b24[g4] : bb;
+#pragma unroll
+        for (int u = 0; u < kQuad; ++u) {
+          vtt::moment_step<TF, true, DUAL>(v[u].x, c.x, bb.x, bb2.x, psc,
+                                           s1[u], s2[u], s3[u], s4[u]);
+          vtt::moment_step<TF, true, DUAL>(v[u].y, c.y, bb.y, bb2.y, psc,
+                                           s1[u], s2[u], s3[u], s4[u]);
+          vtt::moment_step<TF, true, DUAL>(v[u].z, c.z, bb.z, bb2.z, psc,
+                                           s1[u], s2[u], s3[u], s4[u]);
+          vtt::moment_step<TF, true, DUAL>(v[u].w, c.w, bb.w, bb2.w, psc,
+                                           s1[u], s2[u], s3[u], s4[u]);
         }
-      } else {
-#pragma unroll 4
-        for (int g = lane; g < G; g += 32)
-          accumulate<TF, DUAL>(__ldg(row + g), ec[g], b[g],
-                               DUAL ? b2[g] : 0.0f, p.psc, s1, s2, s3, s4);
+      }
+    } else {
+#pragma unroll 2
+      for (int g = lane; g < G; g += 32) {
+        const float c = ec[g], bb = b[g], bb2 = DUAL ? b2[g] : 0.0f;
+#pragma unroll
+        for (int u = 0; u < kQuad; ++u)
+          vtt::moment_step<TF, true, DUAL>(__ldg(row[u] + g), c, bb, bb2,
+                                           psc, s1[u], s2[u], s3[u], s4[u]);
       }
     }
-    s1 = warp_sum(s1);
-    s2 = warp_sum(s2);
-    s3 = warp_sum(s3);
-    if (DUAL) s4 = warp_sum(s4);
+#pragma unroll
+    for (int u = 0; u < kQuad; ++u) {
+      s1[u] = warp_sum(s1[u]);
+      s2[u] = warp_sum(s2[u]);
+      s3[u] = warp_sum(s3[u]);
+      if (DUAL) s4[u] = warp_sum(s4[u]);
+    }
     if (lane == 0) {
-      const size_t o = (size_t)m * (size_t)p.nn + k;
       const float nan = __int_as_float(0x7fc00000);
-      p.out[o] = ok ? corr(s1, s2, s3, sb1, sb2, gf) : nan;
-      if (DUAL) p.out2[o] = ok ? corr(s1, s2, s4, sc1, sc2, gf) : nan;
+#pragma unroll
+      for (int u = 0; u < kQuad; ++u) {
+        if (k0 + u >= k_end) break;
+        const size_t o = (size_t)m * (size_t)p.nn + k0 + u;
+        p.out[o] = ok[u] ? vtt::corr_from_moments(s1[u], s2[u], s3[u], sb1,
+                                                  sb2, gf)
+                         : nan;
+        if (DUAL)
+          p.out2[o] = ok[u] ? vtt::corr_from_moments(s1[u], s2[u], s4[u],
+                                                     sc1, sc2, gf)
+                            : nan;
+      }
     }
   }
 }
 
-template <int TF, bool DUAL, typename IDX, bool VEC>
+template <int TF, bool DUAL, bool VEC>
 cudaError_t launch(const Args& p, cudaStream_t stream) {
   const size_t smem = (size_t)(DUAL ? 3 : 2) * (size_t)p.G * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        coldeltacor_partial_kernel<TF, DUAL, IDX, VEC>,
+        coldeltacor_partial_kernel<TF, DUAL, VEC>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid(p.M, (p.nn + kChunk - 1) / kChunk);
-  coldeltacor_partial_kernel<TF, DUAL, IDX, VEC>
-      <<<grid, kThreads, smem, stream>>>(p);
+  const unsigned blocks = (unsigned)p.M * (unsigned)p.n_chunks;
+  coldeltacor_partial_kernel<TF, DUAL, VEC>
+      <<<blocks, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int TF, bool DUAL, typename IDX>
-cudaError_t pick_vec(const Args& p, bool vec, cudaStream_t s) {
-  return vec ? launch<TF, DUAL, IDX, true>(p, s)
-             : launch<TF, DUAL, IDX, false>(p, s);
-}
-
 template <int TF, bool DUAL>
-cudaError_t pick_idx(const Args& p, bool idx64, bool vec, cudaStream_t s) {
-  return idx64 ? pick_vec<TF, DUAL, int64_t>(p, vec, s)
-               : pick_vec<TF, DUAL, int32_t>(p, vec, s);
+cudaError_t pick_vec(const Args& p, bool vec, cudaStream_t s) {
+  return vec ? launch<TF, DUAL, true>(p, s) : launch<TF, DUAL, false>(p, s);
 }
 
 template <int TF>
-cudaError_t pick_dual(const Args& p, bool idx64, bool vec, cudaStream_t s) {
-  return p.d_ctr2 != nullptr ? pick_idx<TF, true>(p, idx64, vec, s)
-                             : pick_idx<TF, false>(p, idx64, vec, s);
+cudaError_t pick_dual(const Args& p, bool vec, cudaStream_t s) {
+  return p.d_ctr2 != nullptr ? pick_vec<TF, true>(p, vec, s)
+                             : pick_vec<TF, false>(p, vec, s);
 }
 
 }  // namespace
 
 extern "C" int vtt_coldeltacor_partial(const void* e_full, const void* e_ctr,
                                        const void* d_ctr, const void* d_ctr2,
-                                       const void* ixs, int idx64, void* out,
-                                       void* out2, int N, int M, int G, int nn,
-                                       int transform, float psc, void* stream) {
+                                       const void* ixs, const void* order,
+                                       void* out, void* out2, int N, int M,
+                                       int G, int nn, int transform,
+                                       float psc, void* stream) {
   if (M < 1 || nn < 1 || G < 1 || (d_ctr2 == nullptr) != (out2 == nullptr))
     return (int)cudaErrorInvalidValue;
   Args p;
@@ -243,21 +263,25 @@ extern "C" int vtt_coldeltacor_partial(const void* e_full, const void* e_ctr,
   p.e_ctr = static_cast<const float*>(e_ctr);
   p.d_ctr = static_cast<const float*>(d_ctr);
   p.d_ctr2 = static_cast<const float*>(d_ctr2);
-  p.ixs = ixs;
+  p.ixs = static_cast<const int*>(ixs);
+  p.order = static_cast<const int*>(order);
   p.out = static_cast<float*>(out);
   p.out2 = static_cast<float*>(out2);
   p.N = N;
   p.M = M;
   p.G = G;
   p.nn = nn;
+  p.n_chunks = (nn + kChunk - 1) / kChunk;
   p.psc = psc;
+  if ((long long)M * p.n_chunks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   // 16-byte loads need every gathered row 16-byte aligned
   const bool vec = G % 4 == 0 && reinterpret_cast<uintptr_t>(e_full) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (transform) {
-    case kLinear: return (int)pick_dual<kLinear>(p, idx64 != 0, vec, s);
-    case kSqrt: return (int)pick_dual<kSqrt>(p, idx64 != 0, vec, s);
-    case kLog10: return (int)pick_dual<kLog10>(p, idx64 != 0, vec, s);
+    case kLinear: return (int)pick_dual<kLinear>(p, vec, s);
+    case kSqrt: return (int)pick_dual<kSqrt>(p, vec, s);
+    case kLog10: return (int)pick_dual<kLog10>(p, vec, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

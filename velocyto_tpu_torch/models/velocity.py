@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..analysis import _embedding_shift_compact
-from ..ops.coldeltacor import col_delta_cor_partial_compact
+from ..ops.coldeltacor import col_delta_cor_partial_compact, locality_order
 from ..ops.gamma import _row_percentiles, _slope_weighted_offset_row
 from ..ops.knn_device import smooth_dev_multi
 
@@ -75,7 +75,8 @@ def velocity_step(S_sz: torch.Tensor, U_sz: torch.Tensor,
     # --- sampled-neighbour colDeltaCor (sqrt transform) -----------------
     d_sqrt = torch.sqrt(delta.abs() + psc) * torch.sign(delta)
     corr = col_delta_cor_partial_compact(Sx, d_sqrt, sample_ixs.contiguous(),
-                                         "sqrt", psc)
+                                         "sqrt", psc,
+                                         order=locality_order(embedding))
     corr = torch.where(torch.isfinite(corr), corr, 0.0)
     rows = torch.arange(n, device=corr.device)[:, None]
     corr = torch.where(sample_ixs == rows, 0.0, corr)

@@ -95,24 +95,88 @@ def _col_delta_cor_dense_plain(emat: torch.Tensor, dmat: torch.Tensor,
 
 def col_delta_cor(emat: torch.Tensor, dmat: torch.Tensor,
                   transform: str = "linear", psc: float = 0.0,
-                  partial_semantics: bool = False) -> torch.Tensor:
+                  partial_semantics: bool = False,
+                  dmat_random: Optional[torch.Tensor] = None
+                  ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Dense colDeltaCor. emat/dmat: (genes, cells) tensors on one device.
-    Returns the (cells, cells) float32 correlations on that device.
+    Returns the (cells, cells) float32 correlations on that device, or,
+    with ``dmat_random``, the pair for dmat and dmat_random.
 
     Replaces reference colDeltaCor / colDeltaCorSqrt / colDeltaCorLog10
     (velocyto/estimation.py:11-141) via the ``transform`` argument.  A
-    CUDA tensor goes through the hand-written kernel, a CPU tensor
-    through the plain version."""
+    CUDA tensor goes through the hand-written kernel (the pair in one
+    launch, each output bitwise equal to a single call), a CPU tensor
+    through the plain version (one call per output)."""
     tcode = _TRANSFORMS[transform]
     if emat.is_cuda:
-        return kernels.coldeltacor_dense(
-            emat.to(torch.float32).contiguous(),
-            dmat.to(torch.float32).contiguous(), tcode, psc,
-            partial_semantics)
+        f32 = [m.to(torch.float32).contiguous()
+               for m in (emat, dmat, dmat_random) if m is not None]
+        return kernels.coldeltacor_dense(f32[0], f32[1], tcode, psc,
+                                         partial_semantics, *f32[2:])
     if emat.device.type == "cpu":
-        return _col_delta_cor_dense_plain(emat, dmat, tcode, psc,
-                                          partial_semantics)
+        outs = tuple(_col_delta_cor_dense_plain(emat, d, tcode, psc,
+                                                partial_semantics)
+                     for d in (dmat, dmat_random) if d is not None)
+        return outs[0] if dmat_random is None else outs
     raise ValueError(f"unsupported device {emat.device}")
+
+
+def _hilbert_index(x: torch.Tensor, y: torch.Tensor, bits: int
+                   ) -> torch.Tensor:
+    """Position along the Hilbert curve of order ``bits`` of the integer
+    grid points (x, y) in [0, 2**bits), elementwise (the classic xy2d
+    walk from the top bit down, int64)."""
+    d = torch.zeros_like(x)
+    top = (1 << bits) - 1
+    s = 1 << (bits - 1)
+    while s > 0:
+        rx = (x & s) > 0
+        ry = (y & s) > 0
+        d += s * s * ((3 * rx.to(x.dtype)) ^ ry.to(x.dtype))
+        # rotate the quadrant so the sub-curve starts where the last ended
+        flip = ~ry & rx
+        x = torch.where(flip, top - x, x)
+        y = torch.where(flip, top - y, y)
+        x, y = torch.where(ry, x, y), torch.where(ry, y, x)
+        s >>= 1
+    return d
+
+
+_HILBERT_BITS = 10     # locality_order's grid: 1024 x 1024 cells
+
+
+def locality_order(points: torch.Tensor) -> torch.Tensor:
+    """An ordering of the rows of ``points`` (N, D >= 2) in which rows
+    close in the first two coordinates sit close together: the Hilbert
+    curve index of the points quantized to a 1024 x 1024 grid over their
+    bounding box, then a stable argsort.  Returns an (N,) int32
+    permutation on the points' device (plain torch).
+
+    The sampled colDeltaCor kernel takes its centers in this order, so
+    the blocks in flight share kNN candidates and the L2 serves the
+    gathered rows; the order never changes its output."""
+    xy = points[:, :2].to(torch.float64)
+    lo = xy.min(dim=0).values
+    span = (xy.max(dim=0).values - lo).clamp_min(1e-300)
+    cells = (1 << _HILBERT_BITS) - 1
+    q = ((xy - lo) / span * cells).round().to(torch.int64).clamp(0, cells)
+    code = _hilbert_index(q[:, 0], q[:, 1], _HILBERT_BITS)
+    return torch.argsort(code, stable=True).to(torch.int32)
+
+
+def _check_permutation(order: torch.Tensor, m: int) -> None:
+    """Raise ValueError unless ``order`` is an (m,) integer permutation of
+    range(m): a center left out would leave its output row unwritten."""
+    if order.shape != (m,) or order.is_floating_point() or \
+            order.dtype == torch.bool:
+        raise ValueError(f"order must be an ({m},) integer permutation, got "
+                         f"{order.dtype} {tuple(order.shape)}")
+    # m entries that hit each of the m in-range values once leave none out
+    # of range; out-of-range ones land in the bins at -1 and m
+    counts = torch.bincount(order.to(torch.int64).clamp(-1, m) + 1,
+                            minlength=m + 2)[1:m + 1]
+    if not bool(counts.eq(1).all()):
+        raise ValueError(f"order is not a permutation of range({m})")
 
 
 def _col_delta_cor_partial_plain(e_full: torch.Tensor, e_ctr: torch.Tensor,
@@ -152,26 +216,34 @@ def _col_delta_cor_partial_plain(e_full: torch.Tensor, e_ctr: torch.Tensor,
 def col_delta_cor_partial_compact(
         emat: torch.Tensor, dmat: torch.Tensor, ixs: torch.Tensor,
         transform: str = "linear", psc: float = 0.0,
-        dmat_random: Optional[torch.Tensor] = None
+        dmat_random: Optional[torch.Tensor] = None,
+        order: Optional[torch.Tensor] = None
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Sampled-neighbourhood colDeltaCor in the compact form.
     emat/dmat: (genes, cells) tensors on one device; ixs: (cells, nn)
     neighbour ids.  Returns the (cells, nn) float32 correlations on that
     device, or, with ``dmat_random``, the pair for dmat and dmat_random
     (the CUDA kernel gathers the neighbour rows once for both).
+    ``order``: an optional (cells,) permutation of range(cells) in which
+    the CUDA kernel takes the cells (``locality_order`` of the embedding);
+    it changes no output, and the plain version ignores it.  Anything
+    that is not such a permutation raises ValueError on either device.
 
     Replaces reference colDeltaCorpartial / colDeltaCorSqrtpartial /
     colDeltaCorLog10partial (velocyto/estimation.py:36-62, 144-170).  A
     CUDA tensor goes through the hand-written kernel, a CPU tensor
     through the plain version."""
     tcode = _TRANSFORMS[transform]
+    if order is not None:
+        _check_permutation(order, ixs.shape[0])
     e_rows = emat.to(torch.float32).T.contiguous()
     d_rows = [d.to(torch.float32).T.contiguous()
               for d in (dmat, dmat_random) if d is not None]
     if emat.is_cuda:
-        return kernels.coldeltacor_partial(e_rows, e_rows, d_rows[0],
-                                           ixs.contiguous(), tcode, psc,
-                                           *d_rows[1:])
+        return kernels.coldeltacor_partial(
+            e_rows, e_rows, d_rows[0], ixs.contiguous(), tcode, psc,
+            *d_rows[1:],
+            order=None if order is None else order.to(torch.int32))
     if emat.device.type == "cpu":
         outs = tuple(_col_delta_cor_partial_plain(e_rows, e_rows, d, ixs,
                                                   tcode, psc)

@@ -72,10 +72,10 @@ def _reorder_truncate_impl(d2: torch.Tensor, idx: torch.Tensor, k: int
     return d2.gather(1, order), idx.gather(1, order)
 
 
-def knn_search_dev(data, k: int, metric: str = "euclidean", device=None
+def knn_search_dev(data, k: int, metric: str = "euclidean", device="cuda"
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """All-pairs kNN (self included first) on `device` (or on data's
-    device when data is a tensor).
+    """All-pairs kNN (self included first) on `device` (the card unless
+    the caller asks for another; a tensor stays on its own device).
 
     Returns (dist (N, k) f64, idx (N, k) int64), ordered exactly like an
     exact brute-force search (f64 re-score, (distance, index) order)."""
@@ -114,7 +114,7 @@ def _hub_order_impl(dsi: torch.Tensor) -> torch.Tensor:
 def balanced_knn_graph_dev(space, k: int, sight_k: int, maxl: int,
                            metric: str = "euclidean",
                            constraint: Optional[np.ndarray] = None,
-                           device=None) -> KnnGraphDev:
+                           device="cuda") -> KnnGraphDev:
     """Balanced kNN graph (BalancedKNN.kneighbors_graph semantics,
     reference velocyto/neighbors.py:226-322): device search and hub
     order, host balance, result back on the device."""
@@ -133,7 +133,7 @@ def balanced_knn_graph_dev(space, k: int, sight_k: int, maxl: int,
 
 
 def knn_graph_dev(space, k: int, metric: str = "euclidean",
-                  device=None) -> KnnGraphDev:
+                  device="cuda") -> KnnGraphDev:
     """Plain kNN graph excluding self (knn_distance_matrix semantics)."""
     n = space.shape[0]
     kk = min(k + 1, n)
