@@ -23,7 +23,20 @@ comes out:
     field, prepare_markov / run_markov over every cell; then the fused
     velocity_step on the session's state against the step-by-step chain,
     and the six estimation.colDeltaCor* shims against their plain
-    versions (sklearn, h5py and matplotlib are not called).
+    versions (h5py and matplotlib are not called);
+  - the reference's heuristic session at 20,000 cells x 12,000 raw genes
+    (the tutorial generator plus 10,000 background genes):
+    default_filter_and_norm (the CV-vs-mean and totals SVR fits on the
+    card), default_fit_preparation, fit_gammas, the velocity chain,
+    perform_TSNE on 25 principal components, the sampled transition
+    probabilities on the t-SNE embedding, the embedding shift and the
+    grid field.
+
+Before the paths, the SVR solver kernel is held against its plain
+version on a CV-vs-mean-shaped and a totals-shaped fit at full size (its
+per-iteration synchronisation timed alone gives its latency floor), and
+the t-SNE gradient kernel against the dense plain gradient at 20,000
+points, and a 1,000-iteration t-SNE is timed.
 
     python3 chip_smoke.py
 
@@ -49,6 +62,19 @@ K, B_SIGHT, B_MAXL, N_NEIGHBORS = 500, 3000, 1500, 3500
 # barely detected ones, cells in N_CLUSTERS clusters of the latent factors
 LOW_GENES, N_CLUSTERS, MARKOV_STEPS = 500, 12, 2500
 SHIM_CELLS, SHIM_NN = 3072, 512      # bench.py's shapes, for the shims
+# the heuristic session: the tutorial generator plus BG_GENES background
+# genes that pass the detection filter, so the CV-vs-mean SVR fits more
+# than 10,000 genes; t-SNE on TSNE_PCS principal components
+BG_GENES, TSNE_PCS, TSNE_PERPLEXITY = 10000, 25, 30.0
+SVR_CV_MIN = 10000                   # genes the session's CV fit must see
+SVR_CV_N = 12000                     # the CV-vs-mean-shaped SVR check
+SVR_RTOL = 1e-6                      # SVR predictions, kernel against plain
+SVR_SYNC_REPS = 20000                # rounds of the SVR sync probe
+# t-SNE gradient, kernel against plain: rtol, and an atol of TSNE_ATOL or
+# TSNE_ATOL_REL of the case's largest component, whichever is smaller
+TSNE_RTOL, TSNE_ATOL, TSNE_ATOL_REL = 1e-4, 1e-6, 1e-5
+# H100 SXM data sheet: FP64 outside the tensor cores
+PEAK_FP64 = 34e12
 SAMPLED_FRACTION = 0.5
 NN_SAMPLED = int(SAMPLED_FRACTION * (N_NEIGHBORS + 1))     # 1750
 RTOL, ATOL = 2e-3, 2e-4          # the JAX tests' colDeltaCor tolerances
@@ -366,10 +392,11 @@ def _print_sfu_floor(name, steps):
           f"at {PEAK_MUFU!r}/s = {steps / PEAK_MUFU * 1e3!r} ms", flush=True)
 
 
-def _bound(flop, nbytes):
-    """bound_ms and bound_by of a function doing `flop` FP32 operations
-    and moving `nbytes` compulsory bytes, at the H100 SXM peaks."""
-    t_ops, t_bytes = flop / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+def _bound(flop, nbytes, peak=PEAK_FP32):
+    """bound_ms and bound_by of a function doing `flop` operations at
+    `peak` (FP32 unless given) and moving `nbytes` compulsory bytes, at
+    the H100 SXM peaks."""
+    t_ops, t_bytes = flop / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
@@ -566,23 +593,26 @@ def _stager(stages, smi):
     return stage
 
 
+_COUNTS = {"dense": "dense_launches", "partial": "partial_launches",
+           "fma": "fma_launches", "svr": "svr_launches",
+           "tsne": "tsne_launches"}
+
+
 def _launches():
     from velocyto_tpu_torch import kernels
-    return {"dense": kernels.dense_launches,
-            "partial": kernels.partial_launches, "fma": kernels.fma_launches}
+    return {k: getattr(kernels, attr) for k, attr in _COUNTS.items()}
 
 
 def _uncounted(fn):
     """fn() with its kernel launches left out of the path's counts (the
     timing repeats of a call the path already made once)."""
     from velocyto_tpu_torch import kernels
-    saved = (kernels.dense_launches, kernels.partial_launches,
-             kernels.fma_launches)
+    saved = _launches()
     try:
         return fn()
     finally:
-        (kernels.dense_launches, kernels.partial_launches,
-         kernels.fma_launches) = saved
+        for k, attr in _COUNTS.items():
+            setattr(kernels, attr, saved[k])
 
 
 def _new_loom(S, U, genes):
@@ -681,14 +711,16 @@ def pipeline_phase(knn_random, smi):
     order_times = None
     if knn_random:
         # the dual form: main field and randomized control in one launch
-        assert launches == {"dense": 0, "partial": 1, "fma": 0} and \
+        assert launches == {"dense": 0, "partial": 1, "fma": 0, "svr": 0,
+                            "tsne": 0} and \
             transition_launches["partial"] == 1, launches
         _check_sampled_state(v)
         assert len(captured) == 1, len(captured)
         order_times = _uncounted(lambda: _order_timing(*captured[0], smi))
     else:
         # the dual form: main field and randomized control in one launch
-        assert launches == {"dense": 1, "partial": 0, "fma": 0} and \
+        assert launches == {"dense": 1, "partial": 0, "fma": 0, "svr": 0,
+                            "tsne": 0} and \
             transition_launches["dense"] == 1, launches
         corr = v._get_dev("corrcoef")           # diagonal already set to 0
         assert corr.shape == (CELLS, CELLS) and bool(torch.isfinite(corr).all())
@@ -886,9 +918,10 @@ def tutorial_phase(smi):
           f"memory {peak / 2**30:.2f} GiB", flush=True)
     # the session's dual sampled launch, the check chain's and
     # velocity_step's, and one launch of each shim
-    assert session_launches == {"dense": 0, "partial": 1, "fma": 0}, \
-        session_launches
-    assert launches == {"dense": 3, "partial": 6, "fma": 0}, launches
+    assert session_launches == {"dense": 0, "partial": 1, "fma": 0, "svr": 0,
+                                "tsne": 0}, session_launches
+    assert launches == {"dense": 3, "partial": 6, "fma": 0, "svr": 0,
+                        "tsne": 0}, launches
     return stages, session_total, launches, peak, shims, step_ms
 
 
@@ -1055,16 +1088,334 @@ def shims_phase(v, smi):
     return results
 
 
+def _svr_data(shape):
+    """(x, y, C, gamma) of a fit shaped like velocyto's two: log2 CV
+    against log2 mean of SVR_CV_N genes with gamma = 150 / n
+    (score_cv_vs_mean), or U totals against S totals of CELLS cells with
+    C = 100, gamma = 1e-6 (adjust_totS_totU); numpy-seeded."""
+    if shape == "cv":
+        rng = np.random.RandomState(41)
+        log_m = np.log2(rng.lognormal(0.0, 1.5, SVR_CV_N))
+        return (log_m, -0.5 * log_m + 0.4 * rng.randn(SVR_CV_N), 1.0,
+                150.0 / SVR_CV_N)
+    rng = np.random.RandomState(42)
+    tot_s = rng.gamma(5.0, 400.0, CELLS)
+    return tot_s, 0.3 * tot_s + 30.0 * rng.randn(CELLS), 100.0, 1e-6
+
+
+def _svr_model(x, alpha, rho, gamma):
+    """An ops.svr.SVR on the card holding the solution (alpha, rho) of a
+    fit on x."""
+    from velocyto_tpu_torch.ops.svr import SVR
+    n = x.numel()
+    coef = alpha[:n] - alpha[n:]
+    sv = torch.nonzero(coef.abs() > 0).flatten()
+    return SVR.from_numpy(x[sv].cpu().numpy(), coef[sv].cpu().numpy(),
+                          -float(rho), gamma, device=DEVICE)
+
+
+def svr_phase(smi):
+    """The SVR solver kernel against its plain version (the same libsvm
+    loop as float64 torch ops) on the card: a small fit, the CV fit at
+    SVR_CV_N genes and the totals fit at CELLS cells, the two shapes the
+    heuristic session gives it; then the per-iteration synchronisation
+    probe.  Returns the CV fit's numbers and the totals fit's."""
+    from velocyto_tpu_torch import kernels
+    from velocyto_tpu_torch.ops.svr import EPSILON, TOL, _smo_plain
+    phase("SVR solver kernel against plain, on the card")
+    kernels.svr_sync_probe(1)               # build and load first
+    torch.cuda.synchronize()
+    sync_ms = statistics.median(_time_ms(
+        lambda: kernels.svr_sync_probe(SVR_SYNC_REPS))[0] for _ in range(3))
+    sync_us = sync_ms / SVR_SYNC_REPS * 1e3
+    print(f"# svr sync probe on {smi}: {SVR_SYNC_REPS} rounds of two block "
+          f"reductions, the step on one thread and two barriers in "
+          f"{sync_ms!r} ms (median of 3, CUDA events): {sync_us!r} us per "
+          f"SMO iteration", flush=True)
+    res = {}
+    for tag, shape, n in (("small", "cv", 600), ("cv", "cv", SVR_CV_N),
+                          ("totals", "totals", CELLS)):
+        x_np, y_np, C, gamma = _svr_data(shape)
+        if n < len(x_np):
+            x_np, y_np = x_np[:n], y_np[:n]
+            gamma = 150.0 / n if shape == "cv" else gamma
+        x = torch.as_tensor(x_np, dtype=torch.float64, device=DEVICE)
+        y = torch.as_tensor(y_np, dtype=torch.float64, device=DEVICE)
+
+        def run():
+            return kernels.svr_smo(x, y, C, EPSILON, gamma, TOL)
+
+        first_ms, (alpha, rho, stats) = _time_ms(run)
+        it, sum_active, evals = (int(v) for v in stats.cpu())
+        t0 = time.perf_counter()
+        p_alpha, p_rho, p_it = _smo_plain(x, y, C, gamma)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = _svr_model(x, alpha, rho, gamma).predict(x)
+        want = _svr_model(x, p_alpha, p_rho, gamma).predict(x)
+        pred_err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        err = max(float((alpha - p_alpha).abs().max()),
+                  abs(float(rho) - p_rho))
+        same = bool(torch.equal(alpha, p_alpha)) and float(rho) == p_rho
+        ms = statistics.median([first_ms] + [_time_ms(run)[0]
+                                             for _ in range(2)])
+        # the latency floor: every iteration waits for the probe's chain
+        floor_ms = it * sync_us / 1e3
+        print(f"# svr {shape} n={n} C={C} gamma={gamma!r} on {smi}: kernel "
+              f"{ms!r} ms (median of 3, CUDA events), plain {plain_ms!r} ms "
+              f"(one call, host clock to a sync); iterations kernel {it} / "
+              f"plain {p_it}, mean active set {sum_active / max(1, it)!r}, "
+              f"{evals} kernel evaluations; alpha and rho bitwise equal: "
+              f"{same}; max |alpha, rho diff| {err!r}; max |prediction "
+              f"diff| {pred_err!r} of max |prediction| {scale!r}; latency "
+              f"floor {floor_ms!r} ms", flush=True)
+        if it != p_it:
+            print(f"# svr {shape}: iteration counts differ by {it - p_it}: "
+                  "the two float64 exp implementations rounded a kernel "
+                  "entry to different float32 values", flush=True)
+        assert abs(it - p_it) <= 0.01 * p_it, (it, p_it)
+        assert pred_err <= SVR_RTOL * scale, (pred_err, scale)
+        # FP64 work every SMO iteration needs over the active set, whatever
+        # a solver caches: columns i and j of Q (7 each: 6 arithmetic, the
+        # exp as one), the selection (6) and the G update (4); G_bar
+        # updates and gradient reconstructions left out.  x and y in,
+        # alpha out
+        res[tag] = {
+            "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "iterations": it, "latency_floor_ms": floor_ms,
+            **_bound(24 * sum_active, 2 * n * 8 + 2 * n * 8, PEAK_FP64)}
+    out = dict(res["cv"])
+    out.update(totals_ms=res["totals"]["ms"],
+               totals_iterations=res["totals"]["iterations"],
+               totals_plain_ms=res["totals"]["plain_ms"],
+               totals_bound_ms=res["totals"]["bound_ms"],
+               totals_latency_floor_ms=res["totals"]["latency_floor_ms"],
+               sync_us_per_iteration=sync_us)
+    return out
+
+
+def _clustered(rng, n, d):
+    """n points in d dimensions around N_CLUSTERS centres (a PCA space
+    with clusters) and their labels."""
+    centers = 4.0 * rng.randn(N_CLUSTERS, d)
+    labels = rng.randint(N_CLUSTERS, size=n)
+    return centers[labels] + rng.randn(n, d), labels
+
+
+def tsne_phase(smi):
+    """The t-SNE gradient kernel against the dense plain gradient at
+    CELLS points on the card, then a 1,000-iteration t-SNE timed."""
+    from velocyto_tpu_torch import kernels
+    from velocyto_tpu_torch.ops import tsne as tt
+    phase(f"t-SNE gradient kernel against plain, {CELLS} points, on the card")
+    rng = np.random.RandomState(51)
+    X, _labels = _clustered(rng, CELLS, TSNE_PCS)
+    x = torch.as_tensor(X, device=DEVICE)
+    t0 = time.perf_counter()
+    P = tt.joint_probabilities_nn(x, TSNE_PERPLEXITY)
+    torch.cuda.synchronize()
+    p_s = time.perf_counter() - t0
+    pval = P.data.to(torch.float32)
+    nnz = P.indices.numel()
+    worst = 0.0
+    for scale in (1e-4, 1.0, 30.0):      # the start, mid-run, spread out
+        y = torch.as_tensor((scale * rng.randn(CELLS, 2)).astype(np.float32),
+                            device=DEVICE)
+        got, err = kernels.tsne_grad(y, P.indptr, P.indices32, pval, True)
+        torch.cuda.synchronize()
+        want, want_err = tt._tsne_grad_plain(y, P, pval, 1, True)
+        diff = (got - want).abs()
+        top = float(want.abs().max())
+        atol = min(TSNE_ATOL, TSNE_ATOL_REL * top)
+        ok = bool(torch.all(diff <= atol + TSNE_RTOL * want.abs()))
+        err_rel = abs(float(err) - want_err) / abs(want_err)
+        worst = max(worst, float(diff.max()))
+        print(f"# check tsne_grad n={CELLS} nnz={nnz} scale={scale}: "
+              f"max_abs_err={float(diff.max())!r} (max |grad| {top!r}, "
+              f"atol {atol!r}) ok={ok}; KL {float(err)!r} vs plain "
+              f"{want_err!r} (rel {err_rel!r})", flush=True)
+        assert ok and err_rel <= TSNE_RTOL, "t-SNE kernel disagrees"
+    reps = 20
+
+    def kernel_reps():
+        for _ in range(reps):
+            kernels.tsne_grad(y, P.indptr, P.indices32, pval, False)
+
+    ms = statistics.median(_time_ms(kernel_reps)[0] for _ in range(3)) / reps
+    plain_ms = statistics.median(_time_ms(
+        lambda: tt._tsne_grad_plain(y, P, pval, 1, False))[0]
+        for _ in range(3))
+    pairs = CELLS * CELLS
+    print(f"# time tsne_grad n={CELLS} on {smi}: kernel {ms!r} ms (median "
+          f"of 3 x {reps} calls, CUDA events), plain {plain_ms!r} ms "
+          f"(median of 3); {pairs / ms / 1e6!r} G pairs/s; P (kNN, "
+          f"perplexity search, symmetrisation) {p_s:.3f} s", flush=True)
+    _print_sfu_floor("tsne_grad", pairs)
+    hist = []
+    np.random.seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb, kl, last = tt.tsne(x, perplexity=TSNE_PERPLEXITY, device=DEVICE,
+                            history=hist)
+    secs = time.perf_counter() - t0
+    print(f"# t-SNE n={CELLS} d={TSNE_PCS} perplexity={TSNE_PERPLEXITY}: "
+          f"{last + 1} iterations in {secs:.3f} s on {smi} (host clock, P "
+          f"and the start included); KL at each check {hist}", flush=True)
+    assert np.isfinite(emb).all() and np.isfinite(hist).all(), "t-SNE"
+    assert len(hist) > 5 and hist[-1] < hist[4], \
+        "KL did not fall after the exploration stage"
+    # per pair: 2 sub, 3 for d^2, 1 add, 1 rcp, 1 mul, 2 FMA (4), 1 add;
+    # positions and the CSR of P in, the gradient out
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": worst,
+            "tsne_s": secs, "tsne_iterations": last + 1,
+            **_bound(13 * pairs, CELLS * 8 * 2 + (CELLS + 1) * 8 + nnz * 8)}
+
+
+def _heuristic_data():
+    """synth at GENES genes plus BG_GENES background genes (Poisson at
+    lognormal rates, enough counts to pass the detection filter, drawn
+    in bulk on the device from a seeded generator), the cells labelled
+    by their dominant latent factor; returns (S, U, labels, colour
+    dict)."""
+    rng = np.random.RandomState(4)
+    S, U, _gamma_true, zl = synth(rng, CELLS, GENES)
+    rate = torch.as_tensor(np.clip(rng.lognormal(-3.0, 1.0, BG_GENES), 0.004,
+                                   None)[:, None], dtype=torch.float32,
+                           device=DEVICE).expand(BG_GENES, CELLS)
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    S = np.concatenate([S, torch.poisson(rate, generator=gen).cpu().numpy()])
+    U = np.concatenate([U, torch.poisson(0.3 * rate + 0.01,
+                                         generator=gen).cpu().numpy()])
+    labels = np.array([f"cl{i:02d}" for i in zl.argmax(1)], dtype=object)
+    colors = {f"cl{i:02d}": [i / N_CLUSTERS, 0.5, 1 - i / N_CLUSTERS]
+              for i in range(N_CLUSTERS)}
+    return S, U, labels, colors
+
+
+def _label_agreement(points, labels, k=15):
+    """The mean share of each cell's k nearest neighbours in `points`
+    that carry its label."""
+    from velocyto_tpu_torch.ops import knn_device as kd
+    _d, idx = kd.knn_search_dev(np.ascontiguousarray(points, np.float64),
+                                k + 1, device=DEVICE)
+    lab = torch.as_tensor(np.unique(labels, return_inverse=True)[1],
+                          device=idx.device)
+    return float((lab[idx[:, 1:]] == lab[:, None]).float().mean())
+
+
+def heuristic_phase(smi):
+    """The reference's heuristic session through the VelocytoLoom entry
+    points, with the launch counts set to 0 just before; returns (stage
+    seconds, total, launch counts, peak device memory)."""
+    from velocyto_tpu_torch import analysis, kernels
+    genes = GENES + BG_GENES
+    phase(f"heuristic session, {CELLS} cells x {genes} raw genes")
+    t0 = time.perf_counter()
+    S, U, labels, colors = _heuristic_data()
+    print(f"# synthesize: {time.perf_counter() - t0:.3f} s host, on {smi}",
+          flush=True)
+    v = _new_loom(S, U, genes)
+    del S, U
+    v.set_clusters(labels, cluster_colors_dict=colors)
+    n_cv = max(1000, min(int((CELLS / 1000) ** (1 / 3) / 0.0008), 5000))
+    fits = []
+    base_svr = analysis.SVR
+
+    class _Recorded(base_svr):
+        # what each fit of the session saw, for the checks
+        def fit(self, X, y):
+            out = super().fit(X, y)
+            fits.append((len(X), self.n_iter_, len(self.support_)))
+            return out
+
+    stages, counts = {}, {}
+    stage = _stager(stages, smi)
+
+    def _filter_and_norm():
+        analysis.SVR = _Recorded
+        try:
+            v.default_filter_and_norm()
+        finally:
+            analysis.SVR = base_svr
+        counts["kept"] = v.S.shape[0]
+
+    def _vel():
+        v.predict_U()
+        v.calculate_velocity()
+        v.calculate_shift(assumption="constant_velocity")
+        v.extrapolate_cell_at_t(delta_t=1.)
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()              # count this path's launches only
+    t_all = time.perf_counter()
+    stage("filter_and_norm", _filter_and_norm)
+    stage("fit_preparation", v.default_fit_preparation)
+    stage("fit_gammas", v.fit_gammas)
+    stage("velocity", _vel)
+    stage("tsne", lambda: v.perform_TSNE(n_pca_dim=TSNE_PCS))
+    stage("transition_prob", lambda: v.estimate_transition_prob(
+        hidim="Sx_sz", embed="ts", transform="sqrt", knn_random=True,
+        n_neighbors=N_NEIGHBORS, sampled_fraction=SAMPLED_FRACTION))
+    stage("embedding_shift", lambda: v.calculate_embedding_shift(
+        sigma_corr=0.05))
+    stage("grid_arrows", lambda: v.calculate_grid_arrows(
+        smooth=0.5, steps=(40, 40), n_neighbors=100))
+    total = time.perf_counter() - t_all
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"# heuristic session total: {total:.3f} s on {smi}; SVR fits "
+          f"(points, iterations, support vectors) {fits}; genes kept "
+          f"{counts['kept']}; kernel launches {launches}; peak device "
+          f"memory {peak / 2**30:.2f} GiB", flush=True)
+
+    phase("checks, heuristic session")
+    kept = np.array([int(g[1:]) for g in v.ra["Gene"]])
+    n_expressed = int((kept < GENES).sum())
+    print(f"# genes kept {len(kept)}, of them {n_expressed} of the {GENES} "
+          f"expressed ones; CV-vs-mean selection "
+          f"{int(v.cv_mean_selected.sum())} for N={n_cv}", flush=True)
+    assert len(fits) == 2 and fits[0][0] >= SVR_CV_MIN and \
+        fits[1][0] == CELLS, fits
+    assert launches["svr"] == 2 and launches["partial"] == 1 and \
+        launches["dense"] == 0 and launches["fma"] == 0, launches
+    # two launches per gradient, one gradient per t-SNE iteration
+    assert 500 < launches["tsne"] <= 2000 and launches["tsne"] % 2 == 0, \
+        launches
+    # the reference keeps score >= the (N+1)-th largest score: N + 1 genes
+    # and any that tie with it (Poisson genes can share mean and CV)
+    score, sel = v.cv_mean_score, v.cv_mean_selected
+    cut = np.sort(score)[::-1][n_cv]
+    n_above, n_sel = int((score > cut).sum()), int(sel.sum())
+    print(f"# CV-vs-mean cut: {n_above} genes above the (N+1)-th score, "
+          f"{n_sel - n_above} at it", flush=True)
+    assert n_above <= n_cv < n_sel and np.array_equal(sel, score >= cut) \
+        and score[sel].min() > score[~sel].max(), (n_above, n_sel, n_cv)
+    # the CV ranking keeps a larger share of the overdispersed (expressed)
+    # genes than of the Poisson background
+    assert n_expressed / GENES > (len(kept) - n_expressed) / BG_GENES and \
+        len(kept) <= n_sel, (n_expressed, len(kept))
+    assert v.ts.shape == (CELLS, 2) and np.all(np.isfinite(v.ts)), "ts"
+    for name in ("delta_embedding", "delta_embedding_random", "flow"):
+        assert np.all(np.isfinite(getattr(v, name))), f"{name} not finite"
+    on_ts = _label_agreement(v.ts, v.cluster_labels)
+    on_pcs = _label_agreement(v.pcs[:, :2], v.cluster_labels)
+    print(f"# cluster separation: 15-NN label agreement {on_ts!r} on ts, "
+          f"{on_pcs!r} on pcs[:, :2]", flush=True)
+    assert on_ts >= on_pcs, (on_ts, on_pcs)
+    return stages, total, launches, peak
+
+
 def bench_phase():
     from velocyto_tpu_torch import bench, kernels
     phase("kernel bench (python3 -m velocyto_tpu_torch.bench)")
     kernels.reset_counts()              # count this path's launches only
     result = bench.main()
-    launches = {"dense": kernels.dense_launches,
-                "partial": kernels.partial_launches,
-                "fma": kernels.fma_launches}
+    launches = _launches()
     print(f"# bench launches {launches}", flush=True)
-    assert all(launches.values()), f"a bench kernel never ran: {launches}"
+    assert launches["dense"] and launches["partial"] and launches["fma"] \
+        and not launches["svr"] and not launches["tsne"], \
+        f"a bench kernel never ran: {launches}"
     for key in ("value", "large_n_cells_per_sec", "dense_kernel_tflops_f32",
                 "fma_ceiling_tflops_f32"):
         assert np.isfinite(result[key]) and result[key] > 0, key
@@ -1079,6 +1430,10 @@ def main():
     cross_check_phase()
     sampler_phase()
     fma = fma_phase(smi)
+    svr = svr_phase(smi)
+    torch.cuda.empty_cache()
+    tsne = tsne_phase(smi)
+    torch.cuda.empty_cache()
     stages_full, total_full, launches_full, peak_full, _ = \
         pipeline_phase(knn_random=False, smi=smi)
     torch.cuda.empty_cache()
@@ -1088,6 +1443,8 @@ def main():
     torch.cuda.empty_cache()
     stages_tut, total_tut, launches_tut, peak_tut, shims, step_ms = \
         tutorial_phase(smi)
+    torch.cuda.empty_cache()
+    stages_heur, total_heur, launches_heur, peak_heur = heuristic_phase(smi)
     print(json.dumps({"card": smi, "pipeline_full_s": total_full,
                       "stages_full_s": stages_full,
                       "peak_full_gib": peak_full / 2**30,
@@ -1098,7 +1455,16 @@ def main():
                       "stages_tutorial_s": stages_tut,
                       "peak_tutorial_gib": peak_tut / 2**30,
                       "velocity_step_ms": step_ms,
-                      "shims_ms_plain_ms_err": shims}))
+                      "shims_ms_plain_ms_err": shims,
+                      "heuristic_session_s": total_heur,
+                      "stages_heuristic_s": stages_heur,
+                      "peak_heuristic_gib": peak_heur / 2**30,
+                      "svr_totals_ms": svr["totals_ms"],
+                      "svr_totals_iterations": svr["totals_iterations"],
+                      "svr_cv_iterations": svr["iterations"],
+                      "svr_sync_us_per_iteration":
+                          svr["sync_us_per_iteration"],
+                      "tsne_1000_iterations_s": tsne["tsne_s"]}))
     # launches: each kernel's count summed over the paths that run it;
     # ms / plain_ms: the kernel and its plain version on the same inputs
     # (dense: one field; sampled: the dual call on uniform indices), with
@@ -1116,7 +1482,8 @@ def main():
         {"name": "coldeltacor_partial", "route": "cuda",
          "source": "velocyto_tpu_torch/kernels/coldeltacor_partial.cu",
          "replaces": "velocyto_tpu/ops/coldeltacor.py:260",
-         "launches": launches_samp["partial"] + launches_tut["partial"],
+         "launches": launches_samp["partial"] + launches_tut["partial"]
+         + launches_heur["partial"],
          "max_abs_err": sampled["max_abs_err"], "ms": sampled["ms"],
          "plain_ms": sampled["plain_ms"], "bound_ms": sampled["bound_ms"],
          "bound_by": sampled["bound_by"], "library_ms": None,
@@ -1128,7 +1495,26 @@ def main():
          "launches": launches_bench["fma"],
          "max_abs_err": fma["max_abs_err"], "ms": fma["ms"],
          "plain_ms": fma["plain_ms"], "bound_ms": fma["bound_ms"],
-         "bound_by": fma["bound_by"], "library_ms": None}]}))
+         "bound_by": fma["bound_by"], "library_ms": None},
+        {"name": "svr_smo", "route": "cuda",
+         "source": "velocyto_tpu_torch/kernels/svr_smo.cu",
+         "replaces": "velocyto_tpu/analysis.py:331",
+         "launches": launches_heur["svr"],
+         "max_abs_err": svr["max_abs_err"], "ms": svr["ms"],
+         "plain_ms": svr["plain_ms"], "bound_ms": svr["bound_ms"],
+         "bound_by": svr["bound_by"], "library_ms": None,
+         "latency_floor_ms": svr["latency_floor_ms"],
+         "totals_ms": svr["totals_ms"],
+         "totals_plain_ms": svr["totals_plain_ms"],
+         "totals_bound_ms": svr["totals_bound_ms"],
+         "totals_latency_floor_ms": svr["totals_latency_floor_ms"]},
+        {"name": "tsne_grad", "route": "cuda",
+         "source": "velocyto_tpu_torch/kernels/tsne_grad.cu",
+         "replaces": "velocyto_tpu/analysis.py:1070",
+         "launches": launches_heur["tsne"],
+         "max_abs_err": tsne["max_abs_err"], "ms": tsne["ms"],
+         "plain_ms": tsne["plain_ms"], "bound_ms": tsne["bound_ms"],
+         "bound_by": tsne["bound_by"], "library_ms": None}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

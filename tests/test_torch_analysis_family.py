@@ -6,7 +6,10 @@ package and the reference goldens.
 Inputs: tests/golden/golden.npz, fed to both packages with the same
 calls (test_golden.py's for the goldens).  Tolerances: host float64
 stages (scores, masks, filters, the raw-count normalizations) are
-bit-equal, since both packages run the same numpy; device stages
+bit-equal, since both packages run the same numpy; what the SVR noise
+models feed (cv_mean_score, the adjusted U_sz) agrees to SVR_TOL, since
+the port's SVR follows libsvm's solver to the same dual coefficients and
+differs only in the order of the float64 prediction sums; device stages
 (the imputed normalizations, float64 sums in another order) agree to
 1e-5 relative; gamma fits rtol 1e-4 / atol 1e-5 (float32 closed forms on
 both sides); smoothings 1e-4 (float32 sums in another order); goldens at
@@ -24,6 +27,7 @@ from test_torch_pipeline import CPU, _fresh, _front
 
 GAMMA_TOL = dict(rtol=1e-4, atol=1e-5)
 DEV_TOL = dict(rtol=1e-5, atol=1e-12)
+SVR_TOL = dict(rtol=1e-9, atol=1e-12)
 
 
 @pytest.fixture(scope="module")
@@ -98,7 +102,10 @@ def test_filtering_family_matches_golden_and_jax(family, golden, name, rtol,
                                                  atol):
     got = family["port"][name]
     np.testing.assert_allclose(got, golden[name], rtol=rtol, atol=atol)
-    np.testing.assert_array_equal(got, family["jax"][name])
+    if name == "cv_mean_score":         # the port's own SVR
+        np.testing.assert_allclose(got, family["jax"][name], **SVR_TOL)
+    else:
+        np.testing.assert_array_equal(got, family["jax"][name])
 
 
 def test_filtered_genes_match_golden_and_jax(family, golden):
@@ -488,18 +495,39 @@ def test_default_filter_and_fit_preparation_match_jax(golden):
         vs.append(v)
     jax_v, port = vs
     assert list(port.ra["Gene"]) == list(jax_v.ra["Gene"])
-    for name in ("S_sz", "U_sz", "cv_mean_score", "small_U_pop"):
+    for name in ("S_sz", "small_U_pop"):
         np.testing.assert_array_equal(getattr(port, name),
                                       getattr(jax_v, name), err_msg=name)
+    for name in ("U_sz", "cv_mean_score"):      # through the port's SVR
+        np.testing.assert_allclose(getattr(port, name), getattr(jax_v, name),
+                                   err_msg=name, **SVR_TOL)
     for name in ("Sx", "Sx_sz", "Ux_sz"):
         np.testing.assert_allclose(getattr(port, name), getattr(jax_v, name),
                                    rtol=1e-4, atol=1e-4, err_msg=name)
 
 
 def test_perform_TSNE_matches_jax(smoothed):
+    """The port's t-SNE (exact gradient) against the JAX package's
+    (sklearn's Barnes-Hut, angle 0.5) from the same numpy seed: the same
+    start and numpy RNG state afterwards, and a final KL (the exact
+    objective of each embedding, under the port's P, which equals
+    sklearn's to 1e-15) no worse than 1.02 x the JAX package's.  The
+    coordinates are not compared: the JAX package's result is an
+    approximate optimum of an unseeded Barnes-Hut descent."""
+    from velocyto_tpu_torch.ops import tsne as tt
     jax_v, port = smoothed
     port.pcs = np.array(jax_v.pcs)
+    states = []
     for v in (jax_v, port):
         np.random.seed(0)
-        v.perform_TSNE(perplexity=10, n_pca_dim=5, max_iter=250)
-    np.testing.assert_array_equal(port.ts, jax_v.ts)
+        v.perform_TSNE(perplexity=10, n_pca_dim=5, max_iter=1000)
+        states.append(np.random.get_state())
+    for a, b in zip(*states):
+        np.testing.assert_array_equal(a, b)
+    assert port.ts.shape == jax_v.ts.shape == (120, 2)
+    assert port.ts.dtype == jax_v.ts.dtype == np.float32
+    P = tt.joint_probabilities_nn(torch.as_tensor(port.pcs[:, :5]), 10)
+    kl = {tag: tt._tsne_grad_plain(torch.as_tensor(v.ts), P, P.data.float(),
+                                   1, True)[1]
+          for tag, v in (("jax", jax_v), ("port", port))}
+    assert np.isfinite(kl["port"]) and kl["port"] <= 1.02 * kl["jax"], kl

@@ -94,7 +94,8 @@ def test_kernels_import_without_cuda():
     assert kernels.dense_launches == 0
     assert kernels._lib is None
     assert [s.name for s in kernels.SOURCES] == [
-        "coldeltacor_dense.cu", "coldeltacor_partial.cu", "fma_probe.cu"]
+        "coldeltacor_dense.cu", "coldeltacor_partial.cu", "fma_probe.cu",
+        "svr_smo.cu", "tsne_grad.cu"]
     e = torch.zeros((4, 3))
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.coldeltacor_dense(e, e, 0, 0.0)
@@ -110,6 +111,13 @@ def test_kernels_import_without_cuda():
             d_ctr2=e, order=torch.arange(4, dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.fma_probe(e)
+    x = torch.zeros(4, dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.svr_smo(x, x, 1.0, 0.1, 1.0, 1e-3)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.tsne_grad(torch.zeros((4, 2)), torch.zeros(5, dtype=torch.int64),
+                          torch.zeros(0, dtype=torch.int32), torch.zeros(0))
     assert kernels.dense_launches == kernels.partial_launches == \
-        kernels.fma_launches == 0
+        kernels.fma_launches == kernels.svr_launches == \
+        kernels.tsne_launches == 0
     assert kernels._lib is None

@@ -19,9 +19,11 @@ kernels on a CUDA device (ops/coldeltacor.py).  Host stages (the
 filter/score family and the raw-count normalizations in float64, PCA,
 the greedy kNN balance, the randomized-control permutation, the
 neighbour-sampling replay and the grid field) stay numpy/scipy/C++, as in
-the JAX package.  score_cv_vs_mean, adjust_totS_totU and perform_TSNE
-import sklearn when called, and set_clusters without colours imports
-matplotlib, as the JAX package does.
+the JAX package.  The two SVR noise models (score_cv_vs_mean,
+adjust_totS_totU) and perform_TSNE run on the object's device through
+the port's own ops/svr.py and ops/tsne.py (hand CUDA kernels for the SMO
+loop and the t-SNE gradient), without sklearn; set_clusters without
+colours imports matplotlib, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -50,6 +52,8 @@ from .ops.knn import (BalancedKNN, _knn_query_impl, full_f32,
 from .ops.pca import PCA
 from .ops.smoothing import (connectivity_to_weights,
                             convolve_by_sparse_weights_dev)
+from .ops.svr import SVR
+from .ops.tsne import tsne
 
 _F32, _F64 = torch.float32, torch.float64
 
@@ -281,11 +285,10 @@ class VelocytoLoom:
                          plot: bool = False) -> None:
         """CV-vs-mean SVR noise model ranking (reference :213-342).
 
-        The SVR is sklearn's, imported here (ImportError without it); the
-        moments are numpy.  plot=True is not ported (plotting is not)."""
+        The moments are host numpy; the SVR (ops/svr.py, libsvm's solver)
+        fits on self.device.  plot=True is not ported (plotting is not)."""
         if plot:
             raise NotImplementedError("plotting is not ported")
-        from sklearn.svm import SVR
         M = self.S if which == "S" else self.U
         if winsorize:
             if min_expr_cells <= ((100 - winsor_perc[1]) * M.shape[1] * 0.01):
@@ -310,9 +313,10 @@ class VelocytoLoom:
 
         if svr_gamma is None:
             svr_gamma = 150.0 / len(mu)
-        clf = SVR(gamma=svr_gamma)
-        clf.fit(log_m[:, None], log_cv)
-        ff = clf.predict(log_m[:, None])
+        x = torch.as_tensor(log_m, dtype=_F64, device=self.device)
+        clf = SVR(gamma=svr_gamma, device=self.device)
+        clf.fit(x, torch.as_tensor(log_cv, dtype=_F64, device=self.device))
+        ff = clf.predict(x).cpu().numpy()
         score = log_cv - ff
         if sort_inverse:
             score = -score
@@ -614,21 +618,24 @@ class VelocytoLoom:
                          fit_with_low_U: bool = True,
                          svr_C: float = 100, svr_gamma: float = 1e-6,
                          plot: bool = False) -> None:
-        """SVR-based U rescaling vs S totals (reference :817-867); the SVR
-        is sklearn's, imported here.  U_sz is a host array, edited in
-        place as in the JAX package; the next stage that reads it uploads
-        the edited values."""
-        from sklearn.svm import SVR
-        svr = SVR(C=svr_C, kernel="rbf", gamma=svr_gamma)
+        """SVR-based U rescaling vs S totals (reference :817-867); the
+        totals are host sums, the SVR (ops/svr.py) fits on self.device.
+        U_sz is a host array, edited in place as in the JAX package; the
+        next stage that reads it uploads the edited values."""
+        svr = SVR(C=svr_C, gamma=svr_gamma, device=self.device)
         X, y = self.S_sz.sum(0), self.U_sz.sum(0)
+
+        def dev(a):
+            return torch.as_tensor(a, dtype=_F64, device=self.device)
+
         if fit_with_low_U:
-            svr.fit(X[:, None], y)
-            predicted = svr.predict(X[:, None])
+            svr.fit(dev(X), dev(y))
+            predicted = svr.predict(dev(X)).cpu().numpy()
         else:
-            svr.fit(X[~self.small_U_pop, None], y[~self.small_U_pop])
+            svr.fit(dev(X[~self.small_U_pop]), dev(y[~self.small_U_pop]))
             predicted = np.copy(y)
             predicted[~self.small_U_pop] = svr.predict(
-                X[~self.small_U_pop, None])
+                dev(X[~self.small_U_pop])).cpu().numpy()
         adj_factor = predicted / y
         adj_factor[~np.isfinite(adj_factor)] = 1
         if skip_low_U_pop:
@@ -1046,14 +1053,14 @@ class VelocytoLoom:
                      initial_pos: Optional[np.ndarray] = None,
                      theta: float = 0.5, n_pca_dim: Optional[int] = None,
                      max_iter: int = 1000) -> None:
-        """Barnes-Hut TSNE on the PCA space (reference :1441-1450); sklearn's,
-        imported here, exactly as the JAX package calls it."""
-        from sklearn.manifold import TSNE
-        if initial_pos is None:
-            initial_pos = "random"
-        bh_tsne = TSNE(n_components=n_dims, perplexity=perplexity,
-                       angle=theta, init=initial_pos, max_iter=max_iter)
-        self.ts = bh_tsne.fit_transform(self.pcs[:, :n_pca_dim])
+        """t-SNE of the PCA space (reference :1441-1450) on self.device
+        (ops/tsne.py): sklearn's TSNE as the JAX package calls it, with
+        the exact gradient in place of Barnes-Hut, so ``theta`` is not
+        used.  Without initial_pos the start is drawn from numpy's global
+        RNG as sklearn draws it.  Sets ``ts``, (cells, n_dims) float32."""
+        self.ts = tsne(self.pcs[:, :n_pca_dim], n_components=n_dims,
+                       perplexity=perplexity, init=initial_pos,
+                       max_iter=max_iter, device=self.device)[0]
 
     # ------------------------------------------------------------------
     # velocity -> embedding projection (reference :1452-1816)
@@ -1605,7 +1612,8 @@ class VelocytoLoom:
                                 min_avg_U: Optional[float] = None,
                                 min_avg_S: Optional[float] = None) -> None:
         """Heuristic filtering + normalization (reference :1889-1940);
-        needs sklearn (score_cv_vs_mean, adjust_totS_totU)."""
+        its two SVR fits (score_cv_vs_mean, adjust_totS_totU) run on
+        self.device."""
         if min_expr_counts is None:
             min_expr_counts = max(20, min(100, self.S.shape[1] * 2.25e-3))
         if min_cells_express is None:

@@ -12,9 +12,15 @@ module that calls it and serves CPU tensors there:
   coldeltacor_dense    ops/coldeltacor.py::_col_delta_cor_dense_plain
   coldeltacor_partial  ops/coldeltacor.py::_col_delta_cor_partial_plain
   fma_probe            bench.py::_fma_plain
+  svr_smo              ops/svr.py::_smo_plain
+  tsne_grad            ops/tsne.py::_tsne_grad_plain
 
-``dense_launches``, ``partial_launches`` and ``fma_launches`` count each
-kernel's launches, so a run can show that its main path went through it.
+``dense_launches``, ``partial_launches``, ``fma_launches``,
+``svr_launches`` and ``tsne_launches`` count each kernel's launches (a
+``tsne_grad`` call, one gradient, adds two: the all-pairs pass and the
+finish), so a run can show that its main path went through it.
+``svr_sync_probe`` is a measurement probe beside the SVR solver, not a
+path kernel, and has no count.
 """
 from __future__ import annotations
 
@@ -35,17 +41,26 @@ HEADERS = sorted(_HERE.glob("*.cuh"))
 dense_launches = 0      # launches of the dense colDeltaCor kernel
 partial_launches = 0    # launches of the sampled colDeltaCor kernel
 fma_launches = 0        # launches of the FMA-chain probe
+svr_launches = 0        # launches of the SVR solver (one per fit)
+tsne_launches = 0       # launches of the t-SNE gradient (two per call)
 build_log = ""          # nvcc's output (-Xptxas -v) from the last build
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# source stem -> (exported C function, its argtypes)
+_P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_double
+# name -> (source stem, exported C function, its argtypes)
 _SIGNATURES = {
-    "coldeltacor_dense": ("vtt_coldeltacor_dense",
+    "coldeltacor_dense": ("coldeltacor_dense", "vtt_coldeltacor_dense",
                           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
-    "coldeltacor_partial": ("vtt_coldeltacor_partial",
+    "coldeltacor_partial": ("coldeltacor_partial", "vtt_coldeltacor_partial",
                             [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _F, _P]),
-    "fma_probe": ("vtt_fma_probe", [_P, _P, ctypes.c_int64, _P]),
+    "fma_probe": ("fma_probe", "vtt_fma_probe",
+                  [_P, _P, ctypes.c_int64, _P]),
+    "svr_smo": ("svr_smo", "vtt_svr_smo",
+                [_P] * 15 + [_I, _D, _D, _D, _D, _P]),
+    "svr_sync_probe": ("svr_smo", "vtt_svr_sync_probe", [_I, _P, _P]),
+    "tsne_grad": ("tsne_grad", "vtt_tsne_grad",
+                  [_P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P]),
 }
 
 _lib: Optional[Dict[str, Any]] = None   # ctypes functions, on first use
@@ -99,18 +114,18 @@ def build() -> Dict[str, Path]:
     return libs
 
 
-def _fn(stem: str):
+def _fn(name: str):
     global _lib
     if _lib is None:
         paths = build()
         fns = {}
-        for name, (symbol, argtypes) in _SIGNATURES.items():
-            fn = getattr(ctypes.CDLL(str(paths[name])), symbol)
+        for fname, (stem, symbol, argtypes) in _SIGNATURES.items():
+            fn = getattr(ctypes.CDLL(str(paths[stem])), symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            fns[name] = fn
+            fns[fname] = fn
         _lib = fns
-    return _lib[stem]
+    return _lib[name]
 
 
 def _check(name: str, t: torch.Tensor, dtypes=(torch.float32,),
@@ -132,12 +147,12 @@ def _check_same_device(**tensors: torch.Tensor) -> None:
         raise ValueError(f"{', '.join(tensors)} must be on one device")
 
 
-def _launch(stem: str, device: torch.device, *args) -> None:
+def _launch(name: str, device: torch.device, *args) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _fn(stem)(*args, stream)
+        rc = _fn(name)(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"{stem} launch failed: cudaError {rc}")
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
 
 def coldeltacor_dense(emat: torch.Tensor, dmat: torch.Tensor,
@@ -253,7 +268,99 @@ def fma_probe(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def svr_smo(x: torch.Tensor, target: torch.Tensor, C: float,
+            epsilon: float, gamma: float, tol: float
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """libsvm's epsilon-SVR solve (RBF kernel, one feature, shrinking, no
+    iteration cap) on the card in one launch: x, target (l,) float64
+    CUDA tensors -> (alpha (2l,) float64 in original order, rho (1,)
+    float64, stats (3,) int64 = iterations, sum of the active-set sizes
+    over them, kernel evaluations).  Launches on the current stream and
+    does not synchronise."""
+    global svr_launches
+    _check("x", x, (torch.float64,), dim=1)
+    _check("target", target, (torch.float64,), dim=1)
+    _check_same_device(x=x, target=target)
+    l = x.numel()
+    if target.numel() != l or l < 1 or l > 2 ** 29:
+        raise ValueError(f"unsupported shapes: x {tuple(x.shape)}, target "
+                         f"{tuple(target.shape)}")
+    dev, n2 = x.device, 2 * l
+    work = {name: torch.empty(n2, dtype=dt, device=dev) for name, dt in (
+        ("G", torch.float64), ("Gbar", torch.float64),
+        ("alpha", torch.float64), ("p", torch.float64), ("xs", torch.float64),
+        ("flags", torch.uint8), ("aset", torch.int32), ("qi", torch.float32),
+        ("posL", torch.int32), ("posR", torch.int32))}
+    alpha = torch.empty(n2, dtype=torch.float64, device=dev)
+    rho = torch.empty(1, dtype=torch.float64, device=dev)
+    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    _launch("svr_smo", dev, x.data_ptr(), target.data_ptr(),
+            *(t.data_ptr() for t in work.values()), alpha.data_ptr(),
+            rho.data_ptr(), stats.data_ptr(), l, float(C), float(epsilon),
+            float(gamma), float(tol))
+    svr_launches += 1
+    return alpha, rho, stats
+
+
+def svr_sync_probe(reps: int, device: Union[str, torch.device] = "cuda"
+                   ) -> torch.Tensor:
+    """Run `reps` rounds of the SVR solver's per-iteration synchronisation
+    (two block reductions, the step on one thread, two barriers) in one
+    block of the solver's size, with no pass over any variables; returns
+    a (1,) float64 tensor.  Timed, it gives the latency floor of one SMO
+    iteration of ``svr_smo``.  A measurement probe, not counted.
+    Launches on the current stream and does not synchronise."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"svr_sync_probe runs on a CUDA device, got {device}")
+    if reps < 1:
+        raise ValueError(f"reps must be >= 1, got {reps}")
+    out = torch.empty(1, dtype=torch.float64, device=device)
+    _launch("svr_sync_probe", device, int(reps), out.data_ptr())
+    return out
+
+
+_TSNE_ROWS, _TSNE_SPLITS, _TSNE_FINISH = 128, 8, 256   # kRows, kSplits, kFinish
+
+
+def tsne_grad(y: torch.Tensor, indptr: torch.Tensor, indices: torch.Tensor,
+              pval: torch.Tensor, compute_error: bool = False
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Exact t-SNE gradient (one degree of freedom) on the card: y (n, 2)
+    float32, the CSR of P (indptr (n+1,) int64, indices int32, pval
+    float32) -> (grad (n, 2) float32, the KL error as a (1,) float64
+    tensor, or None without compute_error).  Two launches on the current
+    stream, no synchronisation."""
+    global tsne_launches
+    _check("y", y)
+    _check("indptr", indptr, (torch.int64,), dim=1)
+    _check("indices", indices, (torch.int32,), dim=1)
+    _check("pval", pval, dim=1)
+    _check_same_device(y=y, indptr=indptr, indices=indices, pval=pval)
+    n = y.shape[0]
+    if y.shape[1] != 2 or n < 2 or n >= 2 ** 31 // _TSNE_SPLITS or \
+            indptr.numel() != n + 1 or indices.numel() != pval.numel():
+        raise ValueError(f"unsupported shapes: y {tuple(y.shape)}, indptr "
+                         f"{tuple(indptr.shape)}, indices "
+                         f"{tuple(indices.shape)}, pval {tuple(pval.shape)}")
+    dev = y.device
+    row_blocks = -(-n // _TSNE_ROWS)
+    rep = torch.empty((n, _TSNE_SPLITS, 2), dtype=torch.float64, device=dev)
+    zpart = torch.empty(row_blocks * _TSNE_SPLITS, dtype=torch.float64,
+                        device=dev)
+    grad = torch.empty_like(y)
+    err = torch.empty(-(-n // _TSNE_FINISH), dtype=torch.float64, device=dev)
+    _launch("tsne_grad", dev, y.data_ptr(), n, indptr.data_ptr(),
+            indices.data_ptr(), pval.data_ptr(), rep.data_ptr(),
+            zpart.data_ptr(), int(bool(compute_error)), grad.data_ptr(),
+            err.data_ptr())
+    tsne_launches += 2
+    return grad, (err.sum().reshape(1) if compute_error else None)
+
+
 def reset_counts() -> None:
     """Set every launch count to 0."""
-    global dense_launches, partial_launches, fma_launches
-    dense_launches = partial_launches = fma_launches = 0
+    global dense_launches, partial_launches, fma_launches, svr_launches, \
+        tsne_launches
+    dense_launches = partial_launches = fma_launches = svr_launches = \
+        tsne_launches = 0
