@@ -32,11 +32,15 @@ comes out:
     probabilities on the t-SNE embedding, the embedding shift and the
     grid field.
 
-Before the paths, the SVR solver kernel is held against its plain
-version on a CV-vs-mean-shaped and a totals-shaped fit at full size (its
-per-iteration synchronisation timed alone gives its latency floor), and
-the t-SNE gradient kernel against the dense plain gradient at 20,000
-points, and a 1,000-iteration t-SNE is timed.
+Before the paths, the SVR solver kernel (a thread-block cluster at the
+session's sizes) is held bitwise against its plain version and against
+its one-block route on a small, a CV-vs-mean-shaped and a totals-shaped
+fit at full size (each route's per-iteration synchronisation timed alone
+gives its latency floor); the t-SNE gradient kernel is held against the
+dense plain gradient at 20,000 points in 1, 2 and 3 dimensions, two calls
+bitwise equal, its pair and attractive passes timed apart; a
+1,000-iteration t-SNE is timed, and a short perform_TSNE(n_dims=3) runs
+through the kernel.
 
     python3 chip_smoke.py
 
@@ -69,7 +73,9 @@ BG_GENES, TSNE_PCS, TSNE_PERPLEXITY = 10000, 25, 30.0
 SVR_CV_MIN = 10000                   # genes the session's CV fit must see
 SVR_CV_N = 12000                     # the CV-vs-mean-shaped SVR check
 SVR_RTOL = 1e-6                      # SVR predictions, kernel against plain
-SVR_SYNC_REPS = 20000                # rounds of the SVR sync probe
+SVR_SYNC_REPS = 20000                # rounds of the SVR sync probes
+# the short three-dimensional perform_TSNE: points and iterations
+TSNE3_CELLS, TSNE3_ITER = 3000, 300
 # t-SNE gradient, kernel against plain: rtol, and an atol of TSNE_ATOL or
 # TSNE_ATOL_REL of the case's largest component, whichever is smaller
 TSNE_RTOL, TSNE_ATOL, TSNE_ATOL_REL = 1e-4, 1e-6, 1e-5
@@ -1114,24 +1120,41 @@ def _svr_model(x, alpha, rho, gamma):
                           -float(rho), gamma, device=DEVICE)
 
 
+def _sync_us(probe):
+    """Microseconds per round of a synchronisation probe (median of 3
+    calls of SVR_SYNC_REPS rounds, CUDA events), after a first call that
+    builds and loads it."""
+    probe(1)
+    torch.cuda.synchronize()
+    ms = statistics.median(_time_ms(lambda: probe(SVR_SYNC_REPS))[0]
+                           for _ in range(3))
+    return ms / SVR_SYNC_REPS * 1e3
+
+
 def svr_phase(smi):
     """The SVR solver kernel against its plain version (the same libsvm
     loop as float64 torch ops) on the card: a small fit, the CV fit at
     SVR_CV_N genes and the totals fit at CELLS cells, the two shapes the
-    heuristic session gives it; then the per-iteration synchronisation
-    probe.  Returns the CV fit's numbers and the totals fit's."""
+    heuristic session gives it.  Each size takes the cluster route
+    (kernels.svr_route) and is held bitwise (alpha, rho, iterations) to
+    the plain loop and to the one-block route, called directly; the
+    cluster route is also timed at 8 blocks.  The two routes'
+    per-iteration synchronisation probes give their latency floors.
+    Returns the CV fit's numbers and the totals fit's."""
     from velocyto_tpu_torch import kernels
     from velocyto_tpu_torch.ops.svr import EPSILON, TOL, _smo_plain
     phase("SVR solver kernel against plain, on the card")
-    kernels.svr_sync_probe(1)               # build and load first
-    torch.cuda.synchronize()
-    sync_ms = statistics.median(_time_ms(
-        lambda: kernels.svr_sync_probe(SVR_SYNC_REPS))[0] for _ in range(3))
-    sync_us = sync_ms / SVR_SYNC_REPS * 1e3
-    print(f"# svr sync probe on {smi}: {SVR_SYNC_REPS} rounds of two block "
-          f"reductions, the step on one thread and two barriers in "
-          f"{sync_ms!r} ms (median of 3, CUDA events): {sync_us!r} us per "
-          f"SMO iteration", flush=True)
+    cl = kernels.SVR_CLUSTER
+    sync_us = _sync_us(lambda r: kernels.svr_cluster_sync_probe(r, cl))
+    sync8_us = _sync_us(lambda r: kernels.svr_cluster_sync_probe(r, 8))
+    block_sync_us = _sync_us(kernels.svr_sync_probe)
+    print(f"# svr sync probes on {smi}, {SVR_SYNC_REPS} rounds (median of 3, "
+          f"CUDA events): cluster route ({cl} blocks: two block reductions, "
+          f"each pushed to every block's inbox, a cluster barrier and a "
+          f"rank-order pick; the step on every thread) {sync_us!r} us per "
+          f"SMO iteration, at 8 blocks {sync8_us!r} us; one-block route (two "
+          f"block reductions, the step on one thread, two barriers) "
+          f"{block_sync_us!r} us", flush=True)
     res = {}
     for tag, shape, n in (("small", "cv", 600), ("cv", "cv", SVR_CV_N),
                           ("totals", "totals", CELLS)):
@@ -1141,9 +1164,11 @@ def svr_phase(smi):
             gamma = 150.0 / n if shape == "cv" else gamma
         x = torch.as_tensor(x_np, dtype=torch.float64, device=DEVICE)
         y = torch.as_tensor(y_np, dtype=torch.float64, device=DEVICE)
+        route = kernels.svr_route(n)
+        assert route == "cluster", (n, route)
 
-        def run():
-            return kernels.svr_smo(x, y, C, EPSILON, gamma, TOL)
+        def run(**kw):
+            return kernels.svr_smo(x, y, C, EPSILON, gamma, TOL, **kw)
 
         first_ms, (alpha, rho, stats) = _time_ms(run)
         it, sum_active, evals = (int(v) for v in stats.cpu())
@@ -1151,30 +1176,39 @@ def svr_phase(smi):
         p_alpha, p_rho, p_it = _smo_plain(x, y, C, gamma)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
+        block_ms, (b_alpha, b_rho, b_stats) = _time_ms(
+            lambda: run(route="block"))
+        ms8, (a8, r8, s8) = _time_ms(lambda: run(cluster=8))
         got = _svr_model(x, alpha, rho, gamma).predict(x)
         want = _svr_model(x, p_alpha, p_rho, gamma).predict(x)
         pred_err = float((got - want).abs().max())
         scale = float(want.abs().max())
         err = max(float((alpha - p_alpha).abs().max()),
                   abs(float(rho) - p_rho))
-        same = bool(torch.equal(alpha, p_alpha)) and float(rho) == p_rho
+        same = bool(torch.equal(alpha, p_alpha)) and float(rho) == p_rho \
+            and it == p_it
+        same_block = bool(torch.equal(alpha, b_alpha)) and \
+            float(rho) == float(b_rho) and it == int(b_stats[0])
+        same8 = bool(torch.equal(alpha, a8)) and float(rho) == float(r8) \
+            and it == int(s8[0])
         ms = statistics.median([first_ms] + [_time_ms(run)[0]
                                              for _ in range(2)])
         # the latency floor: every iteration waits for the probe's chain
         floor_ms = it * sync_us / 1e3
         print(f"# svr {shape} n={n} C={C} gamma={gamma!r} on {smi}: kernel "
-              f"{ms!r} ms (median of 3, CUDA events), plain {plain_ms!r} ms "
-              f"(one call, host clock to a sync); iterations kernel {it} / "
-              f"plain {p_it}, mean active set {sum_active / max(1, it)!r}, "
-              f"{evals} kernel evaluations; alpha and rho bitwise equal: "
-              f"{same}; max |alpha, rho diff| {err!r}; max |prediction "
-              f"diff| {pred_err!r} of max |prediction| {scale!r}; latency "
-              f"floor {floor_ms!r} ms", flush=True)
-        if it != p_it:
-            print(f"# svr {shape}: iteration counts differ by {it - p_it}: "
-                  "the two float64 exp implementations rounded a kernel "
-                  "entry to different float32 values", flush=True)
-        assert abs(it - p_it) <= 0.01 * p_it, (it, p_it)
+              f"({route} route, {cl} blocks) {ms!r} ms (median of 3, CUDA "
+              f"events), at 8 blocks {ms8!r} ms, one-block route {block_ms!r} "
+              f"ms (one call each), plain {plain_ms!r} ms (one call, host "
+              f"clock to a sync); iterations kernel {it} / plain {p_it}, mean "
+              f"active set {sum_active / max(1, it)!r}, {evals} kernel "
+              f"evaluations; alpha, rho and iterations bitwise equal to the "
+              f"plain loop: {same}, to the one-block route: {same_block}, at "
+              f"8 blocks: {same8}; max |alpha, rho diff| {err!r}; max "
+              f"|prediction diff| {pred_err!r} of max |prediction| {scale!r}; "
+              f"latency floor {floor_ms!r} ms (one-block route "
+              f"{it * block_sync_us / 1e3!r} ms)", flush=True)
+        assert same and same_block and same8, \
+            (same, same_block, same8, it, p_it)
         assert pred_err <= SVR_RTOL * scale, (pred_err, scale)
         # FP64 work every SMO iteration needs over the active set, whatever
         # a solver caches: columns i and j of Q (7 each: 6 arithmetic, the
@@ -1184,14 +1218,22 @@ def svr_phase(smi):
         res[tag] = {
             "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
             "iterations": it, "latency_floor_ms": floor_ms,
+            "block_route_ms": block_ms, "cluster8_ms": ms8,
             **_bound(24 * sum_active, 2 * n * 8 + 2 * n * 8, PEAK_FP64)}
+    # the route rule: both session fits take the cluster route; above the
+    # cluster's shared memory the one-block route takes over
+    assert kernels.svr_route(SVR_CV_N) == kernels.svr_route(CELLS) == \
+        "cluster" and kernels.svr_route(100000) == "block"
     out = dict(res["cv"])
     out.update(totals_ms=res["totals"]["ms"],
                totals_iterations=res["totals"]["iterations"],
                totals_plain_ms=res["totals"]["plain_ms"],
                totals_bound_ms=res["totals"]["bound_ms"],
                totals_latency_floor_ms=res["totals"]["latency_floor_ms"],
-               sync_us_per_iteration=sync_us)
+               totals_block_route_ms=res["totals"]["block_route_ms"],
+               totals_cluster8_ms=res["totals"]["cluster8_ms"],
+               sync_us_per_iteration=sync_us,
+               block_sync_us_per_iteration=block_sync_us, cluster_blocks=cl)
     return out
 
 
@@ -1203,14 +1245,38 @@ def _clustered(rng, n, d):
     return centers[labels] + rng.randn(n, d), labels
 
 
+def _tsne_pass_ms(y, P, pval, reps=20):
+    """ms per call of the t-SNE kernel's pair pass and attractive pass,
+    each launched alone (median of 3 x reps launches, CUDA events; not
+    counted: timing launches of a path the checks already ran)."""
+    from velocyto_tpu_torch import kernels
+    w = kernels._tsne_prepare(y, P.indptr, P.indices32, pval)
+
+    def pairs():
+        for _ in range(reps):
+            kernels._tsne_pairs(w)
+
+    def attract():
+        for _ in range(reps):
+            kernels._tsne_attract(w, False)
+
+    pairs()
+    attract()
+    torch.cuda.synchronize()
+    return tuple(statistics.median(_time_ms(f)[0] for _ in range(3)) / reps
+                 for f in (pairs, attract)) + (w["splits"],)
+
+
 def tsne_phase(smi):
     """The t-SNE gradient kernel against the dense plain gradient at
-    CELLS points on the card, then a 1,000-iteration t-SNE timed."""
-    from velocyto_tpu_torch import kernels
+    CELLS points on the card in 1, 2 and 3 dimensions (two calls bitwise
+    equal), its two passes timed apart, a 1,000-iteration t-SNE timed, and
+    a short perform_TSNE(n_dims=3) through the kernel."""
+    from velocyto_tpu_torch import analysis, kernels
     from velocyto_tpu_torch.ops import tsne as tt
     phase(f"t-SNE gradient kernel against plain, {CELLS} points, on the card")
     rng = np.random.RandomState(51)
-    X, _labels = _clustered(rng, CELLS, TSNE_PCS)
+    X, labels = _clustered(rng, CELLS, TSNE_PCS)
     x = torch.as_tensor(X, device=DEVICE)
     t0 = time.perf_counter()
     P = tt.joint_probabilities_nn(x, TSNE_PERPLEXITY)
@@ -1218,39 +1284,57 @@ def tsne_phase(smi):
     p_s = time.perf_counter() - t0
     pval = P.data.to(torch.float32)
     nnz = P.indices.numel()
-    worst = 0.0
-    for scale in (1e-4, 1.0, 30.0):      # the start, mid-run, spread out
-        y = torch.as_tensor((scale * rng.randn(CELLS, 2)).astype(np.float32),
-                            device=DEVICE)
-        got, err = kernels.tsne_grad(y, P.indptr, P.indices32, pval, True)
-        torch.cuda.synchronize()
-        want, want_err = tt._tsne_grad_plain(y, P, pval, 1, True)
-        diff = (got - want).abs()
-        top = float(want.abs().max())
-        atol = min(TSNE_ATOL, TSNE_ATOL_REL * top)
-        ok = bool(torch.all(diff <= atol + TSNE_RTOL * want.abs()))
-        err_rel = abs(float(err) - want_err) / abs(want_err)
-        worst = max(worst, float(diff.max()))
-        print(f"# check tsne_grad n={CELLS} nnz={nnz} scale={scale}: "
-              f"max_abs_err={float(diff.max())!r} (max |grad| {top!r}, "
-              f"atol {atol!r}) ok={ok}; KL {float(err)!r} vs plain "
-              f"{want_err!r} (rel {err_rel!r})", flush=True)
-        assert ok and err_rel <= TSNE_RTOL, "t-SNE kernel disagrees"
+    pairs = CELLS * CELLS
+    worst, passes = 0.0, {}
+    for d in (1, 2, 3):
+        dof = max(d - 1, 1)
+        for scale in (1e-4, 1.0, 30.0):      # the start, mid-run, spread out
+            y = torch.as_tensor(
+                (scale * rng.randn(CELLS, d)).astype(np.float32),
+                device=DEVICE)
+            got, err = kernels.tsne_grad(y, P.indptr, P.indices32, pval, True)
+            again, err2 = _uncounted(lambda: kernels.tsne_grad(
+                y, P.indptr, P.indices32, pval, True))
+            torch.cuda.synchronize()
+            same = _bitwise(got, again) and float(err) == float(err2)
+            want, want_err = tt._tsne_grad_plain(y, P, pval, dof, True)
+            diff = (got - want).abs()
+            top = float(want.abs().max())
+            atol = min(TSNE_ATOL, TSNE_ATOL_REL * top)
+            ok = bool(torch.all(diff <= atol + TSNE_RTOL * want.abs()))
+            err_rel = abs(float(err) - want_err) / abs(want_err)
+            worst = max(worst, float(diff.max()))
+            print(f"# check tsne_grad n={CELLS} d={d} nnz={nnz} "
+                  f"scale={scale}: max_abs_err={float(diff.max())!r} (max "
+                  f"|grad| {top!r}, atol {atol!r}) ok={ok}; KL {float(err)!r} "
+                  f"vs plain {want_err!r} (rel {err_rel!r}); two calls "
+                  f"bitwise equal: {same}", flush=True)
+            assert ok and err_rel <= TSNE_RTOL and same, \
+                "t-SNE kernel disagrees"
+        pair_ms, attract_ms, splits = _tsne_pass_ms(y, P, pval)
+        passes[d] = (pair_ms, attract_ms)
+        print(f"# time tsne_grad n={CELLS} d={d} on {smi}: pair pass "
+              f"{pair_ms!r} ms ({splits} column ranges), attractive pass "
+              f"{attract_ms!r} ms (each alone, median of 3 x 20 launches, "
+              f"CUDA events); {pairs / pair_ms / 1e6!r} G pairs/s",
+              flush=True)
+    y = torch.as_tensor(rng.randn(CELLS, 2).astype(np.float32),
+                        device=DEVICE)
     reps = 20
 
     def kernel_reps():
         for _ in range(reps):
             kernels.tsne_grad(y, P.indptr, P.indices32, pval, False)
 
-    ms = statistics.median(_time_ms(kernel_reps)[0] for _ in range(3)) / reps
+    ms = statistics.median(_uncounted(lambda: _time_ms(kernel_reps)[0])
+                           for _ in range(3)) / reps
     plain_ms = statistics.median(_time_ms(
         lambda: tt._tsne_grad_plain(y, P, pval, 1, False))[0]
         for _ in range(3))
-    pairs = CELLS * CELLS
-    print(f"# time tsne_grad n={CELLS} on {smi}: kernel {ms!r} ms (median "
-          f"of 3 x {reps} calls, CUDA events), plain {plain_ms!r} ms "
-          f"(median of 3); {pairs / ms / 1e6!r} G pairs/s; P (kNN, "
-          f"perplexity search, symmetrisation) {p_s:.3f} s", flush=True)
+    print(f"# time tsne_grad n={CELLS} d=2 on {smi}: kernel {ms!r} ms per "
+          f"gradient (median of 3 x {reps} calls, CUDA events), plain "
+          f"{plain_ms!r} ms (median of 3); P (kNN, perplexity search, "
+          f"symmetrisation) {p_s:.3f} s", flush=True)
     _print_sfu_floor("tsne_grad", pairs)
     hist = []
     np.random.seed(0)
@@ -1265,10 +1349,34 @@ def tsne_phase(smi):
     assert np.isfinite(emb).all() and np.isfinite(hist).all(), "t-SNE"
     assert len(hist) > 5 and hist[-1] < hist[4], \
         "KL did not fall after the exploration stage"
+    # three output dimensions through VelocytoLoom.perform_TSNE
+    v = analysis.VelocytoLoom.__new__(analysis.VelocytoLoom)
+    v.device = torch.device(DEVICE)
+    v.pcs = X[:TSNE3_CELLS]
+    np.random.seed(1)
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v.perform_TSNE(n_dims=3, max_iter=TSNE3_ITER)
+    secs3 = time.perf_counter() - t0
+    launches3 = kernels.tsne_launches
+    on_ts = _label_agreement(v.ts, labels[:TSNE3_CELLS])
+    on_pcs = _label_agreement(X[:TSNE3_CELLS, :3], labels[:TSNE3_CELLS])
+    print(f"# perform_TSNE(n_dims=3) on {TSNE3_CELLS} points, max_iter="
+          f"{TSNE3_ITER}: {secs3:.3f} s on {smi} (host clock); ts "
+          f"{v.ts.shape}; {launches3} t-SNE kernel launches; 15-NN label "
+          f"agreement {on_ts!r} on ts, {on_pcs!r} on pcs[:, :3]", flush=True)
+    assert v.ts.shape == (TSNE3_CELLS, 3) and np.isfinite(v.ts).all()
+    # two launches per gradient, one gradient per iteration (the descent
+    # may stop early)
+    assert 0 < launches3 <= 2 * TSNE3_ITER and launches3 % 2 == 0 and \
+        on_ts >= on_pcs, (launches3, on_ts, on_pcs)
     # per pair: 2 sub, 3 for d^2, 1 add, 1 rcp, 1 mul, 2 FMA (4), 1 add;
     # positions and the CSR of P in, the gradient out
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": worst,
-            "tsne_s": secs, "tsne_iterations": last + 1,
+            "pair_ms": passes[2][0], "attract_ms": passes[2][1],
+            "pass_ms_by_dim": passes, "tsne_s": secs,
+            "tsne_iterations": last + 1, "tsne3_launches": launches3,
             **_bound(13 * pairs, CELLS * 8 * 2 + (CELLS + 1) * 8 + nnz * 8)}
 
 
@@ -1363,11 +1471,14 @@ def heuristic_phase(smi):
         smooth=0.5, steps=(40, 40), n_neighbors=100))
     total = time.perf_counter() - t_all
     launches = _launches()
+    svr_routes = {"cluster": kernels.svr_cluster_launches,
+                  "block": kernels.svr_block_launches}
     peak = torch.cuda.max_memory_allocated()
     print(f"# heuristic session total: {total:.3f} s on {smi}; SVR fits "
           f"(points, iterations, support vectors) {fits}; genes kept "
-          f"{counts['kept']}; kernel launches {launches}; peak device "
-          f"memory {peak / 2**30:.2f} GiB", flush=True)
+          f"{counts['kept']}; kernel launches {launches}, SVR by route "
+          f"{svr_routes}; peak device memory {peak / 2**30:.2f} GiB",
+          flush=True)
 
     phase("checks, heuristic session")
     kept = np.array([int(g[1:]) for g in v.ra["Gene"]])
@@ -1379,6 +1490,7 @@ def heuristic_phase(smi):
         fits[1][0] == CELLS, fits
     assert launches["svr"] == 2 and launches["partial"] == 1 and \
         launches["dense"] == 0 and launches["fma"] == 0, launches
+    assert svr_routes == {"cluster": 2, "block": 0}, svr_routes
     # two launches per gradient, one gradient per t-SNE iteration
     assert 500 < launches["tsne"] <= 2000 and launches["tsne"] % 2 == 0, \
         launches
@@ -1464,7 +1576,11 @@ def main():
                       "svr_cv_iterations": svr["iterations"],
                       "svr_sync_us_per_iteration":
                           svr["sync_us_per_iteration"],
-                      "tsne_1000_iterations_s": tsne["tsne_s"]}))
+                      "svr_block_sync_us_per_iteration":
+                          svr["block_sync_us_per_iteration"],
+                      "tsne_pass_ms_by_dim": tsne["pass_ms_by_dim"],
+                      "tsne_1000_iterations_s": tsne["tsne_s"],
+                      "tsne3_launches": tsne["tsne3_launches"]}))
     # launches: each kernel's count summed over the paths that run it;
     # ms / plain_ms: the kernel and its plain version on the same inputs
     # (dense: one field; sampled: the dual call on uniform indices), with
@@ -1503,18 +1619,22 @@ def main():
          "max_abs_err": svr["max_abs_err"], "ms": svr["ms"],
          "plain_ms": svr["plain_ms"], "bound_ms": svr["bound_ms"],
          "bound_by": svr["bound_by"], "library_ms": None,
+         "svr_route": "cluster", "cluster_blocks": svr["cluster_blocks"],
          "latency_floor_ms": svr["latency_floor_ms"],
+         "block_route_ms": svr["block_route_ms"],
          "totals_ms": svr["totals_ms"],
          "totals_plain_ms": svr["totals_plain_ms"],
          "totals_bound_ms": svr["totals_bound_ms"],
-         "totals_latency_floor_ms": svr["totals_latency_floor_ms"]},
+         "totals_latency_floor_ms": svr["totals_latency_floor_ms"],
+         "totals_block_route_ms": svr["totals_block_route_ms"]},
         {"name": "tsne_grad", "route": "cuda",
          "source": "velocyto_tpu_torch/kernels/tsne_grad.cu",
          "replaces": "velocyto_tpu/analysis.py:1070",
          "launches": launches_heur["tsne"],
          "max_abs_err": tsne["max_abs_err"], "ms": tsne["ms"],
          "plain_ms": tsne["plain_ms"], "bound_ms": tsne["bound_ms"],
-         "bound_by": tsne["bound_by"], "library_ms": None}]}))
+         "bound_by": tsne["bound_by"], "library_ms": None,
+         "pair_ms": tsne["pair_ms"], "attract_ms": tsne["attract_ms"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -115,6 +115,76 @@ def test_sync_probe_refuses_before_building(device, reps):
         kernels.svr_sync_probe(reps, device)
 
 
+def test_route_rule():
+    """The cluster route takes the heuristic session's two fits (12,000
+    genes, 20,000 cells) and every size whose shared state (37 B a
+    position, in whole rounds of 512 positions a block) fits 200 KiB a
+    block; above it the one-block route takes over."""
+    for cluster in (8, 16):
+        for l in (1, 600, 12000, 20000):
+            assert kernels.svr_route(l, cluster) == "cluster", (l, cluster)
+    # the largest l whose 2l positions fill each of 16 blocks to 10 rounds
+    # of 512 (189,440 B), and the next one, which needs 11 (208,384 B)
+    assert kernels.svr_route(40960, 16) == "cluster"
+    assert kernels.svr_route(40961, 16) == "block"
+    assert kernels.svr_route(20480, 8) == "cluster"
+    assert kernels.svr_route(20481, 8) == "block"
+    assert kernels.svr_route(100000) == "block"
+    assert kernels.svr_route(20000) == kernels.svr_route(
+        20000, kernels.SVR_CLUSTER)
+
+
+class _OnCard:
+    """A CPU tensor that reports a CUDA device, so a wrapper's checks run
+    past the device test on a machine without a card."""
+
+    def __init__(self, t):
+        self._t = t
+
+    is_cuda = True
+    device = torch.device("cuda", 0)
+
+    def __getattr__(self, name):
+        return getattr(self._t, name)
+
+
+_F64 = dict(dtype=torch.float64)
+
+
+@pytest.mark.parametrize("x, target, kw", [
+    (torch.zeros(8), torch.zeros(8, **_F64), {}),             # dtype
+    (torch.zeros(8, 1, **_F64), torch.zeros(8, **_F64), {}),  # rank
+    (torch.zeros(8, **_F64), torch.zeros(7, **_F64), {}),     # lengths
+    (torch.zeros(0, **_F64), torch.zeros(0, **_F64), {}),     # empty
+    (torch.zeros(8, **_F64), torch.zeros(8, **_F64), {"route": "warp"}),
+    (torch.zeros(8, **_F64), torch.zeros(8, **_F64), {"cluster": 17}),
+    (torch.zeros(8, **_F64), torch.zeros(8, **_F64), {"cluster": 0}),
+    (torch.zeros(50000, **_F64), torch.zeros(50000, **_F64),
+     {"route": "cluster"}),                          # beyond shared memory
+])
+def test_solver_refuses_before_building(x, target, kw):
+    """svr_smo refuses bad dtypes, ranks, lengths, routes and cluster
+    sizes, and CPU tensors, before any build."""
+    with pytest.raises((ValueError, TypeError)):
+        kernels.svr_smo(_OnCard(x), _OnCard(target), 1.0, 0.1, 1.0, 1e-3,
+                        **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.svr_smo(x.to(torch.float64), target.to(torch.float64), 1.0,
+                        0.1, 1.0, 1e-3)
+    assert kernels._lib is None and kernels.svr_launches == 0
+
+
+@pytest.mark.parametrize("device, reps, cluster", [
+    ("cpu", 10, 16), ("cuda", 0, 16), ("cuda", 10, 0), ("cuda", 10, 17)])
+def test_cluster_sync_probe_refuses_before_building(device, reps, cluster):
+    """The cluster route's latency probe runs on a CUDA device only, for
+    at least one round, in a cluster of 1 to 16 blocks; it refuses
+    anything else before any build."""
+    with pytest.raises(ValueError):
+        kernels.svr_cluster_sync_probe(reps, cluster, device)
+    assert kernels._lib is None
+
+
 def _synthetic_loom(mod, seed, **extra):
     """A VelocytoLoom of the given package holding Poisson counts with
     gene-wise overdispersion (1,500 genes x 200 cells)."""

@@ -17,10 +17,12 @@ module that calls it and serves CPU tensors there:
 
 ``dense_launches``, ``partial_launches``, ``fma_launches``,
 ``svr_launches`` and ``tsne_launches`` count each kernel's launches (a
-``tsne_grad`` call, one gradient, adds two: the all-pairs pass and the
-finish), so a run can show that its main path went through it.
-``svr_sync_probe`` is a measurement probe beside the SVR solver, not a
-path kernel, and has no count.
+``tsne_grad`` call, one gradient, adds two: the pair pass and the
+attractive pass), so a run can show that its main path went through it;
+``svr_cluster_launches`` and ``svr_block_launches`` split the SVR
+solver's launches by route (``svr_route``).  ``svr_sync_probe`` and
+``svr_cluster_sync_probe`` are measurement probes beside the two SVR
+routes, not path kernels, and have no count.
 """
 from __future__ import annotations
 
@@ -42,6 +44,8 @@ dense_launches = 0      # launches of the dense colDeltaCor kernel
 partial_launches = 0    # launches of the sampled colDeltaCor kernel
 fma_launches = 0        # launches of the FMA-chain probe
 svr_launches = 0        # launches of the SVR solver (one per fit)
+svr_cluster_launches = 0    # of them, the cluster route's
+svr_block_launches = 0      # of them, the one-block route's
 tsne_launches = 0       # launches of the t-SNE gradient (two per call)
 build_log = ""          # nvcc's output (-Xptxas -v) from the last build
 
@@ -58,9 +62,16 @@ _SIGNATURES = {
                   [_P, _P, ctypes.c_int64, _P]),
     "svr_smo": ("svr_smo", "vtt_svr_smo",
                 [_P] * 15 + [_I, _D, _D, _D, _D, _P]),
+    "svr_smo_cluster": ("svr_smo", "vtt_svr_smo_cluster",
+                        [_P] * 14 + [_I, _D, _D, _D, _D, _I, _P]),
     "svr_sync_probe": ("svr_smo", "vtt_svr_sync_probe", [_I, _P, _P]),
-    "tsne_grad": ("tsne_grad", "vtt_tsne_grad",
-                  [_P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P]),
+    "svr_cluster_sync_probe": ("svr_smo", "vtt_svr_cluster_sync_probe",
+                               [_I, _I, _P, _P]),
+    "tsne_pairs": ("tsne_grad", "vtt_tsne_pairs",
+                   [_P, _I, _I, _I, _P, _P, _P, _P, _P]),
+    "tsne_attract": ("tsne_grad", "vtt_tsne_attract",
+                     [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                      _P]),
 }
 
 _lib: Optional[Dict[str, Any]] = None   # ctypes functions, on first use
@@ -268,99 +279,215 @@ def fma_probe(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+SVR_CLUSTER = 16           # blocks of the cluster route
+_SVR_THREADS = 512         # svr_smo.cu kThreads
+_SVR_SLOT_BYTES = 37       # kSlotBytes: shared state per position
+_SVR_CLUSTER_SMEM = 200 * 1024   # kMaxClusterSmem: per block
+
+
+def svr_route(l: int, cluster: int = SVR_CLUSTER) -> str:
+    """The solver route for l samples (2l positions): "cluster" while each
+    of the cluster's blocks holds its share of the shared state (whole
+    multiples of the block's threads, 37 B a position) in 200 KiB, else
+    "block", the one-block kernel with the state in global memory."""
+    per_block = -(-2 * l // (cluster * _SVR_THREADS)) * _SVR_THREADS
+    return "cluster" if per_block * _SVR_SLOT_BYTES <= _SVR_CLUSTER_SMEM \
+        else "block"
+
+
+def _check_cluster(cluster: int) -> None:
+    if not 1 <= cluster <= 16:
+        raise ValueError(f"cluster must be 1..16 blocks, got {cluster}")
+
+
 def svr_smo(x: torch.Tensor, target: torch.Tensor, C: float,
-            epsilon: float, gamma: float, tol: float
+            epsilon: float, gamma: float, tol: float,
+            route: Optional[str] = None, cluster: int = SVR_CLUSTER
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """libsvm's epsilon-SVR solve (RBF kernel, one feature, shrinking, no
     iteration cap) on the card in one launch: x, target (l,) float64
     CUDA tensors -> (alpha (2l,) float64 in original order, rho (1,)
     float64, stats (3,) int64 = iterations, sum of the active-set sizes
-    over them, kernel evaluations).  Launches on the current stream and
-    does not synchronise."""
-    global svr_launches
+    over them, kernel evaluations).  route: "cluster" (a cluster of
+    `cluster` blocks, the state in their shared memory) or "block" (one
+    block); None takes ``svr_route(l, cluster)``.  The two give bitwise
+    equal results.  Launches on the current stream and does not
+    synchronise."""
+    global svr_launches, svr_cluster_launches, svr_block_launches
     _check("x", x, (torch.float64,), dim=1)
     _check("target", target, (torch.float64,), dim=1)
     _check_same_device(x=x, target=target)
+    _check_cluster(cluster)
     l = x.numel()
     if target.numel() != l or l < 1 or l > 2 ** 29:
         raise ValueError(f"unsupported shapes: x {tuple(x.shape)}, target "
                          f"{tuple(target.shape)}")
+    if route is None:
+        route = svr_route(l, cluster)
+    if route not in ("cluster", "block") or \
+            route == "cluster" and svr_route(l, cluster) != "cluster":
+        raise ValueError(f"route {route!r} cannot take l={l} with cluster "
+                         f"{cluster}")
     dev, n2 = x.device, 2 * l
-    work = {name: torch.empty(n2, dtype=dt, device=dev) for name, dt in (
-        ("G", torch.float64), ("Gbar", torch.float64),
-        ("alpha", torch.float64), ("p", torch.float64), ("xs", torch.float64),
-        ("flags", torch.uint8), ("aset", torch.int32), ("qi", torch.float32),
-        ("posL", torch.int32), ("posR", torch.int32))}
+    names = [("G", torch.float64), ("Gbar", torch.float64),
+             ("alpha", torch.float64), ("p", torch.float64),
+             ("xs", torch.float64), ("flags", torch.uint8),
+             ("aset", torch.int32), ("qi", torch.float32),
+             ("posL", torch.int32), ("posR", torch.int32)]
+    if route == "cluster":          # column i lives in shared memory
+        names.remove(("qi", torch.float32))
+    work = [torch.empty(n2, dtype=dt, device=dev) for _, dt in names]
     alpha = torch.empty(n2, dtype=torch.float64, device=dev)
     rho = torch.empty(1, dtype=torch.float64, device=dev)
     stats = torch.zeros(3, dtype=torch.int64, device=dev)
-    _launch("svr_smo", dev, x.data_ptr(), target.data_ptr(),
-            *(t.data_ptr() for t in work.values()), alpha.data_ptr(),
-            rho.data_ptr(), stats.data_ptr(), l, float(C), float(epsilon),
-            float(gamma), float(tol))
+    args = (x.data_ptr(), target.data_ptr(), *(t.data_ptr() for t in work),
+            alpha.data_ptr(), rho.data_ptr(), stats.data_ptr(), l, float(C),
+            float(epsilon), float(gamma), float(tol))
+    if route == "cluster":
+        _launch("svr_smo_cluster", dev, *args, int(cluster))
+        svr_cluster_launches += 1
+    else:
+        _launch("svr_smo", dev, *args)
+        svr_block_launches += 1
     svr_launches += 1
     return alpha, rho, stats
 
 
-def svr_sync_probe(reps: int, device: Union[str, torch.device] = "cuda"
-                   ) -> torch.Tensor:
-    """Run `reps` rounds of the SVR solver's per-iteration synchronisation
-    (two block reductions, the step on one thread, two barriers) in one
-    block of the solver's size, with no pass over any variables; returns
-    a (1,) float64 tensor.  Timed, it gives the latency floor of one SMO
-    iteration of ``svr_smo``.  A measurement probe, not counted.
-    Launches on the current stream and does not synchronise."""
+def _probe_device(name: str, reps: int,
+                  device: Union[str, torch.device]) -> torch.device:
     device = torch.device(device)
     if device.type != "cuda":
-        raise ValueError(f"svr_sync_probe runs on a CUDA device, got {device}")
+        raise ValueError(f"{name} runs on a CUDA device, got {device}")
     if reps < 1:
         raise ValueError(f"reps must be >= 1, got {reps}")
+    return device
+
+
+def svr_sync_probe(reps: int, device: Union[str, torch.device] = "cuda"
+                   ) -> torch.Tensor:
+    """Run `reps` rounds of the one-block SVR route's per-iteration
+    synchronisation (two block reductions, the step on one thread, two
+    barriers) in one block of the solver's size, with no pass over any
+    variables; returns a (1,) float64 tensor.  Timed, it gives the latency
+    floor of one SMO iteration of the "block" route.  A measurement probe,
+    not counted.  Launches on the current stream and does not
+    synchronise."""
+    device = _probe_device("svr_sync_probe", reps, device)
     out = torch.empty(1, dtype=torch.float64, device=device)
     _launch("svr_sync_probe", device, int(reps), out.data_ptr())
     return out
 
 
-_TSNE_ROWS, _TSNE_SPLITS, _TSNE_FINISH = 128, 8, 256   # kRows, kSplits, kFinish
+def svr_cluster_sync_probe(reps: int, cluster: int = SVR_CLUSTER,
+                           device: Union[str, torch.device] = "cuda"
+                           ) -> torch.Tensor:
+    """Run `reps` rounds of the cluster route's per-iteration
+    synchronisation (two block reductions, each pushed into every block's
+    inbox through distributed shared memory, a cluster barrier and a pick
+    in rank order, and the step on every thread) in one cluster of
+    `cluster` blocks, with no pass over any variables; returns a (1,)
+    float64 tensor.  Timed, it gives the latency floor of one SMO
+    iteration of the "cluster" route.  A measurement probe, not counted.
+    Launches on the current stream and does not synchronise."""
+    device = _probe_device("svr_cluster_sync_probe", reps, device)
+    _check_cluster(cluster)
+    out = torch.empty(1, dtype=torch.float64, device=device)
+    _launch("svr_cluster_sync_probe", device, int(reps), int(cluster),
+            out.data_ptr())
+    return out
 
 
-def tsne_grad(y: torch.Tensor, indptr: torch.Tensor, indices: torch.Tensor,
-              pval: torch.Tensor, compute_error: bool = False
-              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Exact t-SNE gradient (one degree of freedom) on the card: y (n, 2)
-    float32, the CSR of P (indptr (n+1,) int64, indices int32, pval
-    float32) -> (grad (n, 2) float32, the KL error as a (1,) float64
-    tensor, or None without compute_error).  Two launches on the current
-    stream, no synchronisation."""
-    global tsne_launches
+_TSNE_BLOCK_ROWS = 256     # tsne_grad.cu kBlockRows
+_TSNE_WARPS = 8            # kWarpsAttract: rows per block of the second pass
+_TSNE_BLOCKS_PER_SM = 16   # pair-pass blocks per SM, the target
+_tsne_tickets: Dict[torch.device, torch.Tensor] = {}
+
+
+def tsne_splits(n: int, sms: int) -> int:
+    """Column ranges of the pair pass for n points on `sms` SMs: about
+    _TSNE_BLOCKS_PER_SM blocks per SM, 1 to 32."""
+    row_blocks = -(-n // _TSNE_BLOCK_ROWS)
+    return max(1, min(32, round(_TSNE_BLOCKS_PER_SM * sms / row_blocks)))
+
+
+def _tsne_check(y: torch.Tensor, indptr: torch.Tensor,
+                indices: torch.Tensor, pval: torch.Tensor) -> Tuple[int, int]:
+    """Check the inputs of a gradient (devices, dtypes, shapes); returns
+    (n, d)."""
     _check("y", y)
     _check("indptr", indptr, (torch.int64,), dim=1)
     _check("indices", indices, (torch.int32,), dim=1)
     _check("pval", pval, dim=1)
     _check_same_device(y=y, indptr=indptr, indices=indices, pval=pval)
-    n = y.shape[0]
-    if y.shape[1] != 2 or n < 2 or n >= 2 ** 31 // _TSNE_SPLITS or \
+    n, d = y.shape
+    if d not in (1, 2, 3) or n < 2 or n >= 2 ** 31 // 32 or \
             indptr.numel() != n + 1 or indices.numel() != pval.numel():
         raise ValueError(f"unsupported shapes: y {tuple(y.shape)}, indptr "
                          f"{tuple(indptr.shape)}, indices "
                          f"{tuple(indices.shape)}, pval {tuple(pval.shape)}")
+    return n, d
+
+
+def _tsne_prepare(y: torch.Tensor, indptr: torch.Tensor,
+                  indices: torch.Tensor, pval: torch.Tensor
+                  ) -> Dict[str, Any]:
+    """Check the inputs of a gradient and allocate its outputs and
+    scratch."""
+    n, d = _tsne_check(y, indptr, indices, pval)
     dev = y.device
-    row_blocks = -(-n // _TSNE_ROWS)
-    rep = torch.empty((n, _TSNE_SPLITS, 2), dtype=torch.float64, device=dev)
-    zpart = torch.empty(row_blocks * _TSNE_SPLITS, dtype=torch.float64,
-                        device=dev)
-    grad = torch.empty_like(y)
-    err = torch.empty(-(-n // _TSNE_FINISH), dtype=torch.float64, device=dev)
-    _launch("tsne_grad", dev, y.data_ptr(), n, indptr.data_ptr(),
-            indices.data_ptr(), pval.data_ptr(), rep.data_ptr(),
-            zpart.data_ptr(), int(bool(compute_error)), grad.data_ptr(),
-            err.data_ptr())
+    splits = tsne_splits(
+        n, torch.cuda.get_device_properties(dev).multi_processor_count)
+    if dev not in _tsne_tickets:      # reset to 0 by each kernel's last block
+        _tsne_tickets[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+    f64 = dict(dtype=torch.float64, device=dev)
+    return dict(
+        y=y, n=n, d=d, splits=splits, indptr=indptr, indices=indices,
+        pval=pval, rep=torch.empty((n, splits, d), **f64),
+        zpart=torch.empty(-(-n // _TSNE_BLOCK_ROWS) * splits, **f64),
+        z=torch.empty(1, **f64), grad=torch.empty_like(y),
+        err_part=torch.empty(-(-n // _TSNE_WARPS), **f64),
+        err=torch.empty(1, **f64), ticket=_tsne_tickets[dev])
+
+
+def _tsne_pairs(w: Dict[str, Any]) -> None:
+    """The pair pass: partial repulsive forces and Z."""
+    _launch("tsne_pairs", w["y"].device, w["y"].data_ptr(), w["n"], w["d"],
+            w["splits"], w["rep"].data_ptr(), w["zpart"].data_ptr(),
+            w["z"].data_ptr(), w["ticket"].data_ptr())
+
+
+def _tsne_attract(w: Dict[str, Any], compute_error: bool) -> None:
+    """The attractive pass: the gradient and, with compute_error, the KL
+    error."""
+    _launch("tsne_attract", w["y"].device, w["y"].data_ptr(), w["n"],
+            w["d"], w["splits"], w["indptr"].data_ptr(),
+            w["indices"].data_ptr(), w["pval"].data_ptr(),
+            w["rep"].data_ptr(), w["z"].data_ptr(), int(bool(compute_error)),
+            w["grad"].data_ptr(), w["err_part"].data_ptr(),
+            w["err"].data_ptr(), w["ticket"].data_ptr())
+
+
+def tsne_grad(y: torch.Tensor, indptr: torch.Tensor, indices: torch.Tensor,
+              pval: torch.Tensor, compute_error: bool = False
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Exact t-SNE gradient on the card with sklearn's degrees of freedom,
+    max(d - 1, 1): y (n, d) float32, d = 1, 2 or 3, the CSR of P (indptr
+    (n+1,) int64, indices int32, pval float32) -> (grad (n, d) float32,
+    the KL error as a (1,) float64 tensor, or None without
+    compute_error).  Two launches on the current stream (the pair pass,
+    the attractive pass), no synchronisation; every sum is in a fixed
+    order, so two calls on one input agree bitwise."""
+    global tsne_launches
+    w = _tsne_prepare(y, indptr, indices, pval)
+    _tsne_pairs(w)
+    _tsne_attract(w, compute_error)
     tsne_launches += 2
-    return grad, (err.sum().reshape(1) if compute_error else None)
+    return w["grad"], (w["err"] if compute_error else None)
 
 
 def reset_counts() -> None:
     """Set every launch count to 0."""
     global dense_launches, partial_launches, fma_launches, svr_launches, \
-        tsne_launches
+        svr_cluster_launches, svr_block_launches, tsne_launches
     dense_launches = partial_launches = fma_launches = svr_launches = \
-        tsne_launches = 0
+        svr_cluster_launches = svr_block_launches = tsne_launches = 0

@@ -26,8 +26,8 @@ torch device:
 
 The gradient is exact, not Barnes-Hut: the theta -> 0 limit of the same
 objective, with the KL error sklearn's ``_kl_divergence_bh`` reports.
-``kl_gradient`` launches the hand CUDA kernel (kernels/tsne_grad.cu, two
-dimensions) for CUDA tensors and runs ``_tsne_grad_plain``, the dense
+``kl_gradient`` launches the hand CUDA kernel (kernels/tsne_grad.cu, one
+to three dimensions) for CUDA tensors and runs ``_tsne_grad_plain``, the dense
 formula in float64 torch over row blocks, for CPU tensors.
 """
 from __future__ import annotations
@@ -185,13 +185,13 @@ def kl_gradient(y: torch.Tensor, P: CSR, pval: torch.Tensor, dof: int,
                 compute_error: bool) -> Tuple[torch.Tensor, Optional[float]]:
     """(gradient (n, d) float32, KL error or None) of positions y (n, d)
     float32 under P with values pval (float32): the hand kernel for CUDA
-    tensors (two dimensions, one degree of freedom), the plain version
-    for CPU tensors."""
+    tensors (d = 1, 2 or 3 with sklearn's dof = max(d - 1, 1)), the plain
+    version for CPU tensors."""
     if not y.is_cuda:
         return _tsne_grad_plain(y, P, pval, dof, compute_error)
-    if y.shape[1] != 2 or dof != 1:
-        raise NotImplementedError(
-            "the t-SNE kernel takes two dimensions (one degree of freedom)")
+    if dof != max(y.shape[1] - 1, 1):
+        raise ValueError(f"the t-SNE kernel takes dof = max(d - 1, 1), got "
+                         f"dof {dof} for d = {y.shape[1]}")
     grad, err = kernels.tsne_grad(y.contiguous(), P.indptr, P.indices32,
                                   pval, compute_error)
     return grad, (float(err) if err is not None else None)
