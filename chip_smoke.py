@@ -32,11 +32,13 @@ comes out:
     probabilities on the t-SNE embedding, the embedding shift and the
     grid field.
 
-Before the paths, the SVR solver kernel (a thread-block cluster at the
-session's sizes) is held bitwise against its plain version and against
-its one-block route on a small, a CV-vs-mean-shaped and a totals-shaped
-fit at full size (each route's per-iteration synchronisation timed alone
-gives its latency floor); the t-SNE gradient kernel is held against the
+Before the paths, the SVR solver kernel (a thread-block cluster holding
+its state in shared memory at the session's sizes) is held bitwise
+against its plain version and against its global-memory route on a
+small, a CV-vs-mean-shaped and a totals-shaped fit at full size, and a
+totals fit of 50,000 cells runs on the global-memory route (the
+per-iteration synchronisation timed alone gives the latency floor); the
+t-SNE gradient kernel is held against the
 dense plain gradient at 20,000 points in 1, 2 and 3 dimensions, two calls
 bitwise equal, its pair and attractive passes timed apart; a
 1,000-iteration t-SNE is timed, and a short perform_TSNE(n_dims=3) runs
@@ -73,7 +75,9 @@ BG_GENES, TSNE_PCS, TSNE_PERPLEXITY = 10000, 25, 30.0
 SVR_CV_MIN = 10000                   # genes the session's CV fit must see
 SVR_CV_N = 12000                     # the CV-vs-mean-shaped SVR check
 SVR_RTOL = 1e-6                      # SVR predictions, kernel against plain
-SVR_SYNC_REPS = 20000                # rounds of the SVR sync probes
+SVR_SYNC_REPS = 20000                # rounds of the SVR sync probe
+SVR_GLOBAL_N = 50000                 # a totals fit beyond shared memory
+SVR_GAP_SLACK = 1.01                 # recomputed stopping gap over tol
 # the short three-dimensional perform_TSNE: points and iterations
 TSNE3_CELLS, TSNE3_ITER = 3000, 300
 # t-SNE gradient, kernel against plain: rtol, and an atol of TSNE_ATOL or
@@ -1094,10 +1098,10 @@ def shims_phase(v, smi):
     return results
 
 
-def _svr_data(shape):
+def _svr_data(shape, n=CELLS):
     """(x, y, C, gamma) of a fit shaped like velocyto's two: log2 CV
     against log2 mean of SVR_CV_N genes with gamma = 150 / n
-    (score_cv_vs_mean), or U totals against S totals of CELLS cells with
+    (score_cv_vs_mean), or U totals against S totals of n cells with
     C = 100, gamma = 1e-6 (adjust_totS_totU); numpy-seeded."""
     if shape == "cv":
         rng = np.random.RandomState(41)
@@ -1105,8 +1109,8 @@ def _svr_data(shape):
         return (log_m, -0.5 * log_m + 0.4 * rng.randn(SVR_CV_N), 1.0,
                 150.0 / SVR_CV_N)
     rng = np.random.RandomState(42)
-    tot_s = rng.gamma(5.0, 400.0, CELLS)
-    return tot_s, 0.3 * tot_s + 30.0 * rng.randn(CELLS), 100.0, 1e-6
+    tot_s = rng.gamma(5.0, 400.0, n)
+    return tot_s, 0.3 * tot_s + 30.0 * rng.randn(n), 100.0, 1e-6
 
 
 def _svr_model(x, alpha, rho, gamma):
@@ -1120,14 +1124,41 @@ def _svr_model(x, alpha, rho, gamma):
                           -float(rho), gamma, device=DEVICE)
 
 
-def _sync_us(probe):
-    """Microseconds per round of a synchronisation probe (median of 3
-    calls of SVR_SYNC_REPS rounds, CUDA events), after a first call that
-    builds and loads it."""
-    probe(1)
+def _svr_gap(x, y, alpha, C, gamma, chunk=1024):
+    """libsvm's stopping measure (the maximal violating pair, Gmax +
+    Gmax2) of the solution alpha (2l,) of an epsilon-SVR fit on (x, y),
+    with G recomputed from alpha over kernel entries rounded to float32
+    as libsvm's Q holds them.  The solver stops once it is below tol."""
+    from velocyto_tpu_torch.ops.svr import EPSILON
+    n = x.numel()
+    ap, an = alpha[:n], alpha[n:]
+    coef = ap - an
+    sv = torch.nonzero(coef).flatten()
+    xs, cs = x[sv], coef[sv]
+    f = torch.empty_like(x)
+    for a in range(0, n, chunk):
+        xa = x[a:a + chunk, None]
+        d2 = (xa * xa + xs * xs) - 2.0 * (xa * xs)
+        f[a:a + chunk] = torch.exp(-gamma * d2).float().double() @ cs
+    g_pos, g_neg = EPSILON - y + f, EPSILON + y - f   # G of the two halves
+    none = torch.full_like(x, -float("inf"))
+    gmax = max(float(torch.where(ap < C, -g_pos, none).max()),
+               float(torch.where(an > 0, g_neg, none).max()))
+    gmax2 = max(float(torch.where(ap > 0, g_pos, none).max()),
+                float(torch.where(an < C, -g_neg, none).max()))
+    return gmax + gmax2
+
+
+def _sync_us():
+    """Microseconds per round of the SVR solver's synchronisation probe
+    (median of 3 calls of SVR_SYNC_REPS rounds, CUDA events), after a
+    first call that builds and loads it."""
+    from velocyto_tpu_torch import kernels
+    kernels.svr_sync_probe(1)
     torch.cuda.synchronize()
-    ms = statistics.median(_time_ms(lambda: probe(SVR_SYNC_REPS))[0]
-                           for _ in range(3))
+    ms = statistics.median(
+        _time_ms(lambda: kernels.svr_sync_probe(SVR_SYNC_REPS))[0]
+        for _ in range(3))
     return ms / SVR_SYNC_REPS * 1e3
 
 
@@ -1135,26 +1166,24 @@ def svr_phase(smi):
     """The SVR solver kernel against its plain version (the same libsvm
     loop as float64 torch ops) on the card: a small fit, the CV fit at
     SVR_CV_N genes and the totals fit at CELLS cells, the two shapes the
-    heuristic session gives it.  Each size takes the cluster route
-    (kernels.svr_route) and is held bitwise (alpha, rho, iterations) to
-    the plain loop and to the one-block route, called directly; the
-    cluster route is also timed at 8 blocks.  The two routes'
-    per-iteration synchronisation probes give their latency floors.
-    Returns the CV fit's numbers and the totals fit's."""
+    heuristic session gives it.  Each size keeps its state in shared
+    memory (kernels.svr_route) and is held bitwise (alpha, rho,
+    iterations) to the plain loop and to the same kernel with its state
+    in global memory, called directly.  A totals fit at SVR_GLOBAL_N
+    cells, beyond the shared memory, runs on the global route alone: its
+    libsvm stopping gap, recomputed from alpha, is checked against tol.
+    The synchronisation probe gives the latency floor.  Returns the CV
+    fit's numbers and the totals fit's."""
     from velocyto_tpu_torch import kernels
     from velocyto_tpu_torch.ops.svr import EPSILON, TOL, _smo_plain
     phase("SVR solver kernel against plain, on the card")
     cl = kernels.SVR_CLUSTER
-    sync_us = _sync_us(lambda r: kernels.svr_cluster_sync_probe(r, cl))
-    sync8_us = _sync_us(lambda r: kernels.svr_cluster_sync_probe(r, 8))
-    block_sync_us = _sync_us(kernels.svr_sync_probe)
-    print(f"# svr sync probes on {smi}, {SVR_SYNC_REPS} rounds (median of 3, "
-          f"CUDA events): cluster route ({cl} blocks: two block reductions, "
-          f"each pushed to every block's inbox, a cluster barrier and a "
-          f"rank-order pick; the step on every thread) {sync_us!r} us per "
-          f"SMO iteration, at 8 blocks {sync8_us!r} us; one-block route (two "
-          f"block reductions, the step on one thread, two barriers) "
-          f"{block_sync_us!r} us", flush=True)
+    sync_us = _sync_us()
+    print(f"# svr sync probe on {smi}, {SVR_SYNC_REPS} rounds (median of 3, "
+          f"CUDA events; {cl} blocks: two block reductions, each pushed to "
+          f"every block's inbox, a cluster barrier and a rank-order pick; "
+          f"the step on every thread) {sync_us!r} us per SMO iteration",
+          flush=True)
     res = {}
     for tag, shape, n in (("small", "cv", 600), ("cv", "cv", SVR_CV_N),
                           ("totals", "totals", CELLS)):
@@ -1165,7 +1194,7 @@ def svr_phase(smi):
         x = torch.as_tensor(x_np, dtype=torch.float64, device=DEVICE)
         y = torch.as_tensor(y_np, dtype=torch.float64, device=DEVICE)
         route = kernels.svr_route(n)
-        assert route == "cluster", (n, route)
+        assert route == "shared", (n, route)
 
         def run(**kw):
             return kernels.svr_smo(x, y, C, EPSILON, gamma, TOL, **kw)
@@ -1176,9 +1205,8 @@ def svr_phase(smi):
         p_alpha, p_rho, p_it = _smo_plain(x, y, C, gamma)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        block_ms, (b_alpha, b_rho, b_stats) = _time_ms(
-            lambda: run(route="block"))
-        ms8, (a8, r8, s8) = _time_ms(lambda: run(cluster=8))
+        global_ms, (g_alpha, g_rho, g_stats) = _time_ms(
+            lambda: run(route="global"))
         got = _svr_model(x, alpha, rho, gamma).predict(x)
         want = _svr_model(x, p_alpha, p_rho, gamma).predict(x)
         pred_err = float((got - want).abs().max())
@@ -1187,29 +1215,28 @@ def svr_phase(smi):
                   abs(float(rho) - p_rho))
         same = bool(torch.equal(alpha, p_alpha)) and float(rho) == p_rho \
             and it == p_it
-        same_block = bool(torch.equal(alpha, b_alpha)) and \
-            float(rho) == float(b_rho) and it == int(b_stats[0])
-        same8 = bool(torch.equal(alpha, a8)) and float(rho) == float(r8) \
-            and it == int(s8[0])
+        same_global = bool(torch.equal(alpha, g_alpha)) and \
+            float(rho) == float(g_rho) and it == int(g_stats[0])
+        gap = _svr_gap(x, y, alpha, C, gamma)
         ms = statistics.median([first_ms] + [_time_ms(run)[0]
                                              for _ in range(2)])
         # the latency floor: every iteration waits for the probe's chain
         floor_ms = it * sync_us / 1e3
         print(f"# svr {shape} n={n} C={C} gamma={gamma!r} on {smi}: kernel "
-              f"({route} route, {cl} blocks) {ms!r} ms (median of 3, CUDA "
-              f"events), at 8 blocks {ms8!r} ms, one-block route {block_ms!r} "
-              f"ms (one call each), plain {plain_ms!r} ms (one call, host "
-              f"clock to a sync); iterations kernel {it} / plain {p_it}, mean "
-              f"active set {sum_active / max(1, it)!r}, {evals} kernel "
+              f"(state in {route} memory) {ms!r} ms (median of 3, CUDA "
+              f"events), state in global memory {global_ms!r} ms (one "
+              f"call), plain {plain_ms!r} ms (one call, host clock to a "
+              f"sync); iterations kernel {it} / plain {p_it}, mean active "
+              f"set {sum_active / max(1, it)!r}, {evals} kernel "
               f"evaluations; alpha, rho and iterations bitwise equal to the "
-              f"plain loop: {same}, to the one-block route: {same_block}, at "
-              f"8 blocks: {same8}; max |alpha, rho diff| {err!r}; max "
-              f"|prediction diff| {pred_err!r} of max |prediction| {scale!r}; "
-              f"latency floor {floor_ms!r} ms (one-block route "
-              f"{it * block_sync_us / 1e3!r} ms)", flush=True)
-        assert same and same_block and same8, \
-            (same, same_block, same8, it, p_it)
+              f"plain loop: {same}, to the global route: {same_global}; max "
+              f"|alpha, rho diff| {err!r}; max |prediction diff| "
+              f"{pred_err!r} of max |prediction| {scale!r}; recomputed "
+              f"stopping gap {gap!r} (tol {TOL}); latency floor "
+              f"{floor_ms!r} ms", flush=True)
+        assert same and same_global, (same, same_global, it, p_it)
         assert pred_err <= SVR_RTOL * scale, (pred_err, scale)
+        assert gap < SVR_GAP_SLACK * TOL, gap
         # FP64 work every SMO iteration needs over the active set, whatever
         # a solver caches: columns i and j of Q (7 each: 6 arithmetic, the
         # exp as one), the selection (6) and the G update (4); G_bar
@@ -1218,22 +1245,43 @@ def svr_phase(smi):
         res[tag] = {
             "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
             "iterations": it, "latency_floor_ms": floor_ms,
-            "block_route_ms": block_ms, "cluster8_ms": ms8,
+            "global_route_ms": global_ms,
             **_bound(24 * sum_active, 2 * n * 8 + 2 * n * 8, PEAK_FP64)}
-    # the route rule: both session fits take the cluster route; above the
-    # cluster's shared memory the one-block route takes over
-    assert kernels.svr_route(SVR_CV_N) == kernels.svr_route(CELLS) == \
-        "cluster" and kernels.svr_route(100000) == "block"
+    # beyond the shared memory: the global route's own traffic, a totals
+    # fit too large for any other route of the kernel and, in a smoke
+    # run's time, for the plain loop
+    n = SVR_GLOBAL_N
+    x_np, y_np, C, gamma = _svr_data("totals", n)
+    x = torch.as_tensor(x_np, dtype=torch.float64, device=DEVICE)
+    y = torch.as_tensor(y_np, dtype=torch.float64, device=DEVICE)
+    route = kernels.svr_route(n)
+    g_ms, (alpha, rho, stats) = _time_ms(
+        lambda: kernels.svr_smo(x, y, C, EPSILON, gamma, TOL))
+    it, sum_active, evals = (int(v) for v in stats.cpu())
+    gap = _svr_gap(x, y, alpha, C, gamma)
+    ap, an = alpha[:n], alpha[n:]
+    balance = abs(float(ap.sum() - an.sum()))
+    in_box = bool(((alpha >= 0) & (alpha <= C)).all())
+    print(f"# svr totals n={n} C={C} gamma={gamma!r} on {smi}: kernel (state "
+          f"in {route} memory) {g_ms!r} ms (one call, CUDA events); "
+          f"iterations {it}, mean active set {sum_active / max(1, it)!r}, "
+          f"{evals} kernel evaluations; recomputed stopping gap {gap!r} "
+          f"(tol {TOL}); |sum alpha+ - sum alpha-| {balance!r}; alpha in "
+          f"[0, C]: {in_box}; rho {float(rho)!r}; latency floor "
+          f"{it * sync_us / 1e3!r} ms", flush=True)
+    assert route == "global" and it > 0 and in_box and \
+        np.isfinite(float(rho)) and gap < SVR_GAP_SLACK * TOL and \
+        balance <= 1e-6 * C, (route, it, in_box, gap, balance)
     out = dict(res["cv"])
     out.update(totals_ms=res["totals"]["ms"],
                totals_iterations=res["totals"]["iterations"],
                totals_plain_ms=res["totals"]["plain_ms"],
                totals_bound_ms=res["totals"]["bound_ms"],
                totals_latency_floor_ms=res["totals"]["latency_floor_ms"],
-               totals_block_route_ms=res["totals"]["block_route_ms"],
-               totals_cluster8_ms=res["totals"]["cluster8_ms"],
-               sync_us_per_iteration=sync_us,
-               block_sync_us_per_iteration=block_sync_us, cluster_blocks=cl)
+               totals_global_route_ms=res["totals"]["global_route_ms"],
+               global_n=n, global_n_ms=g_ms, global_n_iterations=it,
+               global_n_latency_floor_ms=it * sync_us / 1e3,
+               sync_us_per_iteration=sync_us, cluster_blocks=cl)
     return out
 
 
@@ -1471,8 +1519,8 @@ def heuristic_phase(smi):
         smooth=0.5, steps=(40, 40), n_neighbors=100))
     total = time.perf_counter() - t_all
     launches = _launches()
-    svr_routes = {"cluster": kernels.svr_cluster_launches,
-                  "block": kernels.svr_block_launches}
+    svr_routes = {"shared": kernels.svr_shared_launches,
+                  "global": kernels.svr_global_launches}
     peak = torch.cuda.max_memory_allocated()
     print(f"# heuristic session total: {total:.3f} s on {smi}; SVR fits "
           f"(points, iterations, support vectors) {fits}; genes kept "
@@ -1490,7 +1538,7 @@ def heuristic_phase(smi):
         fits[1][0] == CELLS, fits
     assert launches["svr"] == 2 and launches["partial"] == 1 and \
         launches["dense"] == 0 and launches["fma"] == 0, launches
-    assert svr_routes == {"cluster": 2, "block": 0}, svr_routes
+    assert svr_routes == {"shared": 2, "global": 0}, svr_routes
     # two launches per gradient, one gradient per t-SNE iteration
     assert 500 < launches["tsne"] <= 2000 and launches["tsne"] % 2 == 0, \
         launches
@@ -1576,8 +1624,7 @@ def main():
                       "svr_cv_iterations": svr["iterations"],
                       "svr_sync_us_per_iteration":
                           svr["sync_us_per_iteration"],
-                      "svr_block_sync_us_per_iteration":
-                          svr["block_sync_us_per_iteration"],
+                      "svr_global_n_ms": svr["global_n_ms"],
                       "tsne_pass_ms_by_dim": tsne["pass_ms_by_dim"],
                       "tsne_1000_iterations_s": tsne["tsne_s"],
                       "tsne3_launches": tsne["tsne3_launches"]}))
@@ -1619,14 +1666,16 @@ def main():
          "max_abs_err": svr["max_abs_err"], "ms": svr["ms"],
          "plain_ms": svr["plain_ms"], "bound_ms": svr["bound_ms"],
          "bound_by": svr["bound_by"], "library_ms": None,
-         "svr_route": "cluster", "cluster_blocks": svr["cluster_blocks"],
+         "svr_route": "shared", "cluster_blocks": svr["cluster_blocks"],
          "latency_floor_ms": svr["latency_floor_ms"],
-         "block_route_ms": svr["block_route_ms"],
+         "global_route_ms": svr["global_route_ms"],
          "totals_ms": svr["totals_ms"],
          "totals_plain_ms": svr["totals_plain_ms"],
          "totals_bound_ms": svr["totals_bound_ms"],
          "totals_latency_floor_ms": svr["totals_latency_floor_ms"],
-         "totals_block_route_ms": svr["totals_block_route_ms"]},
+         "totals_global_route_ms": svr["totals_global_route_ms"],
+         "global_n": svr["global_n"], "global_n_ms": svr["global_n_ms"],
+         "global_n_latency_floor_ms": svr["global_n_latency_floor_ms"]},
         {"name": "tsne_grad", "route": "cuda",
          "source": "velocyto_tpu_torch/kernels/tsne_grad.cu",
          "replaces": "velocyto_tpu/analysis.py:1070",

@@ -16,6 +16,8 @@ predictions agree to rtol 1e-9 / atol 1e-12, the difference being the
 order of the float64 sums over the support vectors.  The VelocytoLoom
 outputs fed by the fits agree to the same 1e-9 / 1e-12; the selections
 made from them are equal."""
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -113,25 +115,41 @@ def test_sync_probe_refuses_before_building(device, reps):
     least one round; it refuses anything else before any build."""
     with pytest.raises(ValueError):
         kernels.svr_sync_probe(reps, device)
+    assert kernels._lib is None
 
 
 def test_route_rule():
-    """The cluster route takes the heuristic session's two fits (12,000
-    genes, 20,000 cells) and every size whose shared state (37 B a
-    position, in whole rounds of 512 positions a block) fits 200 KiB a
-    block; above it the one-block route takes over."""
-    for cluster in (8, 16):
-        for l in (1, 600, 12000, 20000):
-            assert kernels.svr_route(l, cluster) == "cluster", (l, cluster)
+    """The state stays in shared memory for the heuristic session's two
+    fits (12,000 genes, 20,000 cells) and every size whose share (37 B a
+    position, in whole rounds of 512 positions a block) fits 200 KiB in
+    each of the cluster's 16 blocks; above it, in global memory."""
+    for l in (1, 600, 12000, 20000):
+        assert kernels.svr_route(l) == "shared", l
     # the largest l whose 2l positions fill each of 16 blocks to 10 rounds
     # of 512 (189,440 B), and the next one, which needs 11 (208,384 B)
-    assert kernels.svr_route(40960, 16) == "cluster"
-    assert kernels.svr_route(40961, 16) == "block"
-    assert kernels.svr_route(20480, 8) == "cluster"
-    assert kernels.svr_route(20481, 8) == "block"
-    assert kernels.svr_route(100000) == "block"
-    assert kernels.svr_route(20000) == kernels.svr_route(
-        20000, kernels.SVR_CLUSTER)
+    assert kernels.svr_route(40960) == "shared"
+    assert kernels.svr_route(40961) == "global"
+    assert kernels.svr_route(100000) == kernels.svr_route(2 ** 29) == \
+        "global"
+
+
+def _constants(source):
+    """{name: value} of the `constexpr int` constants of a kernel source,
+    each evaluated over the ones before it."""
+    import re
+    found = {}
+    text = (Path(kernels.__file__).parent / source).read_text()
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", text):
+        found[name] = eval(expr, {}, dict(found))
+    return found
+
+
+@pytest.mark.parametrize("name, value", [
+    ("kThreads", kernels._SVR_THREADS), ("kCluster", kernels.SVR_CLUSTER),
+    ("kSlotBytes", kernels._SVR_SLOT_BYTES), ("kMaxSmem", kernels._SVR_SMEM)])
+def test_route_rule_constants_match_kernel(name, value):
+    """The route rule's sizes are the kernel's, read from its source."""
+    assert _constants("svr_smo.cu")[name] == value
 
 
 class _OnCard:
@@ -157,14 +175,14 @@ _F64 = dict(dtype=torch.float64)
     (torch.zeros(8, **_F64), torch.zeros(7, **_F64), {}),     # lengths
     (torch.zeros(0, **_F64), torch.zeros(0, **_F64), {}),     # empty
     (torch.zeros(8, **_F64), torch.zeros(8, **_F64), {"route": "warp"}),
-    (torch.zeros(8, **_F64), torch.zeros(8, **_F64), {"cluster": 17}),
-    (torch.zeros(8, **_F64), torch.zeros(8, **_F64), {"cluster": 0}),
+    (torch.zeros(8, **_F64), torch.zeros(8, **_F64), {"route": "cluster"}),
+    (torch.zeros(8, **_F64), torch.zeros(8, **_F64), {"route": "block"}),
     (torch.zeros(50000, **_F64), torch.zeros(50000, **_F64),
-     {"route": "cluster"}),                          # beyond shared memory
+     {"route": "shared"}),                           # beyond shared memory
 ])
 def test_solver_refuses_before_building(x, target, kw):
-    """svr_smo refuses bad dtypes, ranks, lengths, routes and cluster
-    sizes, and CPU tensors, before any build."""
+    """svr_smo refuses bad dtypes, ranks, lengths and routes, and CPU
+    tensors, before any build."""
     with pytest.raises((ValueError, TypeError)):
         kernels.svr_smo(_OnCard(x), _OnCard(target), 1.0, 0.1, 1.0, 1e-3,
                         **kw)
@@ -172,17 +190,6 @@ def test_solver_refuses_before_building(x, target, kw):
         kernels.svr_smo(x.to(torch.float64), target.to(torch.float64), 1.0,
                         0.1, 1.0, 1e-3)
     assert kernels._lib is None and kernels.svr_launches == 0
-
-
-@pytest.mark.parametrize("device, reps, cluster", [
-    ("cpu", 10, 16), ("cuda", 0, 16), ("cuda", 10, 0), ("cuda", 10, 17)])
-def test_cluster_sync_probe_refuses_before_building(device, reps, cluster):
-    """The cluster route's latency probe runs on a CUDA device only, for
-    at least one round, in a cluster of 1 to 16 blocks; it refuses
-    anything else before any build."""
-    with pytest.raises(ValueError):
-        kernels.svr_cluster_sync_probe(reps, cluster, device)
-    assert kernels._lib is None
 
 
 def _synthetic_loom(mod, seed, **extra):

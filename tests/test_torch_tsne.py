@@ -34,6 +34,7 @@ from velocyto_tpu_torch import kernels
 from velocyto_tpu_torch.ops import tsne as tt
 
 from test_torch_pipeline import CPU
+from test_torch_svr import _constants
 
 
 def _clusters(n, d, seed):
@@ -191,6 +192,15 @@ def _kt_inputs(n=5, d=2, nnz=7, **override):
 @pytest.mark.parametrize("d", [1, 2, 3])
 def test_kernel_checks_take_one_to_three_dims(d):
     assert kernels._tsne_check(**_kt_inputs(d=d)) == (5, d)
+
+
+@pytest.mark.parametrize("name, value", [
+    ("kBlockRows", kernels._TSNE_BLOCK_ROWS),
+    ("kWarpsAttract", kernels._TSNE_WARPS)])
+def test_scratch_sizes_match_kernel(name, value):
+    """The wrapper sizes the passes' partials with the kernel's rows per
+    block, read from its source."""
+    assert _constants("tsne_grad.cu")[name] == value
 
 
 @pytest.mark.parametrize("bad", [

@@ -19,10 +19,10 @@ module that calls it and serves CPU tensors there:
 ``svr_launches`` and ``tsne_launches`` count each kernel's launches (a
 ``tsne_grad`` call, one gradient, adds two: the pair pass and the
 attractive pass), so a run can show that its main path went through it;
-``svr_cluster_launches`` and ``svr_block_launches`` split the SVR
-solver's launches by route (``svr_route``).  ``svr_sync_probe`` and
-``svr_cluster_sync_probe`` are measurement probes beside the two SVR
-routes, not path kernels, and have no count.
+``svr_shared_launches`` and ``svr_global_launches`` split the SVR
+solver's launches by where it keeps its state (``svr_route``).
+``svr_sync_probe`` is a measurement probe beside the SVR solver, not a
+path kernel, and has no count.
 """
 from __future__ import annotations
 
@@ -44,8 +44,8 @@ dense_launches = 0      # launches of the dense colDeltaCor kernel
 partial_launches = 0    # launches of the sampled colDeltaCor kernel
 fma_launches = 0        # launches of the FMA-chain probe
 svr_launches = 0        # launches of the SVR solver (one per fit)
-svr_cluster_launches = 0    # of them, the cluster route's
-svr_block_launches = 0      # of them, the one-block route's
+svr_shared_launches = 0     # of them, with the state in shared memory
+svr_global_launches = 0     # of them, with the state in global memory
 tsne_launches = 0       # launches of the t-SNE gradient (two per call)
 build_log = ""          # nvcc's output (-Xptxas -v) from the last build
 
@@ -61,12 +61,8 @@ _SIGNATURES = {
     "fma_probe": ("fma_probe", "vtt_fma_probe",
                   [_P, _P, ctypes.c_int64, _P]),
     "svr_smo": ("svr_smo", "vtt_svr_smo",
-                [_P] * 15 + [_I, _D, _D, _D, _D, _P]),
-    "svr_smo_cluster": ("svr_smo", "vtt_svr_smo_cluster",
-                        [_P] * 14 + [_I, _D, _D, _D, _D, _I, _P]),
+                [_P] * 15 + [_I, _D, _D, _D, _D, _I, _P]),
     "svr_sync_probe": ("svr_smo", "vtt_svr_sync_probe", [_I, _P, _P]),
-    "svr_cluster_sync_probe": ("svr_smo", "vtt_svr_cluster_sync_probe",
-                               [_I, _I, _P, _P]),
     "tsne_pairs": ("tsne_grad", "vtt_tsne_pairs",
                    [_P, _I, _I, _I, _P, _P, _P, _P, _P]),
     "tsne_attract": ("tsne_grad", "vtt_tsne_attract",
@@ -279,128 +275,90 @@ def fma_probe(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-SVR_CLUSTER = 16           # blocks of the cluster route
+SVR_CLUSTER = 16           # blocks of the solver's cluster, kCluster
 _SVR_THREADS = 512         # svr_smo.cu kThreads
 _SVR_SLOT_BYTES = 37       # kSlotBytes: shared state per position
-_SVR_CLUSTER_SMEM = 200 * 1024   # kMaxClusterSmem: per block
+_SVR_SMEM = 200 * 1024     # kMaxSmem: of it, a block at most
 
 
-def svr_route(l: int, cluster: int = SVR_CLUSTER) -> str:
-    """The solver route for l samples (2l positions): "cluster" while each
-    of the cluster's blocks holds its share of the shared state (whole
-    multiples of the block's threads, 37 B a position) in 200 KiB, else
-    "block", the one-block kernel with the state in global memory."""
-    per_block = -(-2 * l // (cluster * _SVR_THREADS)) * _SVR_THREADS
-    return "cluster" if per_block * _SVR_SLOT_BYTES <= _SVR_CLUSTER_SMEM \
-        else "block"
-
-
-def _check_cluster(cluster: int) -> None:
-    if not 1 <= cluster <= 16:
-        raise ValueError(f"cluster must be 1..16 blocks, got {cluster}")
+def svr_route(l: int) -> str:
+    """Where the solver keeps its per-iteration state for l samples (2l
+    positions): "shared" while each of the cluster's blocks holds its
+    share (whole multiples of the block's threads, 37 B a position) in
+    200 KiB of shared memory, else "global"; the same loop either way."""
+    per_block = -(-2 * l // (SVR_CLUSTER * _SVR_THREADS)) * _SVR_THREADS
+    return "shared" if per_block * _SVR_SLOT_BYTES <= _SVR_SMEM \
+        else "global"
 
 
 def svr_smo(x: torch.Tensor, target: torch.Tensor, C: float,
             epsilon: float, gamma: float, tol: float,
-            route: Optional[str] = None, cluster: int = SVR_CLUSTER
+            route: Optional[str] = None
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """libsvm's epsilon-SVR solve (RBF kernel, one feature, shrinking, no
-    iteration cap) on the card in one launch: x, target (l,) float64
-    CUDA tensors -> (alpha (2l,) float64 in original order, rho (1,)
-    float64, stats (3,) int64 = iterations, sum of the active-set sizes
-    over them, kernel evaluations).  route: "cluster" (a cluster of
-    `cluster` blocks, the state in their shared memory) or "block" (one
-    block); None takes ``svr_route(l, cluster)``.  The two give bitwise
-    equal results.  Launches on the current stream and does not
-    synchronise."""
-    global svr_launches, svr_cluster_launches, svr_block_launches
+    iteration cap) on the card in one launch of a thread-block cluster:
+    x, target (l,) float64 CUDA tensors -> (alpha (2l,) float64 in
+    original order, rho (1,) float64, stats (3,) int64 = iterations, sum
+    of the active-set sizes over them, kernel evaluations).  route:
+    "shared" or "global", where the cluster keeps its state; None takes
+    ``svr_route(l)``.  The two give bitwise equal results.  Launches on
+    the current stream and does not synchronise."""
+    global svr_launches, svr_shared_launches, svr_global_launches
     _check("x", x, (torch.float64,), dim=1)
     _check("target", target, (torch.float64,), dim=1)
     _check_same_device(x=x, target=target)
-    _check_cluster(cluster)
     l = x.numel()
     if target.numel() != l or l < 1 or l > 2 ** 29:
         raise ValueError(f"unsupported shapes: x {tuple(x.shape)}, target "
                          f"{tuple(target.shape)}")
     if route is None:
-        route = svr_route(l, cluster)
-    if route not in ("cluster", "block") or \
-            route == "cluster" and svr_route(l, cluster) != "cluster":
-        raise ValueError(f"route {route!r} cannot take l={l} with cluster "
-                         f"{cluster}")
+        route = svr_route(l)
+    if route not in ("shared", "global") or \
+            route == "shared" and svr_route(l) != "shared":
+        raise ValueError(f"route {route!r} cannot take l={l}")
     dev, n2 = x.device, 2 * l
-    names = [("G", torch.float64), ("Gbar", torch.float64),
-             ("alpha", torch.float64), ("p", torch.float64),
-             ("xs", torch.float64), ("flags", torch.uint8),
-             ("aset", torch.int32), ("qi", torch.float32),
-             ("posL", torch.int32), ("posR", torch.int32)]
-    if route == "cluster":          # column i lives in shared memory
-        names.remove(("qi", torch.float32))
-    work = [torch.empty(n2, dtype=dt, device=dev) for _, dt in names]
+    work = [torch.empty(n2, dtype=dt, device=dev) for dt in (
+        torch.float64, torch.float64, torch.float64, torch.float64,
+        torch.float64, torch.uint8, torch.int32, torch.float32, torch.int32,
+        torch.int32)]     # G, Gbar, alpha, p, xs, flags, aset, qi, posL, posR
     alpha = torch.empty(n2, dtype=torch.float64, device=dev)
     rho = torch.empty(1, dtype=torch.float64, device=dev)
     stats = torch.zeros(3, dtype=torch.int64, device=dev)
-    args = (x.data_ptr(), target.data_ptr(), *(t.data_ptr() for t in work),
-            alpha.data_ptr(), rho.data_ptr(), stats.data_ptr(), l, float(C),
-            float(epsilon), float(gamma), float(tol))
-    if route == "cluster":
-        _launch("svr_smo_cluster", dev, *args, int(cluster))
-        svr_cluster_launches += 1
+    _launch("svr_smo", dev, x.data_ptr(), target.data_ptr(),
+            *(t.data_ptr() for t in work), alpha.data_ptr(),
+            rho.data_ptr(), stats.data_ptr(), l, float(C), float(epsilon),
+            float(gamma), float(tol), int(route == "shared"))
+    if route == "shared":
+        svr_shared_launches += 1
     else:
-        _launch("svr_smo", dev, *args)
-        svr_block_launches += 1
+        svr_global_launches += 1
     svr_launches += 1
     return alpha, rho, stats
 
 
-def _probe_device(name: str, reps: int,
-                  device: Union[str, torch.device]) -> torch.device:
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError(f"{name} runs on a CUDA device, got {device}")
-    if reps < 1:
-        raise ValueError(f"reps must be >= 1, got {reps}")
-    return device
-
-
 def svr_sync_probe(reps: int, device: Union[str, torch.device] = "cuda"
                    ) -> torch.Tensor:
-    """Run `reps` rounds of the one-block SVR route's per-iteration
-    synchronisation (two block reductions, the step on one thread, two
-    barriers) in one block of the solver's size, with no pass over any
-    variables; returns a (1,) float64 tensor.  Timed, it gives the latency
-    floor of one SMO iteration of the "block" route.  A measurement probe,
-    not counted.  Launches on the current stream and does not
-    synchronise."""
-    device = _probe_device("svr_sync_probe", reps, device)
+    """Run `reps` rounds of the SVR solver's per-iteration synchronisation
+    (two block reductions, each pushed into every block's inbox through
+    distributed shared memory, a cluster barrier and a pick in rank
+    order, and the step on every thread) in one cluster of the solver's
+    shape, with no pass over any variables; returns a (1,) float64
+    tensor.  Timed, it gives the latency floor of one SMO iteration.  A
+    measurement probe, not counted.  Launches on the current stream and
+    does not synchronise."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"svr_sync_probe runs on a CUDA device, got {device}")
+    if reps < 1:
+        raise ValueError(f"reps must be >= 1, got {reps}")
     out = torch.empty(1, dtype=torch.float64, device=device)
     _launch("svr_sync_probe", device, int(reps), out.data_ptr())
-    return out
-
-
-def svr_cluster_sync_probe(reps: int, cluster: int = SVR_CLUSTER,
-                           device: Union[str, torch.device] = "cuda"
-                           ) -> torch.Tensor:
-    """Run `reps` rounds of the cluster route's per-iteration
-    synchronisation (two block reductions, each pushed into every block's
-    inbox through distributed shared memory, a cluster barrier and a pick
-    in rank order, and the step on every thread) in one cluster of
-    `cluster` blocks, with no pass over any variables; returns a (1,)
-    float64 tensor.  Timed, it gives the latency floor of one SMO
-    iteration of the "cluster" route.  A measurement probe, not counted.
-    Launches on the current stream and does not synchronise."""
-    device = _probe_device("svr_cluster_sync_probe", reps, device)
-    _check_cluster(cluster)
-    out = torch.empty(1, dtype=torch.float64, device=device)
-    _launch("svr_cluster_sync_probe", device, int(reps), int(cluster),
-            out.data_ptr())
     return out
 
 
 _TSNE_BLOCK_ROWS = 256     # tsne_grad.cu kBlockRows
 _TSNE_WARPS = 8            # kWarpsAttract: rows per block of the second pass
 _TSNE_BLOCKS_PER_SM = 16   # pair-pass blocks per SM, the target
-_tsne_tickets: Dict[torch.device, torch.Tensor] = {}
 
 
 def tsne_splits(n: int, sms: int) -> int:
@@ -432,13 +390,13 @@ def _tsne_prepare(y: torch.Tensor, indptr: torch.Tensor,
                   indices: torch.Tensor, pval: torch.Tensor
                   ) -> Dict[str, Any]:
     """Check the inputs of a gradient and allocate its outputs and
-    scratch."""
+    scratch.  The scratch is the call's own, the ticket (an int32 the
+    last block of each pass takes and sets back to 0) included, so calls
+    on different streams may overlap."""
     n, d = _tsne_check(y, indptr, indices, pval)
     dev = y.device
     splits = tsne_splits(
         n, torch.cuda.get_device_properties(dev).multi_processor_count)
-    if dev not in _tsne_tickets:      # reset to 0 by each kernel's last block
-        _tsne_tickets[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
     f64 = dict(dtype=torch.float64, device=dev)
     return dict(
         y=y, n=n, d=d, splits=splits, indptr=indptr, indices=indices,
@@ -446,7 +404,8 @@ def _tsne_prepare(y: torch.Tensor, indptr: torch.Tensor,
         zpart=torch.empty(-(-n // _TSNE_BLOCK_ROWS) * splits, **f64),
         z=torch.empty(1, **f64), grad=torch.empty_like(y),
         err_part=torch.empty(-(-n // _TSNE_WARPS), **f64),
-        err=torch.empty(1, **f64), ticket=_tsne_tickets[dev])
+        err=torch.empty(1, **f64),
+        ticket=torch.zeros(1, dtype=torch.int32, device=dev))
 
 
 def _tsne_pairs(w: Dict[str, Any]) -> None:
@@ -488,6 +447,6 @@ def tsne_grad(y: torch.Tensor, indptr: torch.Tensor, indices: torch.Tensor,
 def reset_counts() -> None:
     """Set every launch count to 0."""
     global dense_launches, partial_launches, fma_launches, svr_launches, \
-        svr_cluster_launches, svr_block_launches, tsne_launches
+        svr_shared_launches, svr_global_launches, tsne_launches
     dense_launches = partial_launches = fma_launches = svr_launches = \
-        svr_cluster_launches = svr_block_launches = tsne_launches = 0
+        svr_shared_launches = svr_global_launches = tsne_launches = 0

@@ -12,50 +12,38 @@
 // with libsvm's swap order, the unshrink at 10 tol, the gradient
 // reconstruction, and rho from a sequential sum.  Every product that
 // libsvm adds to something is written with __dmul_rn / __dadd_rn, which
-// the compiler never fuses into an FMA, so each rounds as libsvm's does.
+// the compiler never fuses into an FMA, so each rounds as libsvm does.
 //
 // What bounds it: latency.  The loop is sequential, 5k-26k iterations at
-// the sizes velocyto fits, each a handful of dependent passes over the
-// active set (2l x ~40 B, 1.6 MB at l = 20,000).  A plain torch loop pays
-// several launches and a host sync per iteration.
+// the sizes velocyto fits, each a few dependent passes over the active
+// set.  A plain torch loop pays several launches and a host sync per
+// iteration.
 //
-// Two routes, both the same loop with the same roundings, so their alpha,
-// rho and iteration counts are bitwise equal:
+// The design: one thread-block cluster of kCluster blocks on as many SMs.
+// Thread t of block b owns the positions k = b kThreads + t (mod the
+// cluster's threads), so the active prefix stays evenly split as
+// shrinking cuts it.  The state the loop reads every iteration (G, G_bar,
+// alpha, x, column i of Q, the flags: kSlotBytes a position) lives in each
+// block's shared memory where the cluster holds it (kMaxSmem a block, up
+// to l = 40,960), else in the global arrays, in the same loop
+// (svr_smo_kernel<false>); p and the active-set map stay in global memory,
+// touched only by shrinking and reconstruction.  A working-set selection
+// reduces each block's positions; the warp owning the block's winner
+// pushes it, with the winner's state, into every block's inbox through
+// distributed shared memory; after one cluster barrier every block
+// reduces its inbox in rank order and reaches the same (i, j): the
+// (value, index) reductions with ties to the last index are associative
+// and commutative, so the choice is libsvm's.  Every thread runs the
+// two-variable step on the same inputs, so nothing else is broadcast.
+// The G update of one iteration also computes the next iteration's Gmax
+// candidates (two passes per iteration, not three) except where shrinking
+// follows.  Shrinking and reconstruction work on global memory across the
+// cluster (libsvm's swap order from two cluster-wide scans), the shared
+// state written out before and read back after.
 //
-// svr_smo_cluster_kernel (the route for 2l up to what a cluster's shared
-// memory holds): one thread-block cluster of 8 or 16 blocks on as many
-// SMs.  Each block keeps the state of its positions in its own shared
-// memory (G, G_bar, alpha, x, column i of Q, the flags: 37 B a position);
-// p and the active-set map stay in global memory, touched only by
-// shrinking and reconstruction.  Thread t of block b owns the positions
-// k = b kThreads + t (mod cluster threads), so the active prefix stays
-// evenly split as shrinking cuts it.  A working-set selection reduces
-// each block's positions; the warp owning the block's winner pushes it,
-// with the winner's state, into every block's inbox through distributed
-// shared memory; after one cluster barrier every block reduces its inbox
-// in rank order and reaches the same (i, j): the (value, index)
-// reductions with ties to the last index are associative and
-// commutative, so the choice is the one-block route's.  Every thread runs
-// the two-variable step on the same inputs, so nothing else is
-// broadcast.  The G update of one iteration also computes the next
-// iteration's Gmax candidates (two passes per iteration, not three)
-// except where shrinking follows.  Shrinking and reconstruction write the
-// shared state out, work on global memory across the cluster (libsvm's
-// swap order from two cluster-wide scans) and read it back.
-//
-// svr_smo_kernel (any l, the route for sizes beyond the cluster's shared
-// memory): one persistent block of kThreads threads owns every variable
-// (thread t owns the positions k = t (mod kThreads)), with the state in
-// global memory behind L2, so an iteration costs block barriers, not
-// launches: the two working-set reductions as (value, index) warp
-// shuffles, the kernel column i kept in a float buffer for the gradient
-// update, column j computed on the fly, the two-variable step on thread 0,
-// and G (and, when a bound changes, G_bar) updated in one fused pass.
-// Nothing is read back per iteration.
-//
-// C interface (bound with ctypes): vtt_svr_smo, vtt_svr_smo_cluster and
-// the two synchronisation probes return the cudaError_t of the launch as
-// an int; 0 means the kernel was queued.
+// C interface (bound with ctypes): vtt_svr_smo and vtt_svr_sync_probe
+// return the cudaError_t of the launch as an int; 0 means the kernel was
+// queued.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -68,6 +56,9 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+constexpr int kCluster = 16;                   // blocks (non-portable size)
+constexpr int kSlotBytes = 4 * 8 + 4 + 1;      // shared state a position
+constexpr int kMaxSmem = 200 * 1024;           // of it, a block at most
 constexpr double kTau = 1e-12;
 // per-position flags: the status in the low two bits, the sign in bit 2
 constexpr uint8_t kLower = 0, kUpper = 1, kFree = 2, kStatus = 3, kPos = 4;
@@ -80,7 +71,7 @@ struct State {
   double* x;      // the sample of each position
   uint8_t* f;     // status and sign
   int* aset;      // original position (libsvm's active_set)
-  float* qi;      // column i of Q over the active set
+  float* qi;      // column i of Q (the global-memory form only)
   int* posL;      // shrinking: k-th shrinkable position from the left
   int* posR;      // shrinking: k-th kept position from the right
   int L;
@@ -172,6 +163,23 @@ __device__ T block_reduce(T v, Op op, T id, T* buf) {
   return r;
 }
 
+// Reduce v over the block; every thread gets the result.  Two barrier-free
+// shuffle levels around one __syncthreads: wbuf may be written again only
+// after a barrier that every thread passes after reading it (each caller
+// below reaches a cluster barrier first).
+template <class T, class Op>
+__device__ T block_all(T v, Op op, T id, T* wbuf) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = op(v, shfl(v, o));
+  if (lane == 0) wbuf[warp] = v;
+  __syncthreads();
+  v = lane < kWarps ? wbuf[lane] : id;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = op(v, shfl(v, o));
+  return v;
+}
+
 // Exclusive prefix sum of one int per thread, and the total.
 __device__ int block_scan(int v, int* buf, int* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -213,11 +221,6 @@ __device__ __forceinline__ float q_entry(double xc, bool pc, double xk,
 __device__ __forceinline__ bool is_pos(uint8_t f) { return f & kPos; }
 __device__ __forceinline__ int status_of(uint8_t f) { return f & kStatus; }
 
-// the first position >= lo that this thread owns
-__device__ __forceinline__ int first_owned(int lo) {
-  return lo + (int)(((unsigned)threadIdx.x - (unsigned)lo) % kThreads);
-}
-
 __device__ __forceinline__ bool be_shrunk(const State& s, int k, double gmax1,
                                           double gmax2) {
   const uint8_t f = s.f[k];
@@ -237,139 +240,6 @@ __device__ void swap_positions(const State& s, int a, int b) {
   t = s.x[a]; s.x[a] = s.x[b]; s.x[b] = t;
   const uint8_t f = s.f[a]; s.f[a] = s.f[b]; s.f[b] = f;
   const int i = s.aset[a]; s.aset[a] = s.aset[b]; s.aset[b] = i;
-}
-
-// Solver::reconstruct_gradient: G of the inactive positions from G_bar,
-// p and the free variables, summed in active order.
-__device__ void reconstruct(const State& s, int active, int* list,
-                            int* ibuf, long long& evals) {
-  if (active == s.L) return;
-  const int k0 = first_owned(active);
-  for (int k = k0; k < s.L; k += kThreads) s.G[k] = s.Gbar[k] + s.p[k];
-  for (int base = 0; base < active; base += kThreads) {
-    const int c = base + threadIdx.x;
-    const int fr = c < active && status_of(s.f[c]) == kFree;
-    int n_free;
-    const int at = block_scan(fr, ibuf, &n_free);
-    if (fr) list[at] = c;
-    __syncthreads();
-    for (int m = 0; m < n_free; ++m) {
-      const int c2 = list[m];
-      const double a = s.alpha[c2], xc = s.x[c2];
-      const bool pc = is_pos(s.f[c2]);
-      for (int k = k0; k < s.L; k += kThreads) {
-        const float q = q_entry(xc, pc, s.x[k], is_pos(s.f[k]), s.gamma);
-        ++evals;
-        s.G[k] = __dadd_rn(s.G[k], __dmul_rn(a, (double)q));
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Solver::select_working_set: true with (i, j), or false when optimal.
-// Leaves column i over the active set in s.qi.
-__device__ bool select_ws(const State& s, int active, int& out_i, int& out_j,
-                          long long& evals, void* buf) {
-  ArgBest best{-CUDART_INF, -1};
-  for (int k = threadIdx.x; k < active; k += kThreads) {
-    const uint8_t f = s.f[k];
-    const int st = status_of(f);
-    if (is_pos(f) ? st != kUpper : st != kLower) {
-      const double g = s.G[k];
-      best = later_max(best, {is_pos(f) ? -g : g, k});
-    }
-  }
-  best = block_reduce(best, MaxOp(), ArgBest{-CUDART_INF, -1},
-                      static_cast<ArgBest*>(buf));
-  const int i = best.i;
-  if (i < 0) return false;        // Gmax = -inf: no j qualifies
-  const double gmax = best.v;
-  const double xi = s.x[i];
-  const bool pi = is_pos(s.f[i]);
-  const double yi = pi ? 1.0 : -1.0;
-  Select2 acc{{CUDART_INF, -1}, -CUDART_INF};
-  for (int k = threadIdx.x; k < active; k += kThreads) {
-    const uint8_t f = s.f[k];
-    const int st = status_of(f);
-    const double g = s.G[k];
-    const float q = q_entry(xi, pi, s.x[k], is_pos(f), s.gamma);
-    ++evals;
-    s.qi[k] = q;
-    double grad_diff, quad;
-    if (is_pos(f)) {
-      if (st == kLower) continue;
-      grad_diff = gmax + g;
-      acc.g = fmax(acc.g, g);
-      quad = __dsub_rn(1.0 + 1.0, __dmul_rn(2.0 * yi, (double)q));
-    } else {
-      if (st == kUpper) continue;
-      grad_diff = gmax - g;
-      acc.g = fmax(acc.g, -g);
-      quad = __dadd_rn(1.0 + 1.0, __dmul_rn(2.0 * yi, (double)q));
-    }
-    if (grad_diff > 0) {
-      const double obj = -(grad_diff * grad_diff) / (quad > 0 ? quad : kTau);
-      acc.m = later_min(acc.m, {obj, k});
-    }
-  }
-  acc = block_reduce(acc, Select2Op(),
-                     Select2{{CUDART_INF, -1}, -CUDART_INF},
-                     static_cast<Select2*>(buf));
-  if (gmax + acc.g < s.eps || acc.m.i < 0) return false;
-  out_i = i;
-  out_j = acc.m.i;
-  return true;
-}
-
-// Solver::do_shrinking; returns the new active size.
-__device__ int do_shrinking(const State& s, int active, bool& unshrink,
-                            int* list, int* ibuf, void* buf,
-                            long long& evals) {
-  double2 m = make_double2(-CUDART_INF, -CUDART_INF);   // Gmax1, Gmax2
-  for (int k = threadIdx.x; k < active; k += kThreads) {
-    const uint8_t f = s.f[k];
-    const int st = status_of(f);
-    const double g = s.G[k];
-    if (is_pos(f)) {
-      if (st != kUpper) m.x = fmax(m.x, -g);
-      if (st != kLower) m.y = fmax(m.y, g);
-    } else {
-      if (st != kUpper) m.y = fmax(m.y, -g);
-      if (st != kLower) m.x = fmax(m.x, g);
-    }
-  }
-  m = block_reduce(m, Max2Op(), make_double2(-CUDART_INF, -CUDART_INF),
-                   static_cast<double2*>(buf));
-  if (!unshrink && m.x + m.y <= s.eps * 10) {
-    unshrink = true;
-    reconstruct(s, active, list, ibuf, evals);
-    active = s.L;
-  }
-  // libsvm's loop swaps the k-th shrinkable position from the left with
-  // the k-th kept one from the right while the first lies left of the
-  // second; rank both over contiguous segments, then swap the pairs
-  const int seg = (active + kThreads - 1) / kThreads;
-  const int lo = min(active, (int)threadIdx.x * seg);
-  const int hi = min(active, lo + seg);
-  int cnt = 0;
-  for (int k = lo; k < hi; ++k) cnt += be_shrunk(s, k, m.x, m.y);
-  int n_shrunk;
-  int rs = block_scan(cnt, ibuf, &n_shrunk);
-  const int n_kept = active - n_shrunk;
-  int rk = lo - rs;
-  for (int k = lo; k < hi; ++k) {
-    if (be_shrunk(s, k, m.x, m.y)) s.posL[rs++] = k;
-    else s.posR[n_kept - 1 - rk++] = k;
-  }
-  __syncthreads();
-  const int pairs = min(n_shrunk, n_kept);
-  for (int t = threadIdx.x; t < pairs; t += kThreads) {
-    const int a = s.posL[t], b = s.posR[t];
-    if (a < b) swap_positions(s, a, b);
-  }
-  __syncthreads();
-  return n_kept;
 }
 
 // The two-variable step of Solver::Solve: ai, aj (alpha_i, alpha_j) moved
@@ -416,74 +286,6 @@ __device__ __forceinline__ void two_variable_step(double C, double Gi,
   }
 }
 
-// The two-variable step of Solver::Solve on thread 0, then G over the
-// active set and, where a bound changed, G_bar over all positions.
-__device__ void update(const State& s, int active, int i, int j,
-                       double* dsh, int* ish, long long& evals) {
-  if (threadIdx.x == 0) {
-    const double C = s.C;
-    const double Gi = s.G[i], Gj = s.G[j];
-    const double ai0 = s.alpha[i], aj0 = s.alpha[j];
-    const float qij = s.qi[j];
-    double ai = ai0, aj = aj0;
-    two_variable_step(C, Gi, Gj, qij, is_pos(s.f[i]) != is_pos(s.f[j]), ai,
-                      aj);
-    s.alpha[i] = ai;
-    s.alpha[j] = aj;
-    dsh[0] = ai - ai0;
-    dsh[1] = aj - aj0;
-    const int idx[2] = {i, j};
-    const double a[2] = {ai, aj};
-    for (int t = 0; t < 2; ++t) {
-      const uint8_t f = s.f[idx[t]];
-      const bool was_upper = status_of(f) == kUpper;
-      const uint8_t st = a[t] >= C ? kUpper : (a[t] <= 0 ? kLower : kFree);
-      s.f[idx[t]] = (uint8_t)((f & kPos) | st);
-      // +1: became upper bound (G_bar += C Q), -1: left it (G_bar -= C Q)
-      ish[t] = was_upper == (st == kUpper) ? 0 : (was_upper ? -1 : 1);
-    }
-  }
-  __syncthreads();
-  const double dai = dsh[0], daj = dsh[1], C = s.C;
-  const int ci = ish[0], cj = ish[1];
-  const double xi = s.x[i], xj = s.x[j];
-  const bool pi = is_pos(s.f[i]), pj = is_pos(s.f[j]);
-  const int hi = (ci || cj) ? s.L : active;
-  for (int k = threadIdx.x; k < hi; k += kThreads) {
-    const double xk = s.x[k];
-    const bool pk = is_pos(s.f[k]);
-    const bool in_active = k < active;
-    float qj = 0.f;
-    if (in_active || cj) {
-      qj = q_entry(xj, pj, xk, pk, s.gamma);
-      ++evals;
-    }
-    if (in_active)
-      s.G[k] = __dadd_rn(s.G[k], __dadd_rn(__dmul_rn((double)s.qi[k], dai),
-                                           __dmul_rn((double)qj, daj)));
-    if (ci || cj) {
-      double gb = s.Gbar[k];
-      if (ci) {
-        float qik;
-        if (in_active) {
-          qik = s.qi[k];
-        } else {
-          qik = q_entry(xi, pi, xk, pk, s.gamma);
-          ++evals;
-        }
-        const double cq = __dmul_rn(C, (double)qik);
-        gb = ci > 0 ? __dadd_rn(gb, cq) : __dsub_rn(gb, cq);
-      }
-      if (cj) {
-        const double cq = __dmul_rn(C, (double)qj);
-        gb = cj > 0 ? __dadd_rn(gb, cq) : __dsub_rn(gb, cq);
-      }
-      s.Gbar[k] = gb;
-    }
-  }
-  __syncthreads();
-}
-
 // Solver::calculate_rho over the first `active` positions in global
 // memory, on one block: the bounds by a block reduction, libsvm's
 // sequential sum of the free variables' y G on thread 0.  Valid on
@@ -524,101 +326,6 @@ __device__ double calculate_rho(const State& s, int active, double4* red,
   return r.n_free > 0 ? sum_free / r.n_free : (r.ub + r.lb) / 2;
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-svr_smo_kernel(const double* __restrict__ xin,
-               const double* __restrict__ target, int l, double epsilon,
-               State s, double* __restrict__ alpha_out,
-               double* __restrict__ rho_out,
-               unsigned long long* __restrict__ stats) {
-  __shared__ double4 red[kWarps];          // reduction scratch
-  __shared__ int ibuf[kWarps];              // scan scratch
-  __shared__ int list[kThreads];            // free positions of a chunk
-  __shared__ double vals[kThreads];         // y G of a chunk, for rho
-  __shared__ double dsh[2];
-  __shared__ int ish[2];
-  const int L = s.L;
-  for (int k = threadIdx.x; k < L; k += kThreads) {
-    const bool pos = k < l;
-    const int r = pos ? k : k - l;
-    const double pk = pos ? epsilon - target[r] : epsilon + target[r];
-    s.x[k] = xin[r];
-    s.p[k] = pk;
-    s.G[k] = pk;
-    s.Gbar[k] = 0.0;
-    s.alpha[k] = 0.0;
-    s.f[k] = (uint8_t)(kLower | (pos ? kPos : 0));
-    s.aset[k] = k;
-  }
-  __syncthreads();
-
-  int active = L;
-  long long iter = 0, evals = 0, sum_active = 0;
-  int counter = min(L, 1000) + 1;
-  bool unshrink = false;
-  while (true) {
-    if (--counter == 0) {
-      counter = min(L, 1000);
-      active = do_shrinking(s, active, unshrink, list, ibuf, red, evals);
-    }
-    int i, j;
-    if (!select_ws(s, active, i, j, evals, red)) {
-      reconstruct(s, active, list, ibuf, evals);
-      active = L;
-      if (!select_ws(s, active, i, j, evals, red)) break;
-      counter = 1;            // shrink at the next iteration
-    }
-    ++iter;
-    sum_active += active;
-    update(s, active, i, j, dsh, ish, evals);
-  }
-
-  // the loop ends with the whole set active
-  const double rho = calculate_rho(s, active, red, list, vals);
-  if (threadIdx.x == 0) {
-    rho_out[0] = rho;
-    stats[0] = (unsigned long long)iter;
-    stats[1] = (unsigned long long)sum_active;
-  }
-  atomicAdd(&stats[2], (unsigned long long)evals);
-  for (int k = threadIdx.x; k < L; k += kThreads) alpha_out[s.aset[k]] = s.alpha[k];
-}
-
-// The synchronisation skeleton of one SMO iteration, with no pass over
-// the variables: the two working-set block reductions, the step on
-// thread 0 and the update's two barriers, each round depending on the
-// last.  Its time over `reps` rounds is the latency floor of one
-// iteration of svr_smo_kernel (a measurement probe, not part of a fit).
-__global__ void __launch_bounds__(kThreads, 1)
-svr_sync_probe_kernel(int reps, double* __restrict__ out) {
-  __shared__ double4 red[kWarps];
-  __shared__ double dsh[2];
-  double v = (double)threadIdx.x;
-  for (int r = 0; r < reps; ++r) {
-    const ArgBest b = block_reduce(ArgBest{v, (int)threadIdx.x}, MaxOp(),
-                                   ArgBest{-CUDART_INF, -1},
-                                   reinterpret_cast<ArgBest*>(red));
-    const Select2 m = block_reduce(
-        Select2{{v - b.v, (int)threadIdx.x}, -v}, Select2Op(),
-        Select2{{CUDART_INF, -1}, -CUDART_INF},
-        reinterpret_cast<Select2*>(red));
-    if (threadIdx.x == 0) dsh[0] = (b.v + m.g) / (2.0 + m.m.v * 1e-300);
-    __syncthreads();
-    v += dsh[0] * 1e-300;
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[0] = v;
-}
-
-// ---------------------------------------------------------------------------
-// the cluster route
-// ---------------------------------------------------------------------------
-
-// bytes of shared state per position: G, G_bar, alpha, x (f64), column i
-// of Q (f32), the flags
-constexpr int kSlotBytes = 4 * 8 + 4 + 1;
-constexpr int kMaxClusterSmem = 200 * 1024;   // dynamic shared memory a block
-constexpr int kMaxCluster = 16;
-
 // One block's entry of a cluster-wide reduction: the block's best (v, k)
 // and, from the thread owning k, that position's state at the time of the
 // reduction.  Pushed into every block's inbox, so the picks read local
@@ -631,28 +338,11 @@ struct __align__(16) Part {
   int f;                 // the winner's flags
 };
 
-// Reduce v over the block; every thread gets the result.  Two barrier-free
-// shuffle levels around one __syncthreads: wbuf may be written again only
-// after a barrier that every thread passes after reading it (each caller
-// below reaches a cluster barrier first).
-template <class T, class Op>
-__device__ T block_all(T v, Op op, T id, T* wbuf) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = op(v, shfl(v, o));
-  if (lane == 0) wbuf[warp] = v;
-  __syncthreads();
-  v = lane < kWarps ? wbuf[lane] : id;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = op(v, shfl(v, o));
-  return v;
-}
-
 struct Cluster {
   cg::cluster_group g;
   int rank, size, nt;    // this block's rank, blocks, threads in the cluster
   int buf;               // which of the two inboxes is next
-  Part (*inbox)[kMaxCluster];   // this block's two inboxes, one entry a rank
+  Part (*inbox)[kCluster];   // this block's two inboxes, one entry a rank
 
   // The inbox of the next reduction.  Two alternate: a block pushes into
   // inbox b again only after the next reduction's cluster barrier, which
@@ -690,6 +380,35 @@ struct Cluster {
   }
 };
 
+__device__ Cluster this_cluster(Part (*inbox)[kCluster]) {
+  Cluster c{cg::this_cluster(), 0, 0, 0, 0, inbox};
+  c.rank = (int)c.g.block_rank();
+  c.size = (int)c.g.num_blocks();
+  c.nt = c.size * kThreads;
+  return c;
+}
+
+// The per-position state the loop reads every iteration.  kSmem: in the
+// block's shared memory, the m-th position a thread owns at slot
+// m kThreads + t; otherwise the State's own arrays, at the position.
+template <bool kSmem>
+struct Held {
+  double* G;
+  double* Gbar;
+  double* alpha;
+  double* x;
+  float* qi;       // column i of Q over the active set
+  uint8_t* f;
+  // where the m-th position of this thread, k, is held
+  __device__ int at(int m, int k) const {
+    return kSmem ? m * kThreads + (int)threadIdx.x : k;
+  }
+  // where position k, owned by this thread, is held
+  __device__ int of(const Cluster& c, int k) const {
+    return kSmem ? c.slot(k) : k;
+  }
+};
+
 // Every warp reduces the entries of inbox p in rank order (later_min or
 // later_max on (v, k), fmax on g2); the winner's state comes from its
 // entry.
@@ -718,8 +437,8 @@ __device__ Part cluster_pick(const Cluster& c, const Part* p) {
 }
 
 // Push this block's winner (v, k) of a reduction: the warp of the thread
-// owning k (warp 0 when k < 0) pushes e, built by that thread from its
-// slot, into every block's inbox p.  `build` fills e's state from a slot.
+// owning k (warp 0 when k < 0) pushes e, built by that thread, into every
+// block's inbox p.  `build` fills e's state of position k.
 template <class Build>
 __device__ void push_winner(const Cluster& c, Part* p, double v, double g2,
                             int k, Build build) {
@@ -729,7 +448,7 @@ __device__ void push_winner(const Cluster& c, Part* p, double v, double g2,
   e.v = v;
   e.g2 = g2;
   e.k = k;
-  if (k >= 0 && c.owns(k)) build(e, c.slot(k));
+  if (k >= 0 && c.owns(k)) build(e, k);
   c.push(p, e, owner & 31);
 }
 
@@ -754,32 +473,28 @@ __device__ int cluster_scan(Cluster& c, int v, int* ibuf, int* total) {
   return off + before;
 }
 
-struct Shared {      // the per-position state a block keeps
-  double* G;
-  double* Gbar;
-  double* alpha;
-  double* x;
-  float* qi;
-  uint8_t* f;
-};
-
-// shared state <-> global memory, over every position this thread owns
-__device__ void spill(const Cluster& c, const State& s, const Shared& h) {
+// shared state -> global memory and back, over every position this thread
+// owns (nothing to do where the state is the global arrays)
+template <bool S>
+__device__ void spill(const Cluster& c, const State& s, const Held<S>& h) {
+  if (!S) return;
   for (int m = 0;; ++m) {
     const int k = c.pos(m);
     if (k >= s.L) break;
-    const int sl = m * kThreads + threadIdx.x;
+    const int sl = h.at(m, k);
     s.G[k] = h.G[sl];
     s.Gbar[k] = h.Gbar[sl];
     s.alpha[k] = h.alpha[sl];
     s.f[k] = h.f[sl];
   }
 }
-__device__ void fill(const Cluster& c, const State& s, const Shared& h) {
+template <bool S>
+__device__ void fill(const Cluster& c, const State& s, const Held<S>& h) {
+  if (!S) return;
   for (int m = 0;; ++m) {
     const int k = c.pos(m);
     if (k >= s.L) break;
-    const int sl = m * kThreads + threadIdx.x;
+    const int sl = h.at(m, k);
     h.G[sl] = s.G[k];
     h.Gbar[sl] = s.Gbar[k];
     h.alpha[sl] = s.alpha[k];
@@ -789,18 +504,18 @@ __device__ void fill(const Cluster& c, const State& s, const Shared& h) {
 }
 
 // The cluster's contiguous segment of [0, n) for this thread, in (rank,
-// thread) order, as the one-block route cuts it over its threads.
+// thread) order.
 __device__ void segment(const Cluster& c, int n, int& lo, int& hi) {
   const int seg = (n + c.nt - 1) / c.nt;
   lo = min(n, (c.rank * kThreads + (int)threadIdx.x) * seg);
   hi = min(n, lo + seg);
 }
 
-// Solver::reconstruct_gradient on the spilled state in global memory: the
-// free positions of the active set listed in active order (in s.posL), then
-// G of each inactive position summed over them in that order.
-__device__ void reconstruct_cluster(Cluster& c, const State& s, int active,
-                                    int* ibuf, long long& evals) {
+// Solver::reconstruct_gradient on the state in global memory: the free
+// positions of the active set listed in active order (in s.posL), then G
+// of each inactive position summed over them in that order.
+__device__ void reconstruct(Cluster& c, const State& s, int active,
+                            int* ibuf, long long& evals) {
   if (active == s.L) return;
   int lo, hi;
   segment(c, active, lo, hi);
@@ -827,14 +542,15 @@ __device__ void reconstruct_cluster(Cluster& c, const State& s, int active,
 }
 
 // Solver::do_shrinking across the cluster; returns the new active size.
-__device__ int shrink_cluster(Cluster& c, const State& s, const Shared& h,
-                              int active, bool& unshrink, int* ibuf,
-                              double2* wbuf, long long& evals) {
+template <bool S>
+__device__ int shrink(Cluster& c, const State& s, const Held<S>& h,
+                      int active, bool& unshrink, int* ibuf, double2* wbuf,
+                      long long& evals) {
   double2 m = make_double2(-CUDART_INF, -CUDART_INF);   // Gmax1, Gmax2
   for (int mm = 0;; ++mm) {
     const int k = c.pos(mm);
     if (k >= active) break;
-    const int sl = mm * kThreads + threadIdx.x;
+    const int sl = h.at(mm, k);
     const uint8_t f = h.f[sl];
     const int st = status_of(f);
     const double g = h.G[sl];
@@ -862,11 +578,12 @@ __device__ int shrink_cluster(Cluster& c, const State& s, const Shared& h,
   }
   if (!unshrink && m.x + m.y <= s.eps * 10) {
     unshrink = true;
-    reconstruct_cluster(c, s, active, ibuf, evals);
+    reconstruct(c, s, active, ibuf, evals);
     active = s.L;
   }
-  // libsvm's swap order, ranked over contiguous segments as the one-block
-  // route ranks it
+  // libsvm's loop swaps the k-th shrinkable position from the left with
+  // the k-th kept one from the right while the first lies left of the
+  // second; rank both over contiguous segments, then swap the pairs
   int lo, hi;
   segment(c, active, lo, hi);
   int cnt = 0;
@@ -894,17 +611,17 @@ __device__ int shrink_cluster(Cluster& c, const State& s, const Shared& h,
 // entries wi (i, Gmax, its state) and wj (j, Gmax2, its state, Q_ij), or
 // false when optimal.  b1, when have1, is this thread's Gmax candidate
 // from the fused update; otherwise the first pass runs here.  Leaves
-// column i over the active set in the shared qi.
-__device__ bool select_cluster(Cluster& c, const State& s, const Shared& h,
-                               int active, bool have1, ArgBest b1,
-                               ArgBest* w1, Select2* w2, Part& wi, Part& wj,
-                               long long& evals) {
+// column i over the active set in h.qi.
+template <bool S>
+__device__ bool select_ws(Cluster& c, const State& s, const Held<S>& h,
+                          int active, bool have1, ArgBest b1, ArgBest* w1,
+                          Select2* w2, Part& wi, Part& wj, long long& evals) {
   ArgBest best = have1 ? b1 : ArgBest{-CUDART_INF, -1};
   if (!have1) {
     for (int m = 0;; ++m) {
       const int k = c.pos(m);
       if (k >= active) break;
-      const int sl = m * kThreads + threadIdx.x;
+      const int sl = h.at(m, k);
       const uint8_t f = h.f[sl];
       const int st = status_of(f);
       if (is_pos(f) ? st != kUpper : st != kLower) {
@@ -915,7 +632,8 @@ __device__ bool select_cluster(Cluster& c, const State& s, const Shared& h,
   }
   best = block_all(best, MaxOp(), ArgBest{-CUDART_INF, -1}, w1);
   Part* p = c.next();
-  push_winner(c, p, best.v, -CUDART_INF, best.i, [&](Part& e, int sl) {
+  push_winner(c, p, best.v, -CUDART_INF, best.i, [&](Part& e, int k) {
+    const int sl = h.of(c, k);
     e.G = h.G[sl];
     e.x = h.x[sl];
     e.f = h.f[sl];
@@ -931,7 +649,7 @@ __device__ bool select_cluster(Cluster& c, const State& s, const Shared& h,
   for (int m = 0;; ++m) {
     const int k = c.pos(m);
     if (k >= active) break;
-    const int sl = m * kThreads + threadIdx.x;
+    const int sl = h.at(m, k);
     const uint8_t f = h.f[sl];
     const int st = status_of(f);
     const double g = h.G[sl];
@@ -958,7 +676,8 @@ __device__ bool select_cluster(Cluster& c, const State& s, const Shared& h,
   acc = block_all(acc, Select2Op(), Select2{{CUDART_INF, -1}, -CUDART_INF},
                   w2);
   p = c.next();
-  push_winner(c, p, acc.m.v, acc.g, acc.m.i, [&](Part& e, int sl) {
+  push_winner(c, p, acc.m.v, acc.g, acc.m.i, [&](Part& e, int k) {
+    const int sl = h.of(c, k);
     e.G = h.G[sl];
     e.x = h.x[sl];
     e.f = h.f[sl];
@@ -974,10 +693,10 @@ __device__ bool select_cluster(Cluster& c, const State& s, const Shared& h,
 // entries, then G over the active set and, where a bound changed, G_bar
 // over all positions.  With fuse, returns this thread's Gmax candidate
 // over the updated G (the next selection's first pass).
-__device__ ArgBest update_cluster(const Cluster& c, const State& s,
-                                  const Shared& h, int active, const Part& wi,
-                                  const Part& wj, bool fuse,
-                                  long long& evals) {
+template <bool S>
+__device__ ArgBest update(const Cluster& c, const State& s, const Held<S>& h,
+                          int active, const Part& wi, const Part& wj,
+                          bool fuse, long long& evals) {
   const double C = s.C;
   const int i = wi.k, j = wj.k;
   const bool pi = is_pos((uint8_t)wi.f), pj = is_pos((uint8_t)wj.f);
@@ -997,7 +716,7 @@ __device__ ArgBest update_cluster(const Cluster& c, const State& s,
       const uint8_t st = a[t] >= C ? kUpper : (a[t] <= 0 ? kLower : kFree);
       ch[t] = was_upper == (st == kUpper) ? 0 : (was_upper ? -1 : 1);
       if (c.owns(idx[t])) {      // the owner keeps the new state
-        const int sl = c.slot(idx[t]);
+        const int sl = h.of(c, idx[t]);
         h.alpha[sl] = a[t];
         h.f[sl] = (uint8_t)((fl[t] & kPos) | st);
       }
@@ -1010,7 +729,7 @@ __device__ ArgBest update_cluster(const Cluster& c, const State& s,
   for (int m = 0;; ++m) {
     const int k = c.pos(m);
     if (k >= hi) break;
-    const int sl = m * kThreads + threadIdx.x;
+    const int sl = h.at(m, k);
     const double xk = h.x[sl];
     const uint8_t fk = h.f[sl];
     const bool pk = is_pos(fk);
@@ -1052,23 +771,18 @@ __device__ ArgBest update_cluster(const Cluster& c, const State& s,
   return best;
 }
 
-__device__ Cluster this_cluster(Part (*inbox)[kMaxCluster]) {
-  Cluster c{cg::this_cluster(), 0, 0, 0, 0, inbox};
-  c.rank = (int)c.g.block_rank();
-  c.size = (int)c.g.num_blocks();
-  c.nt = c.size * kThreads;
-  return c;
-}
-
+// The whole solve.  kSmem: the hot state in the blocks' shared memory,
+// mslots rounds of kThreads positions a block; otherwise in the State's
+// arrays (mslots unused).
+template <bool kSmem>
 __global__ void __launch_bounds__(kThreads, 1)
-svr_smo_cluster_kernel(const double* __restrict__ xin,
-                       const double* __restrict__ target, int l,
-                       double epsilon, State s, int mslots,
-                       double* __restrict__ alpha_out,
-                       double* __restrict__ rho_out,
-                       unsigned long long* __restrict__ stats) {
+svr_smo_kernel(const double* __restrict__ xin,
+               const double* __restrict__ target, int l, double epsilon,
+               State s, int mslots, double* __restrict__ alpha_out,
+               double* __restrict__ rho_out,
+               unsigned long long* __restrict__ stats) {
   extern __shared__ __align__(16) unsigned char dyn[];
-  __shared__ Part inbox[2][kMaxCluster];
+  __shared__ Part inbox[2][kCluster];
   __shared__ ArgBest w1[kWarps];
   __shared__ Select2 w2[kWarps];
   __shared__ double2 w3[kWarps];
@@ -1076,20 +790,22 @@ svr_smo_cluster_kernel(const double* __restrict__ xin,
   __shared__ int ibuf[kWarps];
   __shared__ int list[kThreads];
   __shared__ double vals[kThreads];
-  const int slots = mslots * kThreads;
-  Shared h;
-  h.G = reinterpret_cast<double*>(dyn);
-  h.Gbar = h.G + slots;
-  h.alpha = h.Gbar + slots;
-  h.x = h.alpha + slots;
-  h.qi = reinterpret_cast<float*>(h.x + slots);
-  h.f = reinterpret_cast<uint8_t*>(h.qi + slots);
+  Held<kSmem> h{s.G, s.Gbar, s.alpha, s.x, s.qi, s.f};
+  if (kSmem) {
+    const int slots = mslots * kThreads;
+    h.G = reinterpret_cast<double*>(dyn);
+    h.Gbar = h.G + slots;
+    h.alpha = h.Gbar + slots;
+    h.x = h.alpha + slots;
+    h.qi = reinterpret_cast<float*>(h.x + slots);
+    h.f = reinterpret_cast<uint8_t*>(h.qi + slots);
+  }
   Cluster c = this_cluster(inbox);
   const int L = s.L;
   for (int m = 0;; ++m) {
     const int k = c.pos(m);
     if (k >= L) break;
-    const int sl = m * kThreads + threadIdx.x;
+    const int sl = h.at(m, k);
     const bool pos = k < l;
     const int r = pos ? k : k - l;
     const double pk = pos ? epsilon - target[r] : epsilon + target[r];
@@ -1111,19 +827,17 @@ svr_smo_cluster_kernel(const double* __restrict__ xin,
   while (true) {
     if (--counter == 0) {
       counter = min(L, 1000);
-      active = shrink_cluster(c, s, h, active, unshrink, ibuf, w3, evals);
+      active = shrink(c, s, h, active, unshrink, ibuf, w3, evals);
       have1 = false;
     }
     Part wi, wj;
-    if (!select_cluster(c, s, h, active, have1, b1, w1, w2, wi, wj,
-                        evals)) {
+    if (!select_ws(c, s, h, active, have1, b1, w1, w2, wi, wj, evals)) {
       spill(c, s, h);
       c.g.sync();
-      reconstruct_cluster(c, s, active, ibuf, evals);
+      reconstruct(c, s, active, ibuf, evals);
       fill(c, s, h);
       active = L;
-      if (!select_cluster(c, s, h, active, false, b1, w1, w2, wi, wj,
-                          evals))
+      if (!select_ws(c, s, h, active, false, b1, w1, w2, wi, wj, evals))
         break;
       counter = 1;            // shrink at the next iteration
     }
@@ -1131,12 +845,12 @@ svr_smo_cluster_kernel(const double* __restrict__ xin,
     sum_active += active;
     // fuse the next selection's first pass unless shrinking comes first
     have1 = counter != 1;
-    b1 = update_cluster(c, s, h, active, wi, wj, have1, evals);
+    b1 = update(c, s, h, active, wi, wj, have1, evals);
   }
   spill(c, s, h);
   c.g.sync();
 
-  // Solver::calculate_rho on block 0, as the one-block route computes it
+  // Solver::calculate_rho on block 0
   if (c.rank == 0) {
     const double rho = calculate_rho(s, active, red, list, vals);
     if (threadIdx.x == 0) {
@@ -1151,15 +865,15 @@ svr_smo_cluster_kernel(const double* __restrict__ xin,
   c.g.sync();       // no block leaves while another may write its memory
 }
 
-// The synchronisation skeleton of one iteration of the cluster route, with
-// no pass over the variables: the two selections' block reductions, the
-// pushes into every block's inbox, the cluster barriers and the picks,
-// and the step on every thread, each round depending on the last.  Its
-// time over `reps` rounds is the latency floor of one iteration of
-// svr_smo_cluster_kernel (a measurement probe).
+// The synchronisation skeleton of one iteration, with no pass over the
+// variables: the two selections' block reductions, the pushes into every
+// block's inbox, the cluster barriers and the picks, and the step on
+// every thread, each round depending on the last.  Its time over `reps`
+// rounds is the latency floor of one iteration of svr_smo_kernel (a
+// measurement probe).
 __global__ void __launch_bounds__(kThreads, 1)
-svr_cluster_sync_probe_kernel(int reps, double* __restrict__ out) {
-  __shared__ Part inbox[2][kMaxCluster];
+svr_sync_probe_kernel(int reps, double* __restrict__ out) {
+  __shared__ Part inbox[2][kCluster];
   __shared__ ArgBest w1[kWarps];
   __shared__ Select2 w2[kWarps];
   Cluster c = this_cluster(inbox);
@@ -1191,24 +905,24 @@ svr_cluster_sync_probe_kernel(int reps, double* __restrict__ out) {
   if (gt == 0) out[0] = v;
 }
 
-// cudaLaunchKernelEx of one cluster of `cluster` blocks
+// cudaLaunchKernelEx of one cluster of kCluster blocks
 template <class... Args, class... Act>
-int launch_cluster(void (*kernel)(Args...), int cluster, size_t smem,
-                   cudaStream_t st, Act... args) {
+int launch_cluster(void (*kernel)(Args...), size_t smem, cudaStream_t st,
+                   Act... args) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess && cluster > 8)
+  if (e == cudaSuccess)
     e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster);
+  cfg.gridDim = dim3(kCluster);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.x = kCluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -1222,18 +936,26 @@ int launch_cluster(void (*kernel)(Args...), int cluster, size_t smem,
 
 extern "C" int vtt_svr_sync_probe(int reps, void* out, void* stream) {
   if (reps < 1) return (int)cudaErrorInvalidValue;
-  svr_sync_probe_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      reps, static_cast<double*>(out));
-  return (int)cudaGetLastError();
+  return launch_cluster(svr_sync_probe_kernel, 0,
+                        static_cast<cudaStream_t>(stream), reps,
+                        static_cast<double*>(out));
 }
 
+// shared = 1 keeps the hot state in the blocks' shared memory and refuses
+// (cudaErrorInvalidValue) a size whose share exceeds kMaxSmem a block;
+// shared = 0 keeps it in the arrays given (qi is read only then).
 extern "C" int vtt_svr_smo(const void* x, const void* target, void* G,
                            void* Gbar, void* alpha, void* p, void* xs,
                            void* flags, void* aset, void* qi, void* posL,
                            void* posR, void* alpha_out, void* rho_out,
                            void* stats, int l, double C, double epsilon,
-                           double gamma, double tol, void* stream) {
+                           double gamma, double tol, int shared,
+                           void* stream) {
   if (l < 1 || l > (1 << 29)) return (int)cudaErrorInvalidValue;
+  const long long nt = (long long)kCluster * kThreads;
+  const int mslots = (int)((2LL * l + nt - 1) / nt);
+  const size_t smem = (size_t)mslots * kThreads * kSlotBytes;
+  if (shared && smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   State s{static_cast<double*>(G),     static_cast<double*>(Gbar),
           static_cast<double*>(alpha), static_cast<double*>(p),
           static_cast<double*>(xs),    static_cast<uint8_t*>(flags),
@@ -1241,49 +963,15 @@ extern "C" int vtt_svr_smo(const void* x, const void* target, void* G,
           static_cast<int*>(posL),     static_cast<int*>(posR),
           2 * l,                       C,
           gamma,                       tol};
-  svr_smo_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(x), static_cast<const double*>(target), l,
-      epsilon, s, static_cast<double*>(alpha_out),
-      static_cast<double*>(rho_out),
-      static_cast<unsigned long long*>(stats));
-  return (int)cudaGetLastError();
-}
-
-extern "C" int vtt_svr_cluster_sync_probe(int reps, int cluster, void* out,
-                                          void* stream) {
-  if (reps < 1 || cluster < 1 || cluster > 16)
-    return (int)cudaErrorInvalidValue;
-  return launch_cluster(svr_cluster_sync_probe_kernel, cluster, 0,
-                        static_cast<cudaStream_t>(stream), reps,
-                        static_cast<double*>(out));
-}
-
-// The cluster route; refuses (cudaErrorInvalidValue) a size whose shared
-// state exceeds kMaxClusterSmem per block.
-extern "C" int vtt_svr_smo_cluster(const void* x, const void* target,
-                                   void* G, void* Gbar, void* alpha, void* p,
-                                   void* xs, void* flags, void* aset,
-                                   void* posL, void* posR, void* alpha_out,
-                                   void* rho_out, void* stats, int l,
-                                   double C, double epsilon, double gamma,
-                                   double tol, int cluster, void* stream) {
-  if (l < 1 || l > (1 << 29) || cluster < 1 || cluster > 16)
-    return (int)cudaErrorInvalidValue;
-  const long long nt = (long long)cluster * kThreads;
-  const int mslots = (int)((2LL * l + nt - 1) / nt);
-  const size_t smem = (size_t)mslots * kThreads * kSlotBytes;
-  if (smem > (size_t)kMaxClusterSmem) return (int)cudaErrorInvalidValue;
-  State s{static_cast<double*>(G),     static_cast<double*>(Gbar),
-          static_cast<double*>(alpha), static_cast<double*>(p),
-          static_cast<double*>(xs),    static_cast<uint8_t*>(flags),
-          static_cast<int*>(aset),     nullptr,
-          static_cast<int*>(posL),     static_cast<int*>(posR),
-          2 * l,                       C,
-          gamma,                       tol};
-  return launch_cluster(
-      svr_smo_cluster_kernel, cluster, smem,
-      static_cast<cudaStream_t>(stream), static_cast<const double*>(x),
-      static_cast<const double*>(target), l, epsilon, s, mslots,
-      static_cast<double*>(alpha_out), static_cast<double*>(rho_out),
-      static_cast<unsigned long long*>(stats));
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto xin = static_cast<const double*>(x);
+  const auto tin = static_cast<const double*>(target);
+  const auto aout = static_cast<double*>(alpha_out);
+  const auto rout = static_cast<double*>(rho_out);
+  const auto sout = static_cast<unsigned long long*>(stats);
+  if (shared)
+    return launch_cluster(svr_smo_kernel<true>, smem, st, xin, tin, l,
+                          epsilon, s, mslots, aout, rout, sout);
+  return launch_cluster(svr_smo_kernel<false>, 0, st, xin, tin, l, epsilon,
+                        s, mslots, aout, rout, sout);
 }

@@ -30,8 +30,8 @@ of libsvm's arithmetic:
 float64, as libsvm's ``k_function`` does (from the difference).
 
 ``smo_solve`` launches the hand CUDA kernel (kernels/svr_smo.cu, the whole
-loop in one launch: one thread-block cluster holding the state in its
-shared memory where it fits, ``kernels.svr_route``, else one block) for
+loop in one launch of one thread-block cluster, holding the state in its
+shared memory where it fits, else in global memory: ``kernels.svr_route``) for
 CUDA tensors and runs ``_smo_plain`` below, the
 same loop as float64 torch ops, for CPU tensors.  The two and libsvm agree
 to the bit wherever float64 ``exp`` rounds alike; they may part where two
