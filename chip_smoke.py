@@ -6,13 +6,25 @@ comes out:
 
   - the estimation pipeline in full-correlation mode (knn_random=False,
     one dual launch of the dense colDeltaCor kernel for the main field
-    and the randomized control) at 20,000 cells x 2,000 genes;
+    and the randomized control) at 20,000 cells x 2,000 genes, through
+    velocyto_tpu_torch.bench_pipeline.run_once (the JAX harness's
+    stages);
   - the pipeline in its default mode (knn_random=True, sampled
     colDeltaCor kernel in embedding-locality order), in
     bench_pipeline.py's configuration; the transition stage's dual
     launch is then timed on its own inputs with the identity order and
     with the locality order, in turns, and the two outputs compared
-    bitwise;
+    bitwise; the session's device tensors, host arrays and metadata are
+    checkpointed (io.checkpoint) and reloaded on the card, bitwise;
+  - both pipelines again under torch.profiler (utils.profiling.trace):
+    the device's idle share over the pipeline and its transition stage,
+    the five device kernels that took the most time, the profiled total
+    beside the unprofiled one;
+  - the port's bench harnesses at reduced repeats: bench_pipeline (3
+    runs, one dual sampled launch each, the JAX harness's stage names),
+    bench_attr (the transition stage's and the 50k kNN's sub-stages, the
+    idle share over one whole transition call) and bench_knn50k (2 runs
+    at 50,000 cells);
   - the kernel bench, python3 -m velocyto_tpu_torch.bench (sampled and
     dense kernels, FMA-chain probe);
   - the tutorial session at 20,000 cells x 2,500 raw genes: the
@@ -96,6 +108,14 @@ FMA_RTOL = 1e-5                  # one rounding per step against two
 SPOT_ROWS = 256
 DENSE_CHECK_SHAPES = ((37, 29), (2000, 2048))   # (G, N) of the dense checks
 DEVICE = "cuda"
+# the JAX harness's stage names at this operating point
+# (bench_pipeline.py:98-122); the port's harness keeps them
+PIPELINE_STAGES = ["normalize", "pca", "knn_imputation(k=500,sight=3000)",
+                   "fit_gammas", "velocity",
+                   "transition_prob(nn=3500,frac=0.5,rand=True)",
+                   "embedding_shift", "grid_arrows"]
+BENCH_PIPE_REPS, KNN50K_REPS = 3, 2   # one warm-up run each, then measured
+PROFILE_TOP = 5                       # device kernels printed per profile
 # the transform/psc cases of the kernel checks (partial semantics are
 # the sampled kernel's only semantics)
 CASES = [("linear", 0.0, False), ("sqrt", 0.0, False),
@@ -119,8 +139,12 @@ def synth(rng, n, g):
     return S, U, gamma_true, zl
 
 
+_START = time.perf_counter()
+
+
 def phase(name):
-    print(f"# --- {name}", flush=True)
+    print(f"# --- {name} (at {time.perf_counter() - _START:.1f} s)",
+          flush=True)
 
 
 def device_phase():
@@ -128,11 +152,9 @@ def device_phase():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                  "is False)")
+    from velocyto_tpu_torch.bench_common import card
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"# device: {name}; torch {torch.__version__} cuda "
@@ -640,11 +662,12 @@ def _new_loom(S, U, genes):
 
 
 def pipeline_phase(knn_random, smi):
-    """Drive the pipeline through the VelocytoLoom entry points with the
-    launch counts set to 0 just before; returns (stage seconds, total,
-    launch counts, peak device memory, and in the default mode the order
-    timing of the transition stage's dual launch)."""
-    from velocyto_tpu_torch import analysis, kernels
+    """Drive the pipeline through bench_pipeline.run_once (the
+    VelocytoLoom entry points, stage by stage) with the launch counts set
+    to 0 just before; returns (stage seconds, total, launch counts, peak
+    device memory, in the default mode the order timing of the
+    transition stage's dual launch, and the VelocytoLoom)."""
+    from velocyto_tpu_torch import analysis, bench_pipeline, kernels
     mode = "default mode (knn_random=True)" if knn_random else \
         "full mode (knn_random=False)"
     phase(f"pipeline, {mode}, {CELLS} cells x {GENES} genes")
@@ -653,60 +676,31 @@ def pipeline_phase(knn_random, smi):
     print(f"# synthesize: {time.perf_counter() - t0:.3f} s host, on {smi}",
           flush=True)
 
-    v = _new_loom(S, U, GENES)
-    stages = {}
-    stage = _stager(stages, smi)
-
-    def _norm():
-        v._normalize_S(relative_size=v.initial_cell_size,
-                       target_size=np.mean(v.initial_cell_size))
-        v._normalize_U(relative_size=v.initial_Ucell_size,
-                       target_size=np.mean(v.initial_Ucell_size))
-
-    def _vel():
-        v.predict_U()
-        v.calculate_velocity()
-        v.calculate_shift(assumption="constant_velocity")
-        v.extrapolate_cell_at_t(delta_t=1.)
-
     transition_launches, captured = {}, []
     compact = analysis.col_delta_cor_partial_compact
+    estimate = analysis.VelocytoLoom.estimate_transition_prob
 
     def _capture(*args, **kw):
         # the sampled call's inputs, kept for the order timing below
         captured.append((args, kw))
         return compact(*args, **kw)
 
-    def _transition():
+    def _transition(self, *args, **kw):
         before = (kernels.dense_launches, kernels.partial_launches)
-        analysis.col_delta_cor_partial_compact = _capture
-        try:
-            v.estimate_transition_prob(
-                hidim="Sx_sz", embed="ts", transform="sqrt",
-                knn_random=knn_random, n_neighbors=N_NEIGHBORS,
-                sampled_fraction=SAMPLED_FRACTION, calculate_randomized=True)
-        finally:
-            analysis.col_delta_cor_partial_compact = compact
+        estimate(self, *args, **kw)
         transition_launches.update(
             dense=kernels.dense_launches - before[0],
             partial=kernels.partial_launches - before[1])
 
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()              # count this path's launches only
-    t_all = time.perf_counter()
-    stage("normalize", _norm)
-    stage("pca", lambda: v.perform_PCA(which="S_norm", n_components=50))
-    stage("knn_imputation", lambda: v.knn_imputation(
-        k=K, balanced=True, b_sight=B_SIGHT, b_maxl=B_MAXL))
-    stage("fit_gammas", lambda: v.fit_gammas())
-    stage("velocity", _vel)
-    v.ts = np.ascontiguousarray(v.pcs[:, :2])
-    stage("transition_prob", _transition)
-    stage("embedding_shift", lambda: v.calculate_embedding_shift(
-        sigma_corr=0.05, expression_scaling=False))
-    stage("grid_arrows", lambda: v.calculate_grid_arrows(
-        smooth=0.5, steps=(40, 40), n_neighbors=100))
-    total = time.perf_counter() - t_all
+    analysis.col_delta_cor_partial_compact = _capture
+    analysis.VelocytoLoom.estimate_transition_prob = _transition
+    try:
+        total, stages, v = bench_pipeline.run_once(S, U, DEVICE, knn_random)
+    finally:
+        analysis.col_delta_cor_partial_compact = compact
+        analysis.VelocytoLoom.estimate_transition_prob = estimate
     launches = _launches()
     peak = torch.cuda.max_memory_allocated()
     print(f"# pipeline total: {total:.3f} s on {smi}; kernel launches "
@@ -715,6 +709,7 @@ def pipeline_phase(knn_random, smi):
           f"{peak / 2**30:.2f} GiB", flush=True)
 
     phase(f"checks, {mode}")
+    assert list(stages) == PIPELINE_STAGES, list(stages)
     for name in ("delta_embedding", "delta_embedding_random", "flow"):
         assert np.all(np.isfinite(getattr(v, name))), f"{name} not finite"
     _check_gammas(v, gamma_true)
@@ -736,7 +731,7 @@ def pipeline_phase(knn_random, smi):
         assert corr.shape == (CELLS, CELLS) and bool(torch.isfinite(corr).all())
         assert bool(torch.isfinite(v._get_dev("corrcoef_random")).all())
         _check_knn_rows(v)
-    return stages, total, launches, peak, order_times
+    return stages, total, launches, peak, order_times, v
 
 
 def _order_timing(args, kw, smi, n=3):
@@ -1582,6 +1577,182 @@ def bench_phase():
     return result, launches
 
 
+def _scratch_dir():
+    """A temporary directory inside the checkout (gitignored), removed
+    when its block ends."""
+    import tempfile
+    return tempfile.TemporaryDirectory(
+        prefix="_chip_smoke_", dir=os.path.dirname(os.path.abspath(__file__)))
+
+
+def bench_pipeline_phase(smi):
+    """python3 -m velocyto_tpu_torch.bench_pipeline at full size with
+    BENCH_PIPE_REPS runs (one warm-up); each run makes one dual sampled
+    launch and a finite delta_embedding, and the JSON's stages are the JAX
+    harness's."""
+    from velocyto_tpu_torch import bench_pipeline, kernels
+    phase(f"pipeline bench (python3 -m velocyto_tpu_torch.bench_pipeline), "
+          f"{BENCH_PIPE_REPS} runs")
+    run_once = bench_pipeline.run_once
+    per_run = []
+
+    def _counted(*args, **kw):
+        before = _launches()
+        out = run_once(*args, **kw)
+        after = _launches()
+        per_run.append({k: after[k] - before[k] for k in after})
+        assert np.all(np.isfinite(out[2].delta_embedding)), \
+            "delta_embedding not finite"
+        return out
+
+    kernels.reset_counts()              # count this path's launches only
+    bench_pipeline.run_once = _counted
+    try:
+        result = bench_pipeline.main(reps=BENCH_PIPE_REPS)
+    finally:
+        bench_pipeline.run_once = run_once
+    launches = _launches()
+    print(f"# pipeline bench on {smi}: median {result['value']!r} s "
+          f"(min {result['min_total']!r}, max {result['max_total']!r}, "
+          f"{result['n_clean']} clean of {BENCH_PIPE_REPS - 1} measured); "
+          f"launches per run {per_run}", flush=True)
+    assert len(per_run) == BENCH_PIPE_REPS and all(
+        r == {"dense": 0, "partial": 1, "fma": 0, "svr": 0, "tsne": 0}
+        for r in per_run), per_run
+    assert list(result["stages"]) == PIPELINE_STAGES, list(result["stages"])
+    assert all(list(r["stages"]) == PIPELINE_STAGES for r in result["runs"])
+    return result, launches
+
+
+def profile_phase(smi, S, U, unprofiled):
+    """One full-mode and one default-mode pipeline (bench_pipeline.run_once)
+    on S, U under utils.profiling.trace: the device's idle share over the
+    whole pipeline and over its transition stage, the PROFILE_TOP device
+    kernels that took the most time, and the profiled total beside the
+    unprofiled one (`unprofiled`: mode -> seconds of pipeline_phase's
+    run on the same data)."""
+    from velocyto_tpu_torch import bench_common, bench_pipeline, kernels
+    from velocyto_tpu_torch.utils.profiling import trace
+    phase("pipeline under torch.profiler, full and default mode")
+    transition = PIPELINE_STAGES[5]
+    out, launches = {}, {}
+    kernels.reset_counts()              # count this path's launches only
+    for mode, knn_random in (("full", False), ("default", True)):
+        with _scratch_dir() as logdir:
+            with trace(logdir) as prof:
+                with torch.profiler.record_function("pipeline"):
+                    total, stages, v = bench_pipeline.run_once(
+                        S, U, DEVICE, knn_random)
+            del v
+            trace_mb = sum(os.path.getsize(os.path.join(logdir, f))
+                           for f in os.listdir(logdir)) / 2**20
+        rec = {"profiled_s": total, "unprofiled_s": unprofiled[mode],
+               "idle_share": bench_common.idle_share(
+                   prof, *bench_common.host_window(prof, "pipeline")),
+               "transition_idle_share": bench_common.idle_share(
+                   prof, *bench_common.host_window(prof, transition)),
+               "transition_s": stages[transition],
+               "top_kernels": bench_common.top_device_kernels(
+                   prof, PROFILE_TOP),
+               "trace_mib": trace_mb}
+        del prof
+        out[mode] = rec
+        print(f"# profile, {mode} mode, on {smi}: idle share "
+              f"{rec['idle_share']!r} over the pipeline, "
+              f"{rec['transition_idle_share']!r} over the transition stage; "
+              f"profiled total {total!r} s against {unprofiled[mode]!r} s "
+              f"unprofiled; Chrome trace {trace_mb:.1f} MiB", flush=True)
+        for k in rec["top_kernels"]:
+            print(f"#   {k['ms']:10.3f} ms {k['calls']:6d}x  "
+                  f"{k['name'][:110]}", flush=True)
+        for share in (rec["idle_share"], rec["transition_idle_share"]):
+            assert 0.0 <= share < 1.0, share
+        torch.cuda.empty_cache()
+    launches = _launches()
+    assert launches["dense"] == 1 and launches["partial"] == 1, launches
+    return out, launches
+
+
+def attr_phase(smi):
+    """python3 -m velocyto_tpu_torch.bench_attr: the transition stage's
+    and the 50k kNN's sub-stages on the card."""
+    from velocyto_tpu_torch import bench_attr, kernels
+    phase("stage attribution (python3 -m velocyto_tpu_torch.bench_attr)")
+    kernels.reset_counts()              # count this path's launches only
+    res = bench_attr.main("both")
+    launches = _launches()
+    t = res["transition_prob_substages"]
+    print(f"# attribution on {smi}: transition sub-stages sum "
+          f"{t['sum']!r} s, whole {t['transition_prob(whole)']!r} s, idle "
+          f"share over the whole {t['idle_share(whole)']!r}; knn50k sum "
+          f"{res['knn_50k_substages']['sum']!r} s; launches {launches}",
+          flush=True)
+    # warm-up and timed: main alone, dual; whole: warm-up, timed, profiled
+    assert launches["partial"] == 7 and launches["dense"] == 0, launches
+    assert 0.0 <= t["idle_share(whole)"] < 1.0
+    for table in res.values():
+        if isinstance(table, dict):
+            assert all(np.isfinite(v) and v > 0 for k, v in table.items()
+                       if isinstance(v, float) and k != "idle_share(whole)")
+    return res, launches
+
+
+def knn50k_phase(smi):
+    """python3 -m velocyto_tpu_torch.bench_knn50k with KNN50K_REPS runs
+    (one warm-up) at 50,000 cells."""
+    from velocyto_tpu_torch import bench_knn50k, kernels
+    phase(f"50k balanced kNN bench (python3 -m "
+          f"velocyto_tpu_torch.bench_knn50k), {KNN50K_REPS} runs")
+    kernels.reset_counts()              # count this path's launches only
+    rec = bench_knn50k.main(reps=KNN50K_REPS)
+    launches = _launches()
+    print(f"# knn50k bench on {smi}: median {rec['value']!r} s, stages "
+          f"{rec['stages']}", flush=True)
+    assert not any(launches.values()), launches
+    assert list(rec["stages"]) == ["candidate_sort", "rescore_f64",
+                                   "reorder_truncate", "hub_order",
+                                   "balance_loop(host)"]
+    return rec
+
+
+def checkpoint_phase(v):
+    """save_state / load_state(device="cuda") of the default-mode
+    session's device tensors, host arrays and metadata: tensors bitwise
+    equal on the card, numpy arrays equal with their dtypes, metadata
+    equal."""
+    from velocyto_tpu_torch.io.checkpoint import load_state, save_state
+    phase("checkpoint of the default-mode session (io.checkpoint, DCP)")
+    tensors = dict(v.__dict__["_dev_state"])
+    arrays = {k: a for k, a in v.__dict__.items()
+              if isinstance(a, np.ndarray)}
+    meta = {k: m for k, m in v.__dict__.items()
+            if isinstance(m, (str, int, float, bool))}
+    meta["ca"], meta["ra"] = v.ca, v.ra
+    state = {**tensors, **arrays, **meta}
+    with _scratch_dir() as d:
+        t0 = time.perf_counter()
+        save_state(os.path.join(d, "ckpt"), state)
+        t1 = time.perf_counter()
+        got = load_state(os.path.join(d, "ckpt"), device=DEVICE)
+        t2 = time.perf_counter()
+    assert got.keys() == state.keys(), set(got) ^ set(state)
+    for k, t in tensors.items():
+        assert got[k].device == t.device and got[k].dtype == t.dtype and \
+            torch.equal(got[k], t), k
+    for k, a in arrays.items():
+        assert isinstance(got[k], np.ndarray) and got[k].dtype == a.dtype \
+            and np.array_equal(got[k], a), k
+    for k in ("ca", "ra"):
+        assert got[k].keys() == meta[k].keys() and all(
+            np.array_equal(got[k][c], meta[k][c]) for c in meta[k]), k
+    assert all(got[k] == m for k, m in meta.items() if k not in ("ca", "ra"))
+    nbytes = sum(t.numel() * t.element_size() for t in tensors.values())
+    print(f"# checkpoint: {len(tensors)} device tensors "
+          f"({nbytes / 2**30:.2f} GiB), {len(arrays)} host arrays, "
+          f"{len(meta)} metadata values; save {t1 - t0:.3f} s, load "
+          f"{t2 - t1:.3f} s; all equal", flush=True)
+
+
 def main():
     _card, smi = device_phase()
     build_phase()
@@ -1594,11 +1765,26 @@ def main():
     torch.cuda.empty_cache()
     tsne = tsne_phase(smi)
     torch.cuda.empty_cache()
-    stages_full, total_full, launches_full, peak_full, _ = \
+    stages_full, total_full, launches_full, peak_full, _, v = \
         pipeline_phase(knn_random=False, smi=smi)
+    del v
     torch.cuda.empty_cache()
-    stages_samp, total_samp, launches_samp, peak_samp, order_ms = \
+    stages_samp, total_samp, launches_samp, peak_samp, order_ms, v = \
         pipeline_phase(knn_random=True, smi=smi)
+    checkpoint_phase(v)
+    S, U = v.S, v.U                     # the raw counts, for the profile
+    del v
+    torch.cuda.empty_cache()
+    pipe_bench, launches_pipe_bench = bench_pipeline_phase(smi)
+    torch.cuda.empty_cache()
+    knn50k = knn50k_phase(smi)
+    torch.cuda.empty_cache()
+    attr, launches_attr = attr_phase(smi)
+    torch.cuda.empty_cache()
+    profile, launches_prof = profile_phase(
+        smi, S, U, {"full": total_full, "default": total_samp})
+    del S, U
+    torch.cuda.empty_cache()
     _bench, launches_bench = bench_phase()
     torch.cuda.empty_cache()
     stages_tut, total_tut, launches_tut, peak_tut, shims, step_ms = \
@@ -1627,7 +1813,24 @@ def main():
                       "svr_global_n_ms": svr["global_n_ms"],
                       "tsne_pass_ms_by_dim": tsne["pass_ms_by_dim"],
                       "tsne_1000_iterations_s": tsne["tsne_s"],
-                      "tsne3_launches": tsne["tsne3_launches"]}))
+                      "tsne3_launches": tsne["tsne3_launches"],
+                      "pipeline_bench": {
+                          k: pipe_bench[k] for k in (
+                              "value", "min_total", "max_total", "n_clean",
+                              "stages", "probe_thresholds_ms")},
+                      "pipeline_bench_runs_s": [
+                          r["total"] for r in pipe_bench["runs"]],
+                      "pipeline_bench_probes_ms": [
+                          (r["probe_ms"], r["host_probe_ms"])
+                          for r in pipe_bench["runs"]],
+                      "knn50k_bench": {
+                          k: knn50k[k] for k in (
+                              "value", "n_clean", "stages")},
+                      "knn50k_bench_runs_s": [
+                          r["total"] for r in knn50k["runs"]],
+                      "profile": profile,
+                      "attribution": attr,
+                      "chip_smoke_s": time.perf_counter() - _START}))
     # launches: each kernel's count summed over the paths that run it;
     # ms / plain_ms: the kernel and its plain version on the same inputs
     # (dense: one field; sampled: the dual call on uniform indices), with
@@ -1637,7 +1840,8 @@ def main():
         {"name": "coldeltacor_dense", "route": "cuda",
          "source": "velocyto_tpu_torch/kernels/coldeltacor_dense.cu",
          "replaces": "velocyto_tpu/ops/coldeltacor.py:89",
-         "launches": launches_full["dense"] + launches_tut["dense"],
+         "launches": launches_full["dense"] + launches_tut["dense"]
+         + launches_prof["dense"],
          "max_abs_err": dense["max_abs_err"], "ms": dense["ms"],
          "plain_ms": dense["plain_ms"], "bound_ms": dense["bound_ms"],
          "bound_by": dense["bound_by"], "library_ms": None,
@@ -1646,7 +1850,8 @@ def main():
          "source": "velocyto_tpu_torch/kernels/coldeltacor_partial.cu",
          "replaces": "velocyto_tpu/ops/coldeltacor.py:260",
          "launches": launches_samp["partial"] + launches_tut["partial"]
-         + launches_heur["partial"],
+         + launches_heur["partial"] + launches_prof["partial"]
+         + launches_pipe_bench["partial"] + launches_attr["partial"],
          "max_abs_err": sampled["max_abs_err"], "ms": sampled["ms"],
          "plain_ms": sampled["plain_ms"], "bound_ms": sampled["bound_ms"],
          "bound_by": sampled["bound_by"], "library_ms": None,

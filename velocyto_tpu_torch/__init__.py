@@ -3,14 +3,16 @@
 A port of velocyto_tpu (JAX/Pallas on TPU) to PyTorch with hand-written
 CUDA kernels for NVIDIA Hopper.  It keeps the JAX package's module names
 (analysis, estimation, diffusion, models.velocity, ops.coldeltacor,
-ops.knn, ops.knn_device, ops.gamma, ops.pca, ops.smoothing, io.loom) and
+ops.knn, ops.knn_device, ops.gamma, ops.pca, ops.smoothing, io.loom,
+io.checkpoint, serialization, utils.profiling) and
 never imports jax.  Every object and function works on an explicit torch
 device; kernels build on first use (see ``kernels``).
 """
 from . import kernels
 from .analysis import (VelocytoLoom, colormap_fun, gaussian_kernel,
-                       numba_random_seed, permute_rows_nsign,
-                       scale_to_match_median, state_from_numpy)
+                       load_velocyto_hdf5, numba_random_seed,
+                       permute_rows_nsign, scale_to_match_median,
+                       state_from_numpy)
 from .diffusion import Diffusion
 from .estimation import (colDeltaCor, colDeltaCorLog10, colDeltaCorLog10partial,
                          colDeltaCorpartial, colDeltaCorSqrt,
@@ -25,9 +27,10 @@ from .ops.knn import (BalancedKNN, balance_knn_loop, knn_balance,
 from .ops.knn_device import knn_search_dev
 from .ops.pca import PCA
 from .ops.smoothing import connectivity_to_weights, convolve_by_sparse_weights
+from .serialization import dump_hdf5, load_hdf5
 
 __all__ = ["kernels", "VelocytoLoom", "colormap_fun", "gaussian_kernel",
-           "numba_random_seed", "permute_rows_nsign", "scale_to_match_median",
+           "load_velocyto_hdf5", "dump_hdf5", "load_hdf5", "numba_random_seed", "permute_rows_nsign", "scale_to_match_median",
            "state_from_numpy", "Diffusion", "colDeltaCor", "colDeltaCorLog10",
            "colDeltaCorLog10partial", "colDeltaCorpartial", "colDeltaCorSqrt",
            "colDeltaCorSqrtpartial", "col_delta_cor", "col_delta_cor_partial",

@@ -27,7 +27,9 @@ colours imports matplotlib, as the JAX package does.
 """
 from __future__ import annotations
 
+import io
 import logging
+import pickle
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from copy import deepcopy
@@ -54,6 +56,7 @@ from .ops.smoothing import (connectivity_to_weights,
                             convolve_by_sparse_weights_dev)
 from .ops.svr import SVR
 from .ops.tsne import tsne
+from .serialization import dump_hdf5, load_hdf5
 
 _F32, _F64 = torch.float32, torch.float64
 
@@ -211,6 +214,45 @@ class VelocytoLoom:
         if cached is not None:
             return cached
         return self.__dict__["_dev_state"][name]
+
+    # ------------------------------------------------------------------
+    # serialization
+    # ------------------------------------------------------------------
+
+    # runtime state, not data: the device tensors and the handles to them
+    _RUNTIME = ("device", "_corr_dev", "_corr_rndm_dev", "_dev_state",
+                "_dev_host_cache", "_knn_graph_dev", "_compact_ixs_dev")
+
+    def to_hdf5(self, filename: str, **kwargs: Any) -> None:
+        """Snapshot every attribute to hdf5 (resume with
+        load_velocyto_hdf5, in this package or the JAX package).  The
+        device and the device tensors are runtime state, not data: the
+        lazy dense views (corrcoef / transition_prob), the device-backed
+        attributes and the kNN and sampled-neighbour views are
+        materialized on the host first, so the snapshot carries the
+        reference's attribute set, then the runtime state is left out of
+        the dump.  Raises TypeError, writing nothing, if any other
+        attribute holds a torch object."""
+        for name in VelocytoLoom._LAZY_DENSE:
+            try:
+                getattr(self, name)
+            except AttributeError:
+                pass
+        for name in list(self.__dict__.get("_dev_state", ())):
+            self.__dict__[name] = self._materialize_dev(name)
+        if self.__dict__.get("_knn_graph_dev") is not None:
+            self.knn_smoothing_w   # noqa: B018 - forces knn materialization
+            self.knn
+        if self.__dict__.get("_compact_ixs_dev") is not None:
+            self.embedding_knn
+            self._compact_ixs
+        runtime = {k: self.__dict__.pop(k) for k in self._RUNTIME
+                   if k in self.__dict__}
+        try:
+            _check_no_torch(self.__dict__)
+            dump_hdf5(self, filename, **kwargs)
+        finally:
+            self.__dict__.update(runtime)
 
     # ------------------------------------------------------------------
     # cell/gene bookkeeping (reference :137-201), host numpy
@@ -1659,6 +1701,54 @@ class VelocytoLoom:
                             b_sight=int(min(k * 8, self.S.shape[1] - 1)),
                             b_maxl=int(min(k * 4, self.S.shape[1] - 1)))
         self.normalize_median()
+
+    def reload_raw(self, substitute: bool = False) -> None:
+        """Reload pristine matrices from the loom (reference :2314-2342):
+        into S/U/A when substitute, else as raw_* copies."""
+        prefix = "" if substitute else "raw_"
+        ds = loomio.connect(self.loom_filepath)
+        try:
+            loaded = {}
+            for name in ("spliced", "unspliced", "ambiguous"):
+                loaded[name] = ds.layer[name][:, :]
+                setattr(self, prefix + name[0].upper(), loaded[name])
+            setattr(self, prefix + "initial_cell_size",
+                    loaded["spliced"].sum(0))
+            setattr(self, prefix + "initial_Ucell_size",
+                    loaded["unspliced"].sum(0))
+            setattr(self, prefix + "ca", dict(ds.col_attrs.items()))
+            setattr(self, prefix + "ra", dict(ds.row_attrs.items()))
+        finally:
+            ds.close()
+
+
+def load_velocyto_hdf5(filename: str, device="cuda") -> VelocytoLoom:
+    """Reload a VelocytoLoom snapshot written by to_hdf5 of this package
+    or of the JAX package (reference :2454-2470), on `device`.  Host
+    values are authoritative; stages upload what they read."""
+    v = load_hdf5(filename, obj_class=VelocytoLoom)
+    v.device = torch.device(device)
+    return v
+
+
+class _NoTorchPickler(pickle.Pickler):
+    """Pickles to nowhere; raises TypeError on any torch object."""
+
+    def persistent_id(self, obj: Any) -> None:
+        if type(obj).__module__.split(".")[0] == "torch":
+            raise TypeError(f"a torch object ({type(obj).__name__}) would "
+                            f"reach the snapshot")
+
+
+def _check_no_torch(attrs: Dict[str, Any]) -> None:
+    """Raise TypeError if any value of attrs holds a torch object."""
+    for name, value in attrs.items():
+        if type(value) is np.ndarray and value.dtype.kind not in ("U", "O"):
+            continue                         # an hdf5 dataset, no pickle
+        try:
+            _NoTorchPickler(io.BytesIO(), protocol=2).dump(value)
+        except TypeError as err:
+            raise TypeError(f"attribute {name!r}: {err}") from None
 
 
 def state_from_numpy(attrs: dict, device) -> VelocytoLoom:
