@@ -44,6 +44,18 @@ comes out:
     probabilities on the t-SNE embedding, the embedding shift and the
     grid field.
 
+After the default-mode pipeline, the kNN balance kernel is held bitwise
+(dsi_new, dist_new, the in-degrees l) against its plain version, the
+host greedy loop and its other l route (shared or global memory) on the
+pipeline's own candidates (20,000 x 3,001, k=500, maxl 1,500) and on
+bench_knn50k's (50,000 x 3,001), and against the host loop and the other
+route in three hard regimes at 20,000 cells (12 groups, maxl == k, and a
+small maxl that exhausts sights, so rows self-fill); l never passes
+maxl and equals the in-degree of dsi_new; the kernel, the plain version
+and the host loop with and without its copies are timed, and a probe of
+the node-to-node chain alone gives the latency floor.  Every path that
+balances shows its balance launches.
+
 Before the paths, the SVR solver kernel (a thread-block cluster holding
 its state in shared memory at the session's sizes) is held bitwise
 against its plain version and against its global-memory route on a
@@ -115,6 +127,10 @@ PIPELINE_STAGES = ["normalize", "pca", "knn_imputation(k=500,sight=3000)",
                    "transition_prob(nn=3500,frac=0.5,rand=True)",
                    "embedding_shift", "grid_arrows"]
 BENCH_PIPE_REPS, KNN50K_REPS = 3, 2   # one warm-up run each, then measured
+# the balance kernel's hard regimes at 20,000 cells: groups of the
+# constrained case, and the small cap that exhausts sights
+BALANCE_GROUPS, BALANCE_SMALL_MAXL = 12, 50
+KNN50K_CELLS, KNN50K_DIMS = 50000, 50  # bench_knn50k's points
 PROFILE_TOP = 5                       # device kernels printed per profile
 # the transform/psc cases of the kernel checks (partial semantics are
 # the sampled kernel's only semantics)
@@ -627,7 +643,7 @@ def _stager(stages, smi):
 
 _COUNTS = {"dense": "dense_launches", "partial": "partial_launches",
            "fma": "fma_launches", "svr": "svr_launches",
-           "tsne": "tsne_launches"}
+           "tsne": "tsne_launches", "balance": "balance_launches"}
 
 
 def _launches():
@@ -717,7 +733,7 @@ def pipeline_phase(knn_random, smi):
     if knn_random:
         # the dual form: main field and randomized control in one launch
         assert launches == {"dense": 0, "partial": 1, "fma": 0, "svr": 0,
-                            "tsne": 0} and \
+                            "tsne": 0, "balance": 1} and \
             transition_launches["partial"] == 1, launches
         _check_sampled_state(v)
         assert len(captured) == 1, len(captured)
@@ -725,7 +741,7 @@ def pipeline_phase(knn_random, smi):
     else:
         # the dual form: main field and randomized control in one launch
         assert launches == {"dense": 1, "partial": 0, "fma": 0, "svr": 0,
-                            "tsne": 0} and \
+                            "tsne": 0, "balance": 1} and \
             transition_launches["dense"] == 1, launches
         corr = v._get_dev("corrcoef")           # diagonal already set to 0
         assert corr.shape == (CELLS, CELLS) and bool(torch.isfinite(corr).all())
@@ -921,12 +937,12 @@ def tutorial_phase(smi):
     print(f"# tutorial path total (session, velocity_step, shims): "
           f"{total:.3f} s on {smi}; kernel launches {launches}; peak device "
           f"memory {peak / 2**30:.2f} GiB", flush=True)
-    # the session's dual sampled launch, the check chain's and
-    # velocity_step's, and one launch of each shim
+    # the session's dual sampled launch and balance, the check chain's
+    # and velocity_step's, and one launch of each shim
     assert session_launches == {"dense": 0, "partial": 1, "fma": 0, "svr": 0,
-                                "tsne": 0}, session_launches
+                                "tsne": 0, "balance": 1}, session_launches
     assert launches == {"dense": 3, "partial": 6, "fma": 0, "svr": 0,
-                        "tsne": 0}, launches
+                        "tsne": 0, "balance": 2}, launches
     return stages, session_total, launches, peak, shims, step_ms
 
 
@@ -1532,7 +1548,8 @@ def heuristic_phase(smi):
     assert len(fits) == 2 and fits[0][0] >= SVR_CV_MIN and \
         fits[1][0] == CELLS, fits
     assert launches["svr"] == 2 and launches["partial"] == 1 and \
-        launches["dense"] == 0 and launches["fma"] == 0, launches
+        launches["dense"] == 0 and launches["fma"] == 0 and \
+        launches["balance"] == 1, launches
     assert svr_routes == {"shared": 2, "global": 0}, svr_routes
     # two launches per gradient, one gradient per t-SNE iteration
     assert 500 < launches["tsne"] <= 2000 and launches["tsne"] % 2 == 0, \
@@ -1569,8 +1586,8 @@ def bench_phase():
     launches = _launches()
     print(f"# bench launches {launches}", flush=True)
     assert launches["dense"] and launches["partial"] and launches["fma"] \
-        and not launches["svr"] and not launches["tsne"], \
-        f"a bench kernel never ran: {launches}"
+        and not launches["svr"] and not launches["tsne"] and \
+        not launches["balance"], f"a bench kernel never ran: {launches}"
     for key in ("value", "large_n_cells_per_sec", "dense_kernel_tflops_f32",
                 "fma_ceiling_tflops_f32"):
         assert np.isfinite(result[key]) and result[key] > 0, key
@@ -1617,8 +1634,8 @@ def bench_pipeline_phase(smi):
           f"{result['n_clean']} clean of {BENCH_PIPE_REPS - 1} measured); "
           f"launches per run {per_run}", flush=True)
     assert len(per_run) == BENCH_PIPE_REPS and all(
-        r == {"dense": 0, "partial": 1, "fma": 0, "svr": 0, "tsne": 0}
-        for r in per_run), per_run
+        r == {"dense": 0, "partial": 1, "fma": 0, "svr": 0, "tsne": 0,
+              "balance": 1} for r in per_run), per_run
     assert list(result["stages"]) == PIPELINE_STAGES, list(result["stages"])
     assert all(list(r["stages"]) == PIPELINE_STAGES for r in result["runs"])
     return result, launches
@@ -1669,26 +1686,33 @@ def profile_phase(smi, S, U, unprofiled):
             assert 0.0 <= share < 1.0, share
         torch.cuda.empty_cache()
     launches = _launches()
-    assert launches["dense"] == 1 and launches["partial"] == 1, launches
+    assert launches["dense"] == 1 and launches["partial"] == 1 and \
+        launches["balance"] == 2, launches
     return out, launches
 
 
 def attr_phase(smi):
-    """python3 -m velocyto_tpu_torch.bench_attr: the transition stage's
-    and the 50k kNN's sub-stages on the card."""
+    """python3 -m velocyto_tpu_torch.bench_attr: the transition stage's,
+    the 50k kNN's and the 20k kNN's sub-stages on the card."""
     from velocyto_tpu_torch import bench_attr, kernels
     phase("stage attribution (python3 -m velocyto_tpu_torch.bench_attr)")
     kernels.reset_counts()              # count this path's launches only
-    res = bench_attr.main("both")
+    res = bench_attr.main("all")
     launches = _launches()
     t = res["transition_prob_substages"]
+    k20 = res["knn_20k_substages"]
     print(f"# attribution on {smi}: transition sub-stages sum "
           f"{t['sum']!r} s, whole {t['transition_prob(whole)']!r} s, idle "
           f"share over the whole {t['idle_share(whole)']!r}; knn50k sum "
-          f"{res['knn_50k_substages']['sum']!r} s; launches {launches}",
+          f"{res['knn_50k_substages']['sum']!r} s; knn20k sum "
+          f"{k20['sum']!r} s with balance_scan {k20['balance_scan']!r} s, "
+          f"the host loop on the same candidates "
+          f"{k20['balance_loop(host)']!r} s; launches {launches}",
           flush=True)
-    # warm-up and timed: main alone, dual; whole: warm-up, timed, profiled
-    assert launches["partial"] == 7 and launches["dense"] == 0, launches
+    # warm-up and timed: main alone, dual; whole: warm-up, timed, profiled;
+    # one balance per kNN run, each kNN warm-up and timed
+    assert launches["partial"] == 7 and launches["dense"] == 0 and \
+        launches["balance"] == 4, launches
     assert 0.0 <= t["idle_share(whole)"] < 1.0
     for table in res.values():
         if isinstance(table, dict):
@@ -1708,11 +1732,177 @@ def knn50k_phase(smi):
     launches = _launches()
     print(f"# knn50k bench on {smi}: median {rec['value']!r} s, stages "
           f"{rec['stages']}", flush=True)
-    assert not any(launches.values()), launches
+    assert launches == {**{k: 0 for k in _COUNTS},
+                        "balance": KNN50K_REPS}, launches
     assert list(rec["stages"]) == ["candidate_sort", "rescore_f64",
                                    "reorder_truncate", "hub_order",
-                                   "balance_loop(host)"]
-    return rec
+                                   "balance_scan"]
+    return rec, launches
+
+
+def _bits64(a, b):
+    """Same shape and the same 64-bit patterns."""
+    view = (lambda t: t.view(torch.int64) if t.dtype == torch.float64
+            else t)
+    return a.shape == b.shape and bool(torch.equal(view(a), view(b)))
+
+
+def _same_balance(got, want):
+    """dist_new, dsi_new and l bitwise equal (want may be host arrays)."""
+    return all(_bits64(g, w if isinstance(w, torch.Tensor) else
+                       torch.as_tensor(w, device=g.device))
+               for g, w in zip(got, want))
+
+
+def _balance_invariants(dsi_new, l, maxl):
+    """l <= maxl everywhere, and l is the in-degree of the balanced rows
+    (their accepted entries: neither -1 nor the row's own cell)."""
+    n = dsi_new.shape[0]
+    rows = dsi_new[:, 1:]
+    taken = (rows >= 0) & (rows != torch.arange(n, device=rows.device)[:,
+                                                                        None])
+    indeg = torch.bincount(rows[taken], minlength=n)
+    return bool((l <= maxl).all()) and bool(torch.equal(indeg, l))
+
+
+def _host_balance(dsi, dist, lsi, maxl, k, cst=None):
+    """The host greedy loop on the card's candidates: (its outputs back on
+    the card, seconds with the copies to and from the host, seconds of
+    the loop alone)."""
+    from velocyto_tpu_torch.ops.knn import balance_knn_loop
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = [t.cpu().numpy() for t in (dsi, dist, lsi)]
+    c = None if cst is None else cst.cpu().numpy()
+    t1 = time.perf_counter()
+    out = balance_knn_loop(*host, maxl, k, True, c)
+    t2 = time.perf_counter()
+    out = [torch.as_tensor(a, device=DEVICE) for a in out]
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, t2 - t1
+
+
+def _balance_bound(dsi, dsi_new, k):
+    """bound_ms of one balance: compulsory bytes at 3.35 TB/s, counting
+    what this run's data needs: the examined candidate indices of each row
+    (up to its k-th acceptance, the whole row where it self-fills), the
+    visit order, the accepted distances, and the (n, k+1) int64 and
+    float64 outputs and l written once."""
+    n, sight = dsi.shape
+    last = dsi_new[:, k]
+    full = last != torch.arange(n, device=dsi.device)     # k accepted
+    pos = (dsi == last[:, None]).to(torch.int32).argmax(dim=1)
+    examined = torch.where(full, pos + 1, sight)
+    accepted = int((dsi_new[:, 1:] >= 0).sum()) - int(
+        (dsi_new[:, 1:] == torch.arange(n, device=dsi.device)[:, None]
+         ).sum())
+    nbytes = 8 * int(examined.sum()) + 8 * n + 8 * accepted + \
+        16 * n * (k + 1) + 8 * n
+    return {**_bound(0, nbytes), "examined_mean": float(
+        examined.double().mean())}
+
+
+def balance_phase(smi, pcs):
+    """The kNN balance kernel (kernels.knn_balance) on the card, bitwise
+    against its plain version, the host loop and its other l route on
+    the default pipeline's own candidates (`pcs`, its 20,000 x 50 PCA
+    space: sight 3,000, k=500, maxl 1,500) and on bench_knn50k's, then in
+    three hard regimes at 20,000 cells against the host loop and the
+    other route; the invariants of l; times and the latency floor.
+    Returns the numbers of the kernels line."""
+    from velocyto_tpu_torch import kernels
+    from velocyto_tpu_torch.bench_knn50k import points
+    from velocyto_tpu_torch.ops import knn_device as kd
+    phase("kNN balance kernel against plain, the host loop and its other "
+          "route, on the card")
+    res = {}
+    for tag, x in (("20k", pcs), ("50k", points(KNN50K_CELLS, KNN50K_DIMS))):
+        dist, dsi = kd.knn_search_dev(x, B_SIGHT + 1, device=DEVICE)
+        lsi = kd._hub_order_impl(dsi)
+        n = dsi.shape[0]
+        route = kernels.balance_route(n, B_MAXL)
+        other = "global" if route == "shared" else "shared"
+
+        def run(r=None):
+            return kernels.knn_balance(dsi, dist, lsi, None, B_MAXL, K,
+                                       route=r)
+        first_ms, got = _time_ms(run)
+        ms = statistics.median([first_ms] + [_time_ms(run)[0]
+                                             for _ in range(2)])
+        other_ms, forced = _time_ms(lambda: run(other))
+        plain_ms, want = _time_ms(lambda: kd._balance_scan_plain(
+            dsi, dist, lsi, None, B_MAXL, K))
+        host, host_s, loop_s = _host_balance(dsi, dist, lsi, B_MAXL, K)
+        same = (_same_balance(got, want), _same_balance(got, host),
+                _same_balance(got, forced))
+        inv = _balance_invariants(got[1], got[2], B_MAXL)
+        err = float((got[0] - want[0]).abs().max())
+        # n dependent steps of the chain between nodes, with and without
+        # the read of a row chunk that nothing loaded ahead
+        floor_ms, chain_ms = (statistics.median(_time_ms(
+            lambda: kernels.balance_probe(n, n, route, rows=rows))[0]
+            for _ in range(3)) for rows in (dsi, None))
+        bound = _balance_bound(dsi, got[1], K)
+        selffilled = int((got[1][:, K] == torch.arange(
+            n, device=DEVICE)).sum())
+        print(f"# balance {tag}: N={n} sight={dsi.shape[1]} k={K} maxl="
+              f"{B_MAXL} on {smi}: kernel (l in {route} memory) {ms!r} ms "
+              f"(median of 3, CUDA events; first call {first_ms!r}), l in "
+              f"{other} memory {other_ms!r} ms, plain {plain_ms!r} ms (one "
+              f"call), host loop {loop_s * 1e3!r} ms alone, "
+              f"{host_s * 1e3!r} ms with its copies (host clock); latency "
+              f"floor {floor_ms!r} ms ({n} probe steps with a row read, "
+              f"median of 3; {chain_ms!r} ms without it); bound "
+              f"{bound['bound_ms']!r} ms ({bound['bound_by']}; "
+              f"{bound['examined_mean']!r} candidates examined a row); "
+              f"{selffilled} rows self-filled; bitwise equal to plain / host "
+              f"loop / {other} route: {same}; l <= maxl and l the "
+              f"in-degree of dsi_new: {inv}", flush=True)
+        assert all(same) and inv and err == 0.0, (tag, same, inv, err)
+        res[tag] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                    "other_route_ms": other_ms, "route": route,
+                    "host_loop_ms": loop_s * 1e3,
+                    "host_loop_with_copies_ms": host_s * 1e3,
+                    "latency_floor_ms": floor_ms, "chain_ms": chain_ms,
+                    **bound}
+        if tag == "20k":
+            hard = (dsi, dist, lsi)
+        del dist, dsi, lsi, got, forced, want, host
+        torch.cuda.empty_cache()
+    # the hard regimes at 20,000 cells, against the host loop and the
+    # other route: groups of the first PC's quantiles, a cap of k, a cap
+    # so small that sights run out
+    dsi, dist, lsi = hard
+    n = dsi.shape[0]
+    pc0 = np.asarray(pcs)[:, 0]
+    groups = np.searchsorted(np.quantile(pc0, np.linspace(
+        0, 1, BALANCE_GROUPS + 1)[1:-1]), pc0)
+    cst = torch.as_tensor(groups, dtype=torch.int32, device=DEVICE)
+    for name, maxl, c in (("constrained", B_MAXL, cst), ("maxl == k", K, None),
+                          ("self-fill", BALANCE_SMALL_MAXL, None)):
+        route = kernels.balance_route(n, maxl)
+        other = "global" if route == "shared" else "shared"
+        ms, got = _time_ms(lambda: kernels.knn_balance(
+            dsi, dist, lsi, c, maxl, K))
+        forced = kernels.knn_balance(dsi, dist, lsi, c, maxl, K, route=other)
+        host, _host_s, loop_s = _host_balance(dsi, dist, lsi, maxl, K, c)
+        same = (_same_balance(got, host), _same_balance(got, forced))
+        inv = _balance_invariants(got[1], got[2], maxl)
+        selffilled = int((got[1][:, K] == torch.arange(
+            n, device=DEVICE)).sum())
+        print(f"# balance {name}: N={n} k={K} maxl={maxl}"
+              f"{f' {BALANCE_GROUPS} groups' if c is not None else ''} on "
+              f"{smi}: kernel ({route}) {ms!r} ms (one call), host loop "
+              f"{loop_s * 1e3!r} ms; {selffilled} rows self-filled; bitwise "
+              f"equal to the host loop / the {other} route: {same}; "
+              f"invariants {inv}", flush=True)
+        assert all(same) and inv, (name, same, inv)
+        if name == "self-fill":
+            assert selffilled > 0, "no row self-filled"
+        res[name] = ms
+    del dsi, dist, lsi, hard
+    torch.cuda.empty_cache()
+    return res
 
 
 def checkpoint_phase(v):
@@ -1773,11 +1963,15 @@ def main():
         pipeline_phase(knn_random=True, smi=smi)
     checkpoint_phase(v)
     S, U = v.S, v.U                     # the raw counts, for the profile
+    pcs = np.ascontiguousarray(v.pcs)   # the pipeline's kNN space
     del v
+    torch.cuda.empty_cache()
+    balance = balance_phase(smi, pcs)
+    del pcs
     torch.cuda.empty_cache()
     pipe_bench, launches_pipe_bench = bench_pipeline_phase(smi)
     torch.cuda.empty_cache()
-    knn50k = knn50k_phase(smi)
+    knn50k, launches_knn50k = knn50k_phase(smi)
     torch.cuda.empty_cache()
     attr, launches_attr = attr_phase(smi)
     torch.cuda.empty_cache()
@@ -1831,6 +2025,7 @@ def main():
                       "profile": profile,
                       "attribution": attr,
                       "chip_smoke_s": time.perf_counter() - _START}))
+    b20, b50 = balance["20k"], balance["50k"]
     # launches: each kernel's count summed over the paths that run it;
     # ms / plain_ms: the kernel and its plain version on the same inputs
     # (dense: one field; sampled: the dual call on uniform indices), with
@@ -1888,7 +2083,33 @@ def main():
          "max_abs_err": tsne["max_abs_err"], "ms": tsne["ms"],
          "plain_ms": tsne["plain_ms"], "bound_ms": tsne["bound_ms"],
          "bound_by": tsne["bound_by"], "library_ms": None,
-         "pair_ms": tsne["pair_ms"], "attract_ms": tsne["attract_ms"]}]}))
+         "pair_ms": tsne["pair_ms"], "attract_ms": tsne["attract_ms"]},
+        {"name": "knn_balance", "route": "cuda",
+         "source": "velocyto_tpu_torch/kernels/knn_balance.cu",
+         "replaces": "velocyto_tpu/ops/knn_device.py:185",
+         "launches": launches_full["balance"] + launches_samp["balance"]
+         + launches_prof["balance"] + launches_pipe_bench["balance"]
+         + launches_knn50k["balance"] + launches_attr["balance"]
+         + launches_tut["balance"] + launches_heur["balance"],
+         "max_abs_err": max(b20["max_abs_err"], b50["max_abs_err"]),
+         "ms": b20["ms"], "plain_ms": b20["plain_ms"],
+         "bound_ms": b20["bound_ms"], "bound_by": b20["bound_by"],
+         "library_ms": None, "l_route": b20["route"],
+         "latency_floor_ms": b20["latency_floor_ms"],
+         "chain_ms": b20["chain_ms"],
+         "other_route_ms": b20["other_route_ms"],
+         "host_loop_ms": b20["host_loop_ms"],
+         "host_loop_with_copies_ms": b20["host_loop_with_copies_ms"],
+         "ms_50k": b50["ms"], "plain_ms_50k": b50["plain_ms"],
+         "bound_ms_50k": b50["bound_ms"],
+         "latency_floor_ms_50k": b50["latency_floor_ms"],
+         "chain_ms_50k": b50["chain_ms"],
+         "other_route_ms_50k": b50["other_route_ms"],
+         "host_loop_ms_50k": b50["host_loop_ms"],
+         "host_loop_with_copies_ms_50k": b50["host_loop_with_copies_ms"],
+         "constrained_ms": balance["constrained"],
+         "maxl_eq_k_ms": balance["maxl == k"],
+         "self_fill_ms": balance["self-fill"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -140,15 +140,46 @@ def test_attribution_keys_map_onto_the_jax_scripts(monkeypatch, tmp_path):
     assert os.listdir(tmp_path) == []
 
 
+KNN_STAGES = ["candidate_sort", "rescore_f64", "reorder_truncate",
+              "hub_order", "balance_scan"]
+
+
 def test_knn50k_stages_give_the_balanced_graph():
     x = bench_knn50k.points(400, 10)
     x64 = torch.as_tensor(x.astype(np.float64))
-    _total, stages, (dist, idx, _l) = bench_knn50k.run_once(
+    _total, stages, (dist, idx, l) = bench_knn50k.run_once(
         x, x64, "cpu", k=10, sight=30, maxl=15)
-    assert list(stages) == ["candidate_sort", "rescore_f64",
-                            "reorder_truncate", "hub_order",
-                            "balance_loop(host)"]
+    assert list(stages) == KNN_STAGES
     g = tkd.balanced_knn_graph_dev(x, k=10, sight_k=30, maxl=15,
                                    device="cpu")
-    np.testing.assert_array_equal(idx, g.idx.numpy())
-    np.testing.assert_array_equal(dist, g.dist.numpy())
+    np.testing.assert_array_equal(idx.numpy(), g.idx.numpy())
+    np.testing.assert_array_equal(dist.numpy(), g.dist.numpy())
+    np.testing.assert_array_equal(l.numpy(), g.indeg.numpy())
+
+
+def test_attr_knn20k_times_the_host_loop_beside_the_scan(monkeypatch,
+                                                        tmp_path):
+    """The 20k split at a small size: the path's five stages, the host
+    loop on the same candidates beside them (left out of the sum), and
+    the host loop's graph equal to the scan's."""
+    monkeypatch.chdir(tmp_path)
+    graphs = []
+    loop = bench_knn50k.balance_knn_loop
+
+    def recorded(*args):
+        graphs.append(loop(*args))
+        return graphs[-1]
+    monkeypatch.setattr(bench_knn50k, "balance_knn_loop", recorded)
+    table = bench_attr.attr_knn20k(n=400, d=10, k=10, sight=30, maxl=15,
+                                   device="cpu")
+    assert list(table) == KNN_STAGES + ["balance_loop(host)", "probe_ms",
+                                        "sum"]
+    assert table["probe_ms"] == [None, None]
+    assert all(table[s] > 0 for s in KNN_STAGES + ["balance_loop(host)"])
+    assert table["sum"] == pytest.approx(sum(table[s] for s in KNN_STAGES))
+    assert len(graphs) == 2           # the untimed run and the timed one
+    g = tkd.balanced_knn_graph_dev(bench_knn50k.points(400, 10), k=10,
+                                   sight_k=30, maxl=15, device="cpu")
+    for got, want in zip(graphs[-1], (g.dist, g.idx, g.indeg)):
+        np.testing.assert_array_equal(got, want.numpy())
+    assert os.listdir(tmp_path) == []

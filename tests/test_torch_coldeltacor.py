@@ -95,7 +95,7 @@ def test_kernels_import_without_cuda():
     assert kernels._lib is None
     assert [s.name for s in kernels.SOURCES] == [
         "coldeltacor_dense.cu", "coldeltacor_partial.cu", "fma_probe.cu",
-        "svr_smo.cu", "tsne_grad.cu"]
+        "knn_balance.cu", "svr_smo.cu", "tsne_grad.cu"]
     e = torch.zeros((4, 3))
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.coldeltacor_dense(e, e, 0, 0.0)
@@ -117,7 +117,11 @@ def test_kernels_import_without_cuda():
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.tsne_grad(torch.zeros((4, 2)), torch.zeros(5, dtype=torch.int64),
                           torch.zeros(0, dtype=torch.int32), torch.zeros(0))
+    i64 = torch.zeros((4, 3), dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.knn_balance(i64, i64.double(), i64[:, 0].contiguous(), None,
+                            2, 2)
     assert kernels.dense_launches == kernels.partial_launches == \
         kernels.fma_launches == kernels.svr_launches == \
-        kernels.tsne_launches == 0
+        kernels.tsne_launches == kernels.balance_launches == 0
     assert kernels._lib is None

@@ -15,11 +15,12 @@ is "cuda").  The heavy (genes, cells) stage outputs, the correlation
 state and the Markov matrix stay on that device between stages; the
 numpy (or csr) attributes the reference exposes are materialized lazily
 on first read.  Both colDeltaCor variants run through hand-written CUDA
-kernels on a CUDA device (ops/coldeltacor.py).  Host stages (the
-filter/score family and the raw-count normalizations in float64, PCA,
-the greedy kNN balance, the randomized-control permutation, the
-neighbour-sampling replay and the grid field) stay numpy/scipy/C++, as in
-the JAX package.  The two SVR noise models (score_cv_vs_mean,
+kernels on a CUDA device (ops/coldeltacor.py), and so does the balanced
+kNN's greedy balance (ops/knn_device.py), which keeps the whole kNN chain
+on the device.  Host stages (the filter/score family and the raw-count
+normalizations in float64, PCA, the gene-axis kNN balance, the
+randomized-control permutation, the neighbour-sampling replay and the
+grid field) stay numpy/scipy/C++, as in the JAX package.  The two SVR noise models (score_cv_vs_mean,
 adjust_totS_totU) and perform_TSNE run on the object's device through
 the port's own ops/svr.py and ops/tsne.py (hand CUDA kernels for the SMO
 loop and the t-SNE gradient), without sklearn; set_clusters without
@@ -749,8 +750,9 @@ class VelocytoLoom:
                        n_jobs: int = 8) -> None:
         """kNN smoothing of S_sz/U_sz -> Sx/Ux (reference :933-1023).
 
-        Device candidate search, exact f64 re-score, greedy balancing on
-        the host, and the smoothing convolution on the device.  Sx/Ux stay
+        Candidate search, exact f64 re-score, greedy balancing (a hand
+        CUDA kernel on the card) and the smoothing convolution, all on
+        the device.  Sx/Ux stay
         on the device; the .knn / .knn_smoothing_w csr views materialize
         lazily on first access.  n_jobs is accepted for API parity.
         """

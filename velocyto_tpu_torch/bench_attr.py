@@ -1,7 +1,8 @@
 """Sub-stage attribution of the port's two heaviest stages, on one CUDA
 device.
 
-    python3 -m velocyto_tpu_torch.bench_attr [transition|knn50k|both]
+    python3 -m velocyto_tpu_torch.bench_attr \
+        [transition|knn50k|knn20k|both|all]
 
 Port of the JAX package's bench_attr.py.  Splits
   - estimate_transition_prob(knn_random=True) at 20k cells x 2k genes,
@@ -15,8 +16,14 @@ Port of the JAX package's bench_attr.py.  Splits
     more under torch.profiler for the device's idle share over it (the
     path overlaps the replay with the rest, so the whole is less than
     the sum);
-  - the 50k balanced kNN into bench_knn50k's stages,
-and prints a JSON sub-table.  Each sub-stage runs once untimed first,
+  - the 50k balanced kNN into bench_knn50k's stages;
+  - the same stages at the pipeline's operating point (20,000 x 50 PCs,
+    sight 3000, k=500, maxl 1500), with the host greedy loop timed
+    beside them on the same candidates, copies included
+    ("balance_loop(host)", left out of the sum): the kNN stage of one
+    session with the balance on the card and with it on the host,
+and prints a JSON sub-table for each ("both" runs the JAX script's two,
+"all" the three).  Each sub-stage runs once untimed first,
 then once timed, ending in torch.cuda.synchronize().  The device probe
 runs before and after each section (a shared card runs identical work
 several times slower in contended phases).
@@ -39,8 +46,7 @@ from .utils.profiling import trace
 
 # the JAX script's keys -> the port's, where the port's piece differs
 RENAMED = {"permute_rndm(sort)": "permute_rndm(host)",
-           "corr_kernel_rndm": "corr_kernel_dual",
-           "balance_scan": "balance_loop(host)"}
+           "corr_kernel_rndm": "corr_kernel_dual"}
 # keys of the transition table that the JAX script has no counterpart of
 ADDED = ("transition_prob(whole)", "transition_prob(whole,profiled)",
          "idle_share(whole)")
@@ -149,37 +155,50 @@ def attr_transition(n=20000, g=2000, nn=3500, frac=0.5, device="cuda"):
     return out
 
 
-def attr_knn50k(n=50000, d=50, k=500, sight=3000, maxl=1500,
-                device="cuda"):
+def _attr_knn(label, n, d, k, sight, maxl, device, host_loop):
     from . import bench_knn50k
 
     x = bench_knn50k.points(n, d)
     x64 = torch.as_tensor(x.astype(np.float64), device=device)
-    print(f"# knn50k attribution (n={n}, sight={sight}, k={k})", flush=True)
+    print(f"# {label} attribution (n={n}, sight={sight}, k={k})", flush=True)
     p0 = _probe(device)
     print(f"#   probe_before: {p0}ms", flush=True)
-    bench_knn50k.run_once(x, x64, device, k, sight, maxl)   # untimed
+    bench_knn50k.run_once(x, x64, device, k, sight, maxl,      # untimed
+                          host_loop=host_loop)
     _total, out, _graph = bench_knn50k.run_once(x, x64, device, k, sight,
-                                                maxl)
+                                                maxl, host_loop=host_loop)
     for name, dt in out.items():
         print(f"#   {name}: {dt:.3f}s", flush=True)
     p1 = _probe(device)
     print(f"#   probe_after: {p1}ms", flush=True)
     out["probe_ms"] = [p0, p1]
-    out["sum"] = sum(v for v in out.values() if isinstance(v, float))
+    out["sum"] = sum(v for key, v in out.items() if isinstance(v, float)
+                     and key != "balance_loop(host)")
     return out
 
 
-def main(which="both"):
+def attr_knn50k(n=50000, d=50, k=500, sight=3000, maxl=1500,
+                device="cuda"):
+    return _attr_knn("knn50k", n, d, k, sight, maxl, device, False)
+
+
+def attr_knn20k(n=20000, d=50, k=500, sight=3000, maxl=1500,
+                device="cuda"):
+    return _attr_knn("knn20k", n, d, k, sight, maxl, device, True)
+
+
+def main(which="all"):
     require_card()
     res = {"device": torch.cuda.get_device_name(0)}
-    if which in ("both", "transition"):
+    if which in ("all", "both", "transition"):
         res["transition_prob_substages"] = attr_transition()
-    if which in ("both", "knn50k"):
+    if which in ("all", "both", "knn50k"):
         res["knn_50k_substages"] = attr_knn50k()
+    if which in ("all", "knn20k"):
+        res["knn_20k_substages"] = attr_knn20k()
     print(json.dumps(res))
     return res
 
 
 if __name__ == "__main__":
-    main(sys.argv[1] if len(sys.argv) > 1 else "both")
+    main(sys.argv[1] if len(sys.argv) > 1 else "all")

@@ -5,14 +5,15 @@ device.
     python3 -m velocyto_tpu_torch.bench_knn50k
 
 Port of the JAX package's bench_knn50k.py: 50,000 x 50 points (seed 0),
-sight 3000, k=500, maxl 1500, in the stages the port's balanced kNN runs
-(ops/knn_device.py::balanced_knn_graph_dev): the f32 candidate pass and
-its row sort, the f64 re-score, the (distance, index) reorder, the hub
-order on the card, then the greedy balance on the host
-(ops/knn.py::balance_knn_loop; the port has no device balance scan, so
-the stage is balance_loop(host), copies to the host included).  The
-statistics are bench_pipeline's: run 0 a warm-up, the headline the true
-median of the clean measured runs with min/max beside it.
+sight 3000, k=500, maxl 1500, in the JAX script's stages, as the port's
+balanced kNN runs them (ops/knn_device.py::balanced_knn_graph_dev), all
+on the card: the f32 candidate pass and its row sort, the f64 re-score,
+the (distance, index) reorder, the hub order and the greedy balance scan
+(the hand kernel kernels/knn_balance.cu).  run_once can also time the
+host loop (ops/knn.py::balance_knn_loop, the candidates copied to the
+host) on the same candidates, beside the path.  The statistics are
+bench_pipeline's: run 0 a warm-up, the headline the true median of the
+clean measured runs with min/max beside it.
 
 Prints ONE JSON line and returns the same dict; writes no file.  Raises
 without a CUDA device.  VTPU_BENCH_KNN_CELLS, VTPU_BENCH_KNN_REPS and
@@ -42,10 +43,14 @@ def points(n, d):
         np.float32)
 
 
-def run_once(x, x64, device="cuda", k=K, sight=SIGHT, maxl=MAXL):
+def run_once(x, x64, device="cuda", k=K, sight=SIGHT, maxl=MAXL,
+             host_loop=False):
     """One balanced kNN of x (host float32) / x64 (float64 tensor on
     `device`), stage by stage; returns (total seconds, {stage: seconds},
-    the balanced (dist, idx, in-degree))."""
+    the balanced (dist, idx, in-degree) tensors).  With host_loop, the
+    host greedy loop then balances the same candidates again, copies to
+    and from the host included, timed as "balance_loop(host)" beside the
+    path and outside its total."""
     stages = {}
 
     def timed(name, fn):
@@ -67,10 +72,17 @@ def run_once(x, x64, device="cuda", k=K, sight=SIGHT, maxl=MAXL):
         d2, cand, kk))
     dist = torch.sqrt(dd.clamp_min(0.0))
     lsi = timed("hub_order", lambda: kd._hub_order_impl(ii))
-    out = timed("balance_loop(host)", lambda: balance_knn_loop(
-        ii.cpu().numpy(), dist.cpu().numpy(), lsi.cpu().numpy(), maxl, k,
-        True))
-    return time.perf_counter() - t_all, stages, out
+    out = timed("balance_scan", lambda: kd._balance_scan_impl(
+        ii, dist, lsi, None, maxl, k))
+    total = time.perf_counter() - t_all
+    if host_loop:
+        def _host():
+            dn, di, l = balance_knn_loop(
+                ii.cpu().numpy(), dist.cpu().numpy(), lsi.cpu().numpy(),
+                maxl, k, True)
+            return [torch.as_tensor(a, device=device) for a in (dn, di, l)]
+        timed("balance_loop(host)", _host)
+    return total, stages, out
 
 
 def main(reps=6):
@@ -98,17 +110,18 @@ def main(reps=6):
         "metric": "knn_50k_balanced_seconds",
         "value": median,
         "unit": (f"s ({N} cells x {D} dims, sight={SIGHT}, k={K}; search, "
-                 f"re-score and hub order on the card, balance on the "
-                 f"host; {run_label}, spread {totals[0]}-{totals[-1]})"),
+                 f"re-score, hub order and balance on the card; "
+                 f"{run_label}, spread {totals[0]}-{totals[-1]})"),
         "n_clean": n_clean,
         "stages": med["stages"],
         "runs": runs,
         "device": torch.cuda.get_device_name(0),
         "card": card(),
         "probe_threshold_ms": PROBE_MS,
-        "note": ("run 0 includes the first CUDA use.  The balance is the "
-                 "host greedy loop (ops/knn.py::balance_knn_loop), one "
-                 "vectorised numpy step per node in hub order."),
+        "note": ("run 0 includes the first CUDA use and the kernels' "
+                 "build.  The balance is the hand CUDA kernel "
+                 "kernels/knn_balance.cu, one block walking the nodes in "
+                 "hub order."),
         "exactness": ("matches exact f64 brute force incl. tie-breaks "
                       "(f64 re-score; the CPU tests hold the graph to the "
                       "JAX package's bit for bit)"),

@@ -14,15 +14,16 @@ module that calls it and serves CPU tensors there:
   fma_probe            bench.py::_fma_plain
   svr_smo              ops/svr.py::_smo_plain
   tsne_grad            ops/tsne.py::_tsne_grad_plain
+  knn_balance          ops/knn_device.py::_balance_scan_plain
 
 ``dense_launches``, ``partial_launches``, ``fma_launches``,
-``svr_launches`` and ``tsne_launches`` count each kernel's launches (a
-``tsne_grad`` call, one gradient, adds two: the pair pass and the
-attractive pass), so a run can show that its main path went through it;
-``svr_shared_launches`` and ``svr_global_launches`` split the SVR
-solver's launches by where it keeps its state (``svr_route``).
-``svr_sync_probe`` is a measurement probe beside the SVR solver, not a
-path kernel, and has no count.
+``svr_launches``, ``tsne_launches`` and ``balance_launches`` count each
+kernel's launches (a ``tsne_grad`` call, one gradient, adds two: the pair
+pass and the attractive pass), so a run can show that its main path went
+through it; ``svr_shared_launches`` and ``svr_global_launches`` split the
+SVR solver's launches by where it keeps its state (``svr_route``).
+``svr_sync_probe`` and ``balance_probe`` are measurement probes beside the
+SVR solver and the balance scan, not path kernels, and have no count.
 """
 from __future__ import annotations
 
@@ -47,6 +48,7 @@ svr_launches = 0        # launches of the SVR solver (one per fit)
 svr_shared_launches = 0     # of them, with the state in shared memory
 svr_global_launches = 0     # of them, with the state in global memory
 tsne_launches = 0       # launches of the t-SNE gradient (two per call)
+balance_launches = 0    # launches of the kNN balance scan (one per graph)
 build_log = ""          # nvcc's output (-Xptxas -v) from the last build
 
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
@@ -68,6 +70,10 @@ _SIGNATURES = {
     "tsne_attract": ("tsne_grad", "vtt_tsne_attract",
                      [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
                       _P]),
+    "knn_balance": ("knn_balance", "vtt_knn_balance",
+                    [_P] * 8 + [_I] * 5 + [_P]),
+    "knn_balance_probe": ("knn_balance", "vtt_knn_balance_probe",
+                          [_P, _I, _I, _P, _I, _I, _P, _P]),
 }
 
 _lib: Optional[Dict[str, Any]] = None   # ctypes functions, on first use
@@ -444,9 +450,119 @@ def tsne_grad(y: torch.Tensor, indptr: torch.Tensor, indices: torch.Tensor,
     return w["grad"], (w["err"] if compute_error else None)
 
 
+_BALANCE_THREADS = 1024       # knn_balance.cu kThreads
+_BALANCE_SMEM = 224 * 1024    # kMaxSmem: shared memory for l, bytes
+_BALANCE_MAX_L16 = 65535      # kMaxL16: the largest l a uint16 holds
+
+
+def balance_route(n: int, maxl: int) -> str:
+    """Where the balance scan keeps the in-degrees l of n cells under the
+    cap maxl: "shared" while every l fits uint16 (no l passes min(maxl,
+    n - 1)) and 2 B a cell fit the block's shared memory (up to 114,688
+    cells), else "global" (an int32 array in device memory, L2-resident);
+    the same loop either way."""
+    top = min(max(int(maxl), 0), n - 1)
+    return "shared" if top <= _BALANCE_MAX_L16 and \
+        -(-2 * n // 16) * 16 <= _BALANCE_SMEM else "global"
+
+
+def knn_balance(dsi: torch.Tensor, dist: torch.Tensor, lsi: torch.Tensor,
+                constraint: Optional[torch.Tensor], maxl: int, k: int,
+                route: Optional[str] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The greedy degree-capped kNN balance on the card in one launch of
+    one block: dsi (n, sight) int64 candidate indices (distinct in each
+    row) and dist (n, sight) float64 in row order, lsi (n,) int64 visit
+    order, constraint (n,) int32 group labels or None -> (dist_new (n,
+    k+1) float64, dsi_new (n, k+1) int64, l (n,) int64), the layout of
+    ops.knn_device._balance_scan_plain, bitwise.  An index outside [0, n)
+    is never accepted.  route: "shared" or "global", where the kernel keeps
+    l; None takes ``balance_route(n, maxl)``.  The two give bitwise equal
+    results.  Launches on the current stream and does not synchronise."""
+    global balance_launches
+    _check("dsi", dsi, (torch.int64,))
+    _check("dist", dist, (torch.float64,))
+    _check("lsi", lsi, (torch.int64,), dim=1)
+    tensors = dict(dsi=dsi, dist=dist, lsi=lsi)
+    if constraint is not None:
+        _check("constraint", constraint, (torch.int32,), dim=1)
+        tensors["constraint"] = constraint
+    _check_same_device(**tensors)
+    n, sight = dsi.shape
+    k = int(k)
+    if dist.shape != dsi.shape or lsi.shape != (n,) or n < 1 or \
+            n >= 2 ** 31 - 1 or sight >= 2 ** 31 - 1 or k < 0 or \
+            (constraint is not None and constraint.shape != (n,)):
+        raise ValueError(f"unsupported shapes: dsi {tuple(dsi.shape)}, dist "
+                         f"{tuple(dist.shape)}, lsi {tuple(lsi.shape)}, k {k}")
+    if sight < k:
+        raise ValueError(f"sight needs to be bigger than k: {sight} < {k}")
+    # no l passes n - 1, so every cap from n up takes the same decisions,
+    # and every cap up to 0 accepts nothing
+    maxl = min(max(int(maxl), 0), n)
+    if route is None:
+        route = balance_route(n, maxl)
+    if route not in ("shared", "global") or \
+            route == "shared" and balance_route(n, maxl) != "shared":
+        raise ValueError(f"route {route!r} cannot take n={n}, maxl={maxl}")
+    dev = dsi.device
+    idx_new = torch.empty((n, k + 1), dtype=torch.int64, device=dev)
+    dist_new = torch.empty((n, k + 1), dtype=torch.float64, device=dev)
+    l = torch.empty(n, dtype=torch.int64, device=dev)
+    work = None if route == "shared" else \
+        torch.empty(n, dtype=torch.int32, device=dev)
+    _launch("knn_balance", dev, dsi.data_ptr(), dist.data_ptr(),
+            lsi.data_ptr(),
+            None if constraint is None else constraint.data_ptr(),
+            None if work is None else work.data_ptr(), idx_new.data_ptr(),
+            dist_new.data_ptr(), l.data_ptr(), n, sight, maxl, k,
+            int(route == "shared"))
+    balance_launches += 1
+    return dist_new, idx_new, l
+
+
+def balance_probe(n: int, reps: int, route: str = "shared",
+                  device: Union[str, torch.device] = "cuda",
+                  rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Run `reps` dependent steps of what chains one node of the balance
+    scan to the next (a load of l, a ballot, the chunk's barrier and scan,
+    a store to l, the node's barrier) in one block of the scan's shape,
+    over n >= 1024 cells with l in `route`'s memory; with rows (n, sight)
+    int64 on a card (the probe then runs on its device), each step first
+    reads the first chunk of a row no step read before, only once the
+    step before has ended (a node's row, read when it is needed).
+    Returns a (1,) int64 tensor.  Timed with reps = n, it gives the scan's
+    latency floor.  A measurement probe, not counted.  Launches on the
+    current stream and does not synchronise."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"balance_probe runs on a CUDA device, got {device}")
+    if n < _BALANCE_THREADS or reps < 1 or route not in ("shared", "global") \
+            or route == "shared" and balance_route(n, 0) != "shared":
+        raise ValueError(f"unsupported probe: n={n}, reps={reps}, "
+                         f"route={route!r}")
+    if rows is not None:
+        _check("rows", rows, (torch.int64,))
+        if rows.shape[0] != n or rows.shape[1] < 1:
+            raise ValueError(f"rows must be ({n}, sight), got "
+                             f"{tuple(rows.shape)}")
+        device = rows.device
+    out = torch.empty(1, dtype=torch.int64, device=device)
+    work = None if route == "shared" else \
+        torch.empty(n, dtype=torch.int32, device=device)
+    _launch("knn_balance_probe", device,
+            None if work is None else work.data_ptr(), int(n), int(reps),
+            None if rows is None else rows.data_ptr(),
+            0 if rows is None else rows.shape[1], int(route == "shared"),
+            out.data_ptr())
+    return out
+
+
 def reset_counts() -> None:
     """Set every launch count to 0."""
     global dense_launches, partial_launches, fma_launches, svr_launches, \
-        svr_shared_launches, svr_global_launches, tsne_launches
+        svr_shared_launches, svr_global_launches, tsne_launches, \
+        balance_launches
     dense_launches = partial_launches = fma_launches = svr_launches = \
-        svr_shared_launches = svr_global_launches = tsne_launches = 0
+        svr_shared_launches = svr_global_launches = tsne_launches = \
+        balance_launches = 0

@@ -7,8 +7,12 @@ like sklearn).  The exact f64 re-score and the (distance, index)
 ordering live in ops/knn_device.py.
 
 The balance (reference velocyto/neighbors.py:11-140) is a greedy,
-order-dependent loop over the nodes in hub order; it runs on the host,
-one numpy-vectorised step per node.  BalancedKNN and the mutual-kNN
+order-dependent loop over the nodes in hub order; balance_knn_loop runs
+it on the host, one numpy-vectorised step per node, for knn_balance and
+BalancedKNN (host code in the JAX package too); the balanced kNN of
+VelocytoLoom runs it on the device (ops/knn_device.py::balance_knn_dev,
+the hand kernel kernels/knn_balance.cu on the card).  BalancedKNN and
+the mutual-kNN
 utilities (reference neighbors.py:186-451) run their search on a torch
 device and build scipy.sparse graphs on the host.
 """

@@ -1,12 +1,15 @@
 """Device kNN graph: search, exact re-score, balance and smoothing.
 
-Port of velocyto_tpu/ops/knn_device.py:
+Port of velocyto_tpu/ops/knn_device.py.  The whole balanced-kNN chain
+stays on the device:
 
   candidate pass (f32 blocked distances, ops/knn.py)
     -> exact re-score in f64 (diff-form, elementwise)
     -> lexicographic (distance, index) ordering  [sklearn tie-breaks]
-    -> greedy degree-capped balancing in hub order (host loop,
-       ops/knn.py::balance_knn_loop)
+    -> hub order and the greedy degree-capped balance (reference
+       velocyto/neighbors.py:11-140): the hand CUDA kernel
+       kernels/knn_balance.cu on the card, _balance_scan_plain (one
+       torch step per node) on the CPU
     -> compact (N, K) neighbor-index/weight arrays and the smoothing
        convolution (reference velocyto/analysis.py:1006-1016)
 
@@ -21,7 +24,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .knn import _candidate_plan, _knn_search_impl, balance_knn_loop, full_f32
+from .. import kernels
+from .knn import _candidate_plan, _knn_search_impl, full_f32
 
 
 class KnnGraphDev(NamedTuple):
@@ -30,9 +34,11 @@ class KnnGraphDev(NamedTuple):
     For the balanced graph: ``idx``/``dist`` are the (N, k+1) balanced
     rows (slot 0 = self, -1 = unset) in the reference's dsi_new/dist_new
     layout.  For the plain graph: (N, k) non-self neighbors, ascending.
+    ``indeg`` is the final in-degree vector (balanced only).
     """
     idx: torch.Tensor          # int64
     dist: torch.Tensor         # float64
+    indeg: Optional[torch.Tensor]   # int64
     n: int
 
 
@@ -100,7 +106,7 @@ def knn_search_dev(data, k: int, metric: str = "euclidean", device="cuda"
 
 
 # ---------------------------------------------------------------------------
-# balance (hub order on the device, greedy loop on the host)
+# greedy balancing (reference velocyto/neighbors.py:11-140)
 # ---------------------------------------------------------------------------
 
 def _hub_order_impl(dsi: torch.Tensor) -> torch.Tensor:
@@ -111,25 +117,97 @@ def _hub_order_impl(dsi: torch.Tensor) -> torch.Tensor:
     return torch.argsort(counts, stable=True).flip(0)
 
 
+def _balance_scan_plain(dsi: torch.Tensor, dist: torch.Tensor,
+                        lsi: torch.Tensor, constraint: Optional[torch.Tensor],
+                        maxl: int, k: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Degree-capped greedy balancing, one torch step per node, with the
+    semantics of ops/knn.py::balance_knn_loop (the reference loop,
+    velocyto/neighbors.py:11-140): nodes are visited in the order lsi; a
+    candidate is admissible if it is not the node itself, its in-degree l
+    is < maxl and, with a constraint, it shares the node's group; the node
+    takes the first k admissible candidates of its row (distinct indices)
+    into slots 1..p in acceptance order, with their distances, and bumps
+    l for each.  Slot 0 holds the node (distance 0) when it appears among
+    the examined positions (up to and including the k-th acceptance, the
+    whole row when fewer are accepted), else -1; slots p+1..k self-fill
+    with the node and dist[el, 0].  Returns (dist_new (N, k+1) float64,
+    dsi_new (N, k+1) int64, l (N,) int64) on dsi's device."""
+    n, sight = dsi.shape
+    if sight < k:
+        raise ValueError("sight needs to be bigger than k")
+    dev = dsi.device
+    # rows of k + 2 slots: 0 the node, 1..k the neighbours, k + 1 a sink
+    # for the candidates that are not accepted
+    dsi_new = torch.full((n, k + 2), -1, dtype=torch.int64, device=dev)
+    dist_new = torch.zeros((n, k + 2), dtype=torch.float64, device=dev)
+    l = torch.zeros(n, dtype=torch.int64, device=dev)
+    for el in lsi.tolist():
+        row = dsi[el]
+        ok = (l[row] < maxl) & (row != el)
+        if constraint is not None:
+            ok &= constraint[row] == constraint[el]
+        cs = torch.cumsum(ok, 0)                  # acceptances up to here
+        acc = ok & (cs <= k)
+        # the node itself is never accepted, so it is examined when fewer
+        # than k candidates before it were
+        dsi_new[el, :1].masked_fill_(((row == el) & (cs < k)).any(), el)
+        if k:                   # self-fill, then the accepted overwrite it
+            dsi_new[el, 1:k + 1] = el
+            dist_new[el, 1:k + 1] = dist[el, 0]
+        target = torch.where(acc, cs, k + 1)
+        dsi_new[el].scatter_(0, target, row)
+        dist_new[el].scatter_(0, target, dist[el])
+        l.index_add_(0, row, acc.to(torch.int64))
+    return (dist_new[:, :k + 1].contiguous(), dsi_new[:, :k + 1].contiguous(),
+            l)
+
+
+def _balance_scan_impl(dsi: torch.Tensor, dist: torch.Tensor,
+                       lsi: torch.Tensor, constraint: Optional[torch.Tensor],
+                       maxl: int, k: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The greedy balance of (dsi, dist) in the visit order lsi: the hand
+    kernel (kernels.knn_balance) for CUDA tensors, _balance_scan_plain for
+    CPU tensors.  Returns (dist_new, dsi_new, l), the reference layout."""
+    if dsi.is_cuda:
+        return kernels.knn_balance(dsi, dist, lsi, constraint, maxl, k)
+    return _balance_scan_plain(dsi, dist, lsi, constraint, maxl, k)
+
+
+def balance_knn_dev(dsi: torch.Tensor, dist: torch.Tensor, maxl: int, k: int,
+                    constraint=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Device equivalent of ops.knn.knn_balance: the hub order, then the
+    greedy scan, on dsi's device.  constraint: group labels (numpy of any
+    dtype, or a tensor), or None; only their equality matters, so they go
+    to the scan as dense int32 labels (the np.unique / torch.unique
+    inverse).  Returns (dist_new, dsi_new, l)."""
+    lsi = _hub_order_impl(dsi)
+    cst = None
+    if isinstance(constraint, torch.Tensor):
+        cst = torch.unique(constraint.reshape(-1), return_inverse=True)[1]
+    elif constraint is not None:
+        cst = torch.as_tensor(np.unique(np.asarray(constraint).reshape(-1),
+                                        return_inverse=True)[1])
+    if cst is not None:
+        cst = cst.to(device=dsi.device, dtype=torch.int32)
+    return _balance_scan_impl(dsi, dist, lsi, cst, int(maxl), int(k))
+
+
 def balanced_knn_graph_dev(space, k: int, sight_k: int, maxl: int,
                            metric: str = "euclidean",
                            constraint: Optional[np.ndarray] = None,
                            device="cuda") -> KnnGraphDev:
     """Balanced kNN graph (BalancedKNN.kneighbors_graph semantics,
-    reference velocyto/neighbors.py:226-322): device search and hub
-    order, host balance, result back on the device."""
+    reference velocyto/neighbors.py:226-322), search and balance on
+    `device`: nothing of the (N, sight) candidates leaves it."""
     n = space.shape[0]
     kk = min(sight_k + 1, n)
     dist, dsi = knn_search_dev(space, kk, metric=metric, device=device)
-    lsi = _hub_order_impl(dsi)
-    cst = None if constraint is None else \
-        np.asarray(constraint).astype(np.int64)
-    dist_new, dsi_new, _l = balance_knn_loop(
-        dsi.cpu().numpy(), dist.cpu().numpy(), lsi.cpu().numpy(),
-        int(maxl), int(k), True, cst)
-    dev = dsi.device
-    return KnnGraphDev(idx=torch.as_tensor(dsi_new, device=dev),
-                       dist=torch.as_tensor(dist_new, device=dev), n=n)
+    dist_new, dsi_new, l = balance_knn_dev(dsi, dist, maxl=maxl, k=k,
+                                           constraint=constraint)
+    return KnnGraphDev(idx=dsi_new, dist=dist_new, indeg=l, n=n)
 
 
 def knn_graph_dev(space, k: int, metric: str = "euclidean",
@@ -138,7 +216,7 @@ def knn_graph_dev(space, k: int, metric: str = "euclidean",
     n = space.shape[0]
     kk = min(k + 1, n)
     dist, idx = knn_search_dev(space, kk, metric=metric, device=device)
-    return KnnGraphDev(idx=idx[:, 1:], dist=dist[:, 1:], n=n)
+    return KnnGraphDev(idx=idx[:, 1:], dist=dist[:, 1:], indeg=None, n=n)
 
 
 # ---------------------------------------------------------------------------
