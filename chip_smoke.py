@@ -44,17 +44,22 @@ comes out:
     probabilities on the t-SNE embedding, the embedding shift and the
     grid field.
 
-After the default-mode pipeline, the kNN balance kernel is held bitwise
-(dsi_new, dist_new, the in-degrees l) against its plain version, the
-host greedy loop and its other l route (shared or global memory) on the
-pipeline's own candidates (20,000 x 3,001, k=500, maxl 1,500) and on
-bench_knn50k's (50,000 x 3,001), and against the host loop and the other
-route in three hard regimes at 20,000 cells (12 groups, maxl == k, and a
-small maxl that exhausts sights, so rows self-fill); l never passes
-maxl and equals the in-degree of dsi_new; the kernel, the plain version
-and the host loop with and without its copies are timed, and a probe of
-the node-to-node chain alone gives the latency floor.  Every path that
-balances shows its balance launches.
+After the default-mode pipeline, the kNN balance kernels (the walk,
+which writes acceptance bits, and the decode, which turns them into the
+balanced rows) are held bitwise (dsi_new, dist_new, the in-degrees l)
+against the plain scan, the host greedy loop and the other l route
+(shared or global memory) on the pipeline's own candidates (20,000 x
+3,001, k=500, maxl 1,500) and on bench_knn50k's (50,000 x 3,001), and in
+four hard regimes: at 20,000 cells 12 groups (the labels beside l and
+staged through the ring), maxl == k, and a small maxl that exhausts
+sights, so rows self-fill; at 50,000 cells maxl == k, where most rows
+read past the staged depth T.  The decode is held against its plain
+twin on the walk's bits; both walker counts and every ring length give
+the same result; l never passes maxl and equals the in-degree of
+dsi_new; the kernels, the plain versions and the host loop with and
+without its copies are timed, and a probe of the node-to-node chain
+alone gives the latency floor.  Every path that balances shows one walk
+and one decode.
 
 Before the paths, the SVR solver kernel (a thread-block cluster holding
 its state in shared memory at the session's sizes) is held bitwise
@@ -643,7 +648,8 @@ def _stager(stages, smi):
 
 _COUNTS = {"dense": "dense_launches", "partial": "partial_launches",
            "fma": "fma_launches", "svr": "svr_launches",
-           "tsne": "tsne_launches", "balance": "balance_launches"}
+           "tsne": "tsne_launches", "balance": "balance_launches",
+           "balance_decode": "balance_decode_launches"}
 
 
 def _launches():
@@ -733,7 +739,8 @@ def pipeline_phase(knn_random, smi):
     if knn_random:
         # the dual form: main field and randomized control in one launch
         assert launches == {"dense": 0, "partial": 1, "fma": 0, "svr": 0,
-                            "tsne": 0, "balance": 1} and \
+                            "tsne": 0, "balance": 1,
+                            "balance_decode": 1} and \
             transition_launches["partial"] == 1, launches
         _check_sampled_state(v)
         assert len(captured) == 1, len(captured)
@@ -741,7 +748,8 @@ def pipeline_phase(knn_random, smi):
     else:
         # the dual form: main field and randomized control in one launch
         assert launches == {"dense": 1, "partial": 0, "fma": 0, "svr": 0,
-                            "tsne": 0, "balance": 1} and \
+                            "tsne": 0, "balance": 1,
+                            "balance_decode": 1} and \
             transition_launches["dense"] == 1, launches
         corr = v._get_dev("corrcoef")           # diagonal already set to 0
         assert corr.shape == (CELLS, CELLS) and bool(torch.isfinite(corr).all())
@@ -940,9 +948,11 @@ def tutorial_phase(smi):
     # the session's dual sampled launch and balance, the check chain's
     # and velocity_step's, and one launch of each shim
     assert session_launches == {"dense": 0, "partial": 1, "fma": 0, "svr": 0,
-                                "tsne": 0, "balance": 1}, session_launches
+                                "tsne": 0, "balance": 1,
+                                "balance_decode": 1}, session_launches
     assert launches == {"dense": 3, "partial": 6, "fma": 0, "svr": 0,
-                        "tsne": 0, "balance": 2}, launches
+                        "tsne": 0, "balance": 2, "balance_decode": 2}, \
+        launches
     return stages, session_total, launches, peak, shims, step_ms
 
 
@@ -1549,7 +1559,7 @@ def heuristic_phase(smi):
         fits[1][0] == CELLS, fits
     assert launches["svr"] == 2 and launches["partial"] == 1 and \
         launches["dense"] == 0 and launches["fma"] == 0 and \
-        launches["balance"] == 1, launches
+        launches["balance"] == launches["balance_decode"] == 1, launches
     assert svr_routes == {"shared": 2, "global": 0}, svr_routes
     # two launches per gradient, one gradient per t-SNE iteration
     assert 500 < launches["tsne"] <= 2000 and launches["tsne"] % 2 == 0, \
@@ -1587,7 +1597,8 @@ def bench_phase():
     print(f"# bench launches {launches}", flush=True)
     assert launches["dense"] and launches["partial"] and launches["fma"] \
         and not launches["svr"] and not launches["tsne"] and \
-        not launches["balance"], f"a bench kernel never ran: {launches}"
+        not launches["balance"] and not launches["balance_decode"], \
+        f"a bench kernel never ran: {launches}"
     for key in ("value", "large_n_cells_per_sec", "dense_kernel_tflops_f32",
                 "fma_ceiling_tflops_f32"):
         assert np.isfinite(result[key]) and result[key] > 0, key
@@ -1635,7 +1646,7 @@ def bench_pipeline_phase(smi):
           f"launches per run {per_run}", flush=True)
     assert len(per_run) == BENCH_PIPE_REPS and all(
         r == {"dense": 0, "partial": 1, "fma": 0, "svr": 0, "tsne": 0,
-              "balance": 1} for r in per_run), per_run
+              "balance": 1, "balance_decode": 1} for r in per_run), per_run
     assert list(result["stages"]) == PIPELINE_STAGES, list(result["stages"])
     assert all(list(r["stages"]) == PIPELINE_STAGES for r in result["runs"])
     return result, launches
@@ -1687,7 +1698,7 @@ def profile_phase(smi, S, U, unprofiled):
         torch.cuda.empty_cache()
     launches = _launches()
     assert launches["dense"] == 1 and launches["partial"] == 1 and \
-        launches["balance"] == 2, launches
+        launches["balance"] == launches["balance_decode"] == 2, launches
     return out, launches
 
 
@@ -1712,7 +1723,7 @@ def attr_phase(smi):
     # warm-up and timed: main alone, dual; whole: warm-up, timed, profiled;
     # one balance per kNN run, each kNN warm-up and timed
     assert launches["partial"] == 7 and launches["dense"] == 0 and \
-        launches["balance"] == 4, launches
+        launches["balance"] == launches["balance_decode"] == 4, launches
     assert 0.0 <= t["idle_share(whole)"] < 1.0
     for table in res.values():
         if isinstance(table, dict):
@@ -1733,7 +1744,8 @@ def knn50k_phase(smi):
     print(f"# knn50k bench on {smi}: median {rec['value']!r} s, stages "
           f"{rec['stages']}", flush=True)
     assert launches == {**{k: 0 for k in _COUNTS},
-                        "balance": KNN50K_REPS}, launches
+                        "balance": KNN50K_REPS,
+                        "balance_decode": KNN50K_REPS}, launches
     assert list(rec["stages"]) == ["candidate_sort", "rescore_f64",
                                    "reorder_truncate", "hub_order",
                                    "balance_scan"]
@@ -1782,125 +1794,214 @@ def _host_balance(dsi, dist, lsi, maxl, k, cst=None):
     return out, time.perf_counter() - t0, t2 - t1
 
 
-def _balance_bound(dsi, dsi_new, k):
-    """bound_ms of one balance: compulsory bytes at 3.35 TB/s, counting
-    what this run's data needs: the examined candidate indices of each row
-    (up to its k-th acceptance, the whole row where it self-fills), the
-    visit order, the accepted distances, and the (n, k+1) int64 and
-    float64 outputs and l written once."""
+def _examined(dsi, dsi_new, k):
+    """The positions each row examined: up to its k-th acceptance, the
+    whole row where it took fewer."""
     n, sight = dsi.shape
     last = dsi_new[:, k]
     full = last != torch.arange(n, device=dsi.device)     # k accepted
     pos = (dsi == last[:, None]).to(torch.int32).argmax(dim=1)
-    examined = torch.where(full, pos + 1, sight)
-    accepted = int((dsi_new[:, 1:] >= 0).sum()) - int(
-        (dsi_new[:, 1:] == torch.arange(n, device=dsi.device)[:, None]
-         ).sum())
-    nbytes = 8 * int(examined.sum()) + 8 * n + 8 * accepted + \
+    return torch.where(full, pos + 1, sight)
+
+
+def _accepted(dsi_new):
+    """Accepted entries of the balanced rows (slots 1..k that are neither
+    -1 nor the row's own cell)."""
+    n = dsi_new.shape[0]
+    rows = dsi_new[:, 1:]
+    own = rows == torch.arange(n, device=rows.device)[:, None]
+    return int(((rows >= 0) & ~own).sum())
+
+
+def _balance_bound(dsi, dsi_new, k):
+    """bound_ms of one balance (walk and decode): compulsory bytes at
+    3.35 TB/s, counting what this run's data needs: the examined
+    candidate indices of each row (up to its k-th acceptance, the whole
+    row where it self-fills), the visit order, the accepted distances,
+    and the (n, k+1) int64 and float64 outputs and l written once."""
+    n, sight = dsi.shape
+    examined = _examined(dsi, dsi_new, k)
+    nbytes = 8 * int(examined.sum()) + 8 * n + 8 * _accepted(dsi_new) + \
         16 * n * (k + 1) + 8 * n
     return {**_bound(0, nbytes), "examined_mean": float(
         examined.double().mean())}
 
 
+def _decode_bound(dsi, dsi_new, k):
+    """bound_ms of the decode alone: the words of each row's examined
+    region and its (p, self) read, the accepted indices and distances
+    gathered, dist[el, 0] for the rows that self-fill, the (n, k+1)
+    int64 and float64 rows written."""
+    n, sight = dsi.shape
+    examined = _examined(dsi, dsi_new, k)
+    selffill = int((dsi_new[:, k] == torch.arange(n, device=dsi.device)
+                    ).sum())
+    nbytes = 4 * int(((examined + 31) // 32).sum()) + 8 * n + \
+        16 * _accepted(dsi_new) + 8 * selffill + 16 * n * (k + 1)
+    return _bound(0, nbytes)
+
+
+def _median_ms(fn, reps=3):
+    """(median ms of reps calls by CUDA events, the last result); each
+    result is dropped before the next call, so the allocator hands the
+    next call the same blocks."""
+    times, out = [], None
+    for _ in range(reps):
+        out = None
+        t, out = _time_ms(fn)
+        times.append(t)
+    return statistics.median(times), out
+
+
+def _hold_balance(name, dsi, dist, lsi, cst, maxl, smi):
+    """knn_balance (walk and decode) on one case, bitwise against the
+    plain scan, the host loop, the other l route and, with groups, the
+    other place of the labels; the decode against its plain twin on the
+    walk's bits; the invariants of l; times."""
+    from velocyto_tpu_torch import kernels
+    from velocyto_tpu_torch.ops import knn_device as kd
+    n, sight = dsi.shape
+    plan = kernels.balance_plan(n, sight, K, maxl, cst is not None)
+    other = "global" if plan.route == "shared" else "shared"
+    ms, got = _median_ms(lambda: kernels.knn_balance(
+        dsi, dist, lsi, cst, maxl, K))
+    walk_ms, (bits, meta, _l, _plan) = _median_ms(
+        lambda: kernels.balance_walk(dsi, lsi, cst, maxl, K))
+    decode_ms, dec = _median_ms(lambda: kernels.balance_decode(
+        bits, meta, dsi, dist, K))
+    decode_plain_ms, dec_want = _median_ms(lambda: kd._balance_decode_plain(
+        bits, meta, dsi, dist, K), reps=2)
+    forced = kernels.knn_balance(dsi, dist, lsi, cst, maxl, K, route=other)
+    same = {"plain": None, "host loop": None, f"{other} route":
+            _same_balance(got, forced)}
+    if cst is not None:
+        labels = "staged" if plan.labels == "shared" else "shared"
+        same[f"{labels} labels"] = _same_balance(got, kernels.knn_balance(
+            dsi, dist, lsi, cst, maxl, K, labels=labels))
+    del forced
+    plain_ms, want = _time_ms(lambda: kd._balance_scan_plain(
+        dsi, dist, lsi, cst, maxl, K))
+    same["plain"] = _same_balance(got, want)
+    err = float((got[0] - want[0]).abs().max())
+    del want
+    host, host_s, loop_s = _host_balance(dsi, dist, lsi, maxl, K, cst)
+    same["host loop"] = _same_balance(got, host)
+    del host
+    dec_same = _same_balance(dec, dec_want) and _same_balance(dec, got[:2])
+    inv = _balance_invariants(got[1], got[2], maxl)
+    examined = _examined(dsi, got[1], K)
+    past = int((examined > plan.depth).sum())
+    selffilled = int((got[1][:, K] == torch.arange(n, device=DEVICE)).sum())
+    dec_err = float((dec[0] - dec_want[0]).abs().max())
+    print(f"# balance {name}: N={n} sight={sight} k={K} maxl={maxl}"
+          f"{f' {BALANCE_GROUPS} groups' if cst is not None else ''} on "
+          f"{smi}: plan {tuple(plan)} (l route, R, T, labels), "
+          f"{kernels._BALANCE_THREADS} walkers; walk + decode {ms!r} ms (median of "
+          f"3, CUDA events) = {ms * 1e3 / n!r} us a node; walk {walk_ms!r} "
+          f"ms, decode {decode_ms!r} ms (plain twin {decode_plain_ms!r} ms, "
+          f"bitwise equal: {dec_same}); plain scan {plain_ms!r} ms, host "
+          f"loop {loop_s * 1e3!r} ms alone, {host_s * 1e3!r} ms with its "
+          f"copies (host clock); {past} rows examined past T = "
+          f"{plan.depth}, {float(examined.double().mean())!r} positions a "
+          f"row; {selffilled} rows self-filled; bitwise equal: {same}; "
+          f"l <= maxl and l the in-degree of dsi_new: {inv}", flush=True)
+    assert all(same.values()) and dec_same and inv and err == 0.0 and \
+        dec_err == 0.0, (name, same, dec_same, inv, err, dec_err)
+    return {"ms": ms, "walk_ms": walk_ms, "decode_ms": decode_ms,
+            "decode_plain_ms": decode_plain_ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "decode_max_abs_err": dec_err,
+            "host_loop_ms": loop_s * 1e3,
+            "host_loop_with_copies_ms": host_s * 1e3,
+            "us_per_node": ms * 1e3 / n, "rows_past_T": past,
+            "self_filled": selffilled, "plan": tuple(plan),
+            "got": got, "bits": bits, "meta": meta}
+
+
 def balance_phase(smi, pcs):
-    """The kNN balance kernel (kernels.knn_balance) on the card, bitwise
-    against its plain version, the host loop and its other l route on
-    the default pipeline's own candidates (`pcs`, its 20,000 x 50 PCA
-    space: sight 3,000, k=500, maxl 1,500) and on bench_knn50k's, then in
-    three hard regimes at 20,000 cells against the host loop and the
-    other route; the invariants of l; times and the latency floor.
+    """The kNN balance kernels (kernels.knn_balance: the walk, then its
+    decode) on the card, bitwise against the plain scan, the host loop
+    and the other l route on the default pipeline's own candidates
+    (`pcs`, its 20,000 x 50 PCA space: sight 3,000, k=500, maxl 1,500)
+    and on bench_knn50k's; the decode against its plain twin; every ring
+    length bitwise equal and timed; three hard regimes at 20,000 cells
+    (12 groups, with the labels in both places, and the same groups as
+    raw labels, negative and past n; maxl == k; maxl 50, so rows
+    self-fill) and many rows past T (maxl == k at 50,000 cells); the
+    invariants of l; the latency floors.
     Returns the numbers of the kernels line."""
     from velocyto_tpu_torch import kernels
     from velocyto_tpu_torch.bench_knn50k import points
     from velocyto_tpu_torch.ops import knn_device as kd
-    phase("kNN balance kernel against plain, the host loop and its other "
-          "route, on the card")
+    phase("kNN balance kernels (walk and decode) against plain, the host "
+          "loop and the other routes, on the card")
     res = {}
+    data = {}
     for tag, x in (("20k", pcs), ("50k", points(KNN50K_CELLS, KNN50K_DIMS))):
         dist, dsi = kd.knn_search_dev(x, B_SIGHT + 1, device=DEVICE)
         lsi = kd._hub_order_impl(dsi)
         n = dsi.shape[0]
-        route = kernels.balance_route(n, B_MAXL)
-        other = "global" if route == "shared" else "shared"
-
-        def run(r=None):
-            return kernels.knn_balance(dsi, dist, lsi, None, B_MAXL, K,
-                                       route=r)
-        first_ms, got = _time_ms(run)
-        ms = statistics.median([first_ms] + [_time_ms(run)[0]
-                                             for _ in range(2)])
-        other_ms, forced = _time_ms(lambda: run(other))
-        plain_ms, want = _time_ms(lambda: kd._balance_scan_plain(
-            dsi, dist, lsi, None, B_MAXL, K))
-        host, host_s, loop_s = _host_balance(dsi, dist, lsi, B_MAXL, K)
-        same = (_same_balance(got, want), _same_balance(got, host),
-                _same_balance(got, forced))
-        inv = _balance_invariants(got[1], got[2], B_MAXL)
-        err = float((got[0] - want[0]).abs().max())
+        r = _hold_balance(tag, dsi, dist, lsi, None, B_MAXL, smi)
+        got = r.pop("got")
+        dec_bound = _decode_bound(dsi, got[1], K)
+        r.update(_balance_bound(dsi, got[1], K))
+        r["decode_bound_ms"] = dec_bound["bound_ms"]
+        r["decode_bound_by"] = dec_bound["bound_by"]
+        del got, r["bits"], r["meta"]
+        # the ring lengths: each bitwise equal, timed
+        want = kernels.knn_balance(dsi, dist, lsi, None, B_MAXL, K)
+        rings = {}
+        for st in range(2, kernels._BALANCE_MAX_STAGES + 1, 2):
+            rings[st], g = _median_ms(lambda: kernels.knn_balance(
+                dsi, dist, lsi, None, B_MAXL, K, stages=st), reps=2)
+            assert _same_balance(g, want), ("stages", st)
+        other = "global" if r["plan"][0] == "shared" else "shared"
+        r["other_route_ms"], _g = _median_ms(lambda: kernels.knn_balance(
+            dsi, dist, lsi, None, B_MAXL, K, route=other), reps=2)
+        del want, _g, g
         # n dependent steps of the chain between nodes, with and without
         # the read of a row chunk that nothing loaded ahead
         floor_ms, chain_ms = (statistics.median(_time_ms(
-            lambda: kernels.balance_probe(n, n, route, rows=rows))[0]
+            lambda: kernels.balance_probe(n, n, r["plan"][0], rows=rows))[0]
             for _ in range(3)) for rows in (dsi, None))
-        bound = _balance_bound(dsi, got[1], K)
-        selffilled = int((got[1][:, K] == torch.arange(
-            n, device=DEVICE)).sum())
-        print(f"# balance {tag}: N={n} sight={dsi.shape[1]} k={K} maxl="
-              f"{B_MAXL} on {smi}: kernel (l in {route} memory) {ms!r} ms "
-              f"(median of 3, CUDA events; first call {first_ms!r}), l in "
-              f"{other} memory {other_ms!r} ms, plain {plain_ms!r} ms (one "
-              f"call), host loop {loop_s * 1e3!r} ms alone, "
-              f"{host_s * 1e3!r} ms with its copies (host clock); latency "
-              f"floor {floor_ms!r} ms ({n} probe steps with a row read, "
-              f"median of 3; {chain_ms!r} ms without it); bound "
-              f"{bound['bound_ms']!r} ms ({bound['bound_by']}; "
-              f"{bound['examined_mean']!r} candidates examined a row); "
-              f"{selffilled} rows self-filled; bitwise equal to plain / host "
-              f"loop / {other} route: {same}; l <= maxl and l the "
-              f"in-degree of dsi_new: {inv}", flush=True)
-        assert all(same) and inv and err == 0.0, (tag, same, inv, err)
-        res[tag] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-                    "other_route_ms": other_ms, "route": route,
-                    "host_loop_ms": loop_s * 1e3,
-                    "host_loop_with_copies_ms": host_s * 1e3,
-                    "latency_floor_ms": floor_ms, "chain_ms": chain_ms,
-                    **bound}
-        if tag == "20k":
-            hard = (dsi, dist, lsi)
-        del dist, dsi, lsi, got, forced, want, host
+        print(f"# balance {tag} on {smi}: ring lengths R {rings} ms (median of 2; every one bitwise "
+              f"equal); l in {other} memory {r['other_route_ms']!r} ms; "
+              f"chain probe {chain_ms!r} ms ({chain_ms * 1e3 / n!r} us a "
+              f"step), {floor_ms!r} ms with each row read when its step "
+              f"starts; bound {r['bound_ms']!r} ms ({r['bound_by']}), "
+              f"decode bound {r['decode_bound_ms']!r} ms "
+              f"({r['decode_bound_by']})", flush=True)
+        r.update(latency_floor_ms=floor_ms, chain_ms=chain_ms,
+                 rings_ms=rings)
+        res[tag] = r
+        data[tag] = (dsi, dist, lsi)
+        del dist, dsi, lsi
         torch.cuda.empty_cache()
-    # the hard regimes at 20,000 cells, against the host loop and the
-    # other route: groups of the first PC's quantiles, a cap of k, a cap
-    # so small that sights run out
-    dsi, dist, lsi = hard
-    n = dsi.shape[0]
+    # the hard regimes at 20,000 cells: groups of the first PC's
+    # quantiles (and the same groups as raw labels, negative and past n,
+    # which the wrapper ranks densely), a cap of k, a cap so small that
+    # sights run out; and at 50,000 cells a cap of k, where most rows run
+    # past T
     pc0 = np.asarray(pcs)[:, 0]
     groups = np.searchsorted(np.quantile(pc0, np.linspace(
         0, 1, BALANCE_GROUPS + 1)[1:-1]), pc0)
     cst = torch.as_tensor(groups, dtype=torch.int32, device=DEVICE)
-    for name, maxl, c in (("constrained", B_MAXL, cst), ("maxl == k", K, None),
-                          ("self-fill", BALANCE_SMALL_MAXL, None)):
-        route = kernels.balance_route(n, maxl)
-        other = "global" if route == "shared" else "shared"
-        ms, got = _time_ms(lambda: kernels.knn_balance(
-            dsi, dist, lsi, c, maxl, K))
-        forced = kernels.knn_balance(dsi, dist, lsi, c, maxl, K, route=other)
-        host, _host_s, loop_s = _host_balance(dsi, dist, lsi, maxl, K, c)
-        same = (_same_balance(got, host), _same_balance(got, forced))
-        inv = _balance_invariants(got[1], got[2], maxl)
-        selffilled = int((got[1][:, K] == torch.arange(
-            n, device=DEVICE)).sum())
-        print(f"# balance {name}: N={n} k={K} maxl={maxl}"
-              f"{f' {BALANCE_GROUPS} groups' if c is not None else ''} on "
-              f"{smi}: kernel ({route}) {ms!r} ms (one call), host loop "
-              f"{loop_s * 1e3!r} ms; {selffilled} rows self-filled; bitwise "
-              f"equal to the host loop / the {other} route: {same}; "
-              f"invariants {inv}", flush=True)
-        assert all(same) and inv, (name, same, inv)
+    raw = cst * 7919 - 40000
+    assert bool((raw < 0).any()) and bool((raw >= pcs.shape[0]).any())
+    for name, tag, maxl, c in (
+            ("constrained", "20k", B_MAXL, cst),
+            ("raw labels", "20k", B_MAXL, raw), ("maxl == k", "20k", K, None),
+            ("self-fill", "20k", BALANCE_SMALL_MAXL, None),
+            ("past T", "50k", K, None)):
+        r = _hold_balance(name, *data[tag], c, maxl, smi)
+        for key in ("got", "bits", "meta"):
+            del r[key]
         if name == "self-fill":
-            assert selffilled > 0, "no row self-filled"
-        res[name] = ms
-    del dsi, dist, lsi, hard
+            assert r["self_filled"] > 0, "no row self-filled"
+        if name == "past T":
+            assert r["rows_past_T"] >= KNN50K_CELLS // 10, r["rows_past_T"]
+        res[name] = r
+        torch.cuda.empty_cache()
+    del data, cst, raw
     torch.cuda.empty_cache()
     return res
 
@@ -2026,6 +2127,10 @@ def main():
                       "attribution": attr,
                       "chip_smoke_s": time.perf_counter() - _START}))
     b20, b50 = balance["20k"], balance["50k"]
+    # the paths that balance, each read just after its run
+    path_counts = (launches_full, launches_samp, launches_prof,
+                   launches_pipe_bench, launches_knn50k, launches_attr,
+                   launches_tut, launches_heur)
     # launches: each kernel's count summed over the paths that run it;
     # ms / plain_ms: the kernel and its plain version on the same inputs
     # (dense: one field; sampled: the dual call on uniform indices), with
@@ -2087,29 +2192,45 @@ def main():
         {"name": "knn_balance", "route": "cuda",
          "source": "velocyto_tpu_torch/kernels/knn_balance.cu",
          "replaces": "velocyto_tpu/ops/knn_device.py:185",
-         "launches": launches_full["balance"] + launches_samp["balance"]
-         + launches_prof["balance"] + launches_pipe_bench["balance"]
-         + launches_knn50k["balance"] + launches_attr["balance"]
-         + launches_tut["balance"] + launches_heur["balance"],
+         "launches": sum(c["balance"] for c in path_counts),
          "max_abs_err": max(b20["max_abs_err"], b50["max_abs_err"]),
          "ms": b20["ms"], "plain_ms": b20["plain_ms"],
          "bound_ms": b20["bound_ms"], "bound_by": b20["bound_by"],
-         "library_ms": None, "l_route": b20["route"],
+         "library_ms": None, "plan": b20["plan"],
+         "walk_ms": b20["walk_ms"], "us_per_node": b20["us_per_node"],
          "latency_floor_ms": b20["latency_floor_ms"],
          "chain_ms": b20["chain_ms"],
          "other_route_ms": b20["other_route_ms"],
+         "rings_ms": b20["rings_ms"],
          "host_loop_ms": b20["host_loop_ms"],
          "host_loop_with_copies_ms": b20["host_loop_with_copies_ms"],
          "ms_50k": b50["ms"], "plain_ms_50k": b50["plain_ms"],
-         "bound_ms_50k": b50["bound_ms"],
+         "bound_ms_50k": b50["bound_ms"], "walk_ms_50k": b50["walk_ms"],
+         "us_per_node_50k": b50["us_per_node"],
          "latency_floor_ms_50k": b50["latency_floor_ms"],
          "chain_ms_50k": b50["chain_ms"],
          "other_route_ms_50k": b50["other_route_ms"],
+         "rings_ms_50k": b50["rings_ms"],
          "host_loop_ms_50k": b50["host_loop_ms"],
          "host_loop_with_copies_ms_50k": b50["host_loop_with_copies_ms"],
-         "constrained_ms": balance["constrained"],
-         "maxl_eq_k_ms": balance["maxl == k"],
-         "self_fill_ms": balance["self-fill"]}]}))
+         **{f"{key}_{field}": balance[name][field]
+            for key, name in (("constrained", "constrained"),
+                              ("raw_labels", "raw labels"),
+                              ("maxl_eq_k", "maxl == k"),
+                              ("self_fill", "self-fill"),
+                              ("past_T", "past T"))
+            for field in ("ms", "rows_past_T", "plain_ms")}},
+        {"name": "knn_balance_decode", "route": "cuda",
+         "source": "velocyto_tpu_torch/kernels/knn_balance.cu",
+         "replaces": "velocyto_tpu/ops/knn_device.py:310",
+         "launches": sum(c["balance_decode"] for c in path_counts),
+         "max_abs_err": max(b20["decode_max_abs_err"],
+                            b50["decode_max_abs_err"]),
+         "ms": b20["decode_ms"], "plain_ms": b20["decode_plain_ms"],
+         "bound_ms": b20["decode_bound_ms"],
+         "bound_by": b20["decode_bound_by"], "library_ms": None,
+         "ms_50k": b50["decode_ms"], "plain_ms_50k": b50["decode_plain_ms"],
+         "bound_ms_50k": b50["decode_bound_ms"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

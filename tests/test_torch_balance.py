@@ -12,9 +12,11 @@ dsi_new, dist_new and the in-degrees l are compared bitwise (tolerance 0);
 the balanced graph built from each package's own search has its indices
 and in-degrees equal and its distances within rtol 1e-12 (the two f64
 re-scores sum in another order).
-The kernel itself runs only on a card (chip_smoke.py holds it bitwise to
-the plain scan and the host loop there); here its wrapper's checks and
-route rule are tested, before any build."""
+The kernels themselves (the walk, which writes acceptance bits, and the
+decode) run only on a card (chip_smoke.py holds them bitwise to the
+plain scan and the host loop there); here the decode's plain twin is
+held to the plain scan through bits built from its acceptances, and the
+wrappers' checks and the plan rule are tested, before any build."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -225,27 +227,250 @@ def test_probe_refuses_before_building(n, reps, route, rows):
     assert kernels._lib is None
 
 
-@pytest.mark.parametrize("n, maxl, route", [
-    (1, 1500, "shared"), (20000, 1500, "shared"), (50000, 1500, "shared"),
-    (114688, 1500, "shared"),           # 229,376 B of uint16: all of it
-    (114689, 1500, "global"),           # 16 B more
-    (70000, 65535, "shared"),           # l stops at 65,535: fits uint16
-    (70000, 65536, "global"),
-    (65536, 10 ** 9, "shared"),         # l never passes n - 1 = 65,535
-    (65537, 10 ** 9, "global"),
-    (100000, -3, "shared"),             # nothing is ever accepted
-    (200000, 0, "global")])
-def test_route_rule(n, maxl, route):
+@pytest.mark.parametrize("n, sight, k, maxl, grouped, plan", [
+    # the operating point, k=500 (T = 768): l and the ring of 8 stages
+    # (770 indices, 6,160 B, and 136 B of results each) in shared memory at
+    # 20k and 50k
+    (20000, 3001, 500, 1500, False, ("shared", 8, 768, None)),
+    (50000, 3001, 500, 1500, False, ("shared", 8, 768, None)),
+    # the ring shortens as l grows: 2n + 6,296 R <= 229,376 B
+    (89504, 3001, 500, 1500, False, ("shared", 8, 768, None)),
+    (89505, 3001, 500, 1500, False, ("shared", 6, 768, None)),
+    (108392, 3001, 500, 1500, False, ("shared", 2, 768, None)),
+    (108393, 3001, 500, 1500, False, ("global", 8, 768, None)),
+    # l stops at min(maxl, n - 1): uint16 holds it up to 65,535
+    (70000, 3001, 500, 65535, False, ("shared", 8, 768, None)),
+    (70000, 3001, 500, 65536, False, ("global", 8, 768, None)),
+    (65536, 3001, 500, 10 ** 9, False, ("shared", 8, 768, None)),
+    (65537, 3001, 500, 10 ** 9, False, ("global", 8, 768, None)),
+    (100000, 3001, 500, -3, False, ("shared", 4, 768, None)),
+    (200000, 3001, 500, 0, False, ("global", 8, 768, None)),
+    # groups: uint16 labels beside l while 4n + 8 x 6,296 fit
+    (20000, 3001, 500, 1500, True, ("shared", 8, 768, "shared")),
+    (44752, 3001, 500, 1500, True, ("shared", 8, 768, "shared")),
+    (44753, 3001, 500, 1500, True, ("shared", 8, 768, "staged")),
+    (50000, 3001, 500, 1500, True, ("shared", 8, 768, "staged")),
+    (200000, 3001, 500, 1500, True, ("global", 8, 768, "staged")),
+    # T: the JAX package's depth, at most the row and 1,024
+    (20000, 3001, 400, 1500, False, ("shared", 8, 640, None)),
+    (200, 31, 12, 20, False, ("shared", 8, 31, None)),
+    (1, 1, 0, 1500, False, ("shared", 8, 1, None)),
+    (20000, 3001, 1000, 1500, False, ("shared", 8, 1024, None))])
+def test_route_rule(n, sight, k, maxl, grouped, plan):
     """l stays in shared memory as uint16 while every in-degree (at most
     min(maxl, n - 1)) fits 16 bits and 2 B a cell fit the block's shared
-    memory; above, in global memory."""
-    assert kernels.balance_route(n, maxl) == route
+    memory beside the shortest ring; above, in global memory.  The ring
+    takes the longest even R up to 8 that fits; labels sit beside l while
+    they fit with the longest ring, else they are staged through it."""
+    assert tuple(kernels.balance_plan(n, sight, k, maxl, grouped)) == plan
+
+
+@pytest.mark.parametrize("k, sight", [(500, 3001), (400, 3001), (12, 31),
+                                      (100, 150), (20, 600), (600, 3001)])
+def test_plan_depth_is_the_jax_depth(k, sight):
+    """T is the JAX package's truncation depth (its _balance_plan), up to
+    the kernel's 1,024."""
+    assert kernels.balance_depth(sight, k) == \
+        min(jkd._balance_plan(1000, sight, k)[1], 1024)
+
+
+def test_plan_refuses_what_cannot_fit():
+    with pytest.raises(ValueError, match="route"):
+        kernels.balance_plan(108393, 3001, 500, 1500, False, route="shared")
+    with pytest.raises(ValueError, match="stages"):
+        kernels.balance_plan(108392, 3001, 500, 1500, False, stages=4)
+    for stages in (1, 3, 10):
+        with pytest.raises(ValueError, match="stages"):
+            kernels.balance_plan(20000, 3001, 500, 1500, False,
+                                 stages=stages)
+    assert kernels.balance_plan(20000, 3001, 500, 1500, False,
+                                route="global", stages=2) == \
+        ("global", 2, 768, None)
+    # labels: forced either way where they fit, never without groups
+    assert kernels.balance_plan(20000, 3001, 500, 1500, True,
+                                labels="staged") == \
+        ("shared", 8, 768, "staged")
+    with pytest.raises(ValueError, match="labels"):
+        kernels.balance_plan(20000, 3001, 500, 1500, False, labels="staged")
+    with pytest.raises(ValueError, match="labels"):
+        kernels.balance_plan(70000, 3001, 500, 1500, True, route="global",
+                             labels="shared")
+    with pytest.raises(ValueError, match="labels"):
+        kernels.balance_plan(60000, 3001, 500, 1500, True, labels="shared")
 
 
 @pytest.mark.parametrize("name, value", [
     ("kThreads", kernels._BALANCE_THREADS),
+    ("kMaxDepth", kernels._BALANCE_MAX_DEPTH),
+    ("kMaxStages", kernels._BALANCE_MAX_STAGES),
     ("kMaxSmem", kernels._BALANCE_SMEM),
-    ("kMaxL16", kernels._BALANCE_MAX_L16)])
+    ("kOutWords", kernels._BALANCE_OUT_WORDS),
+    ("kMaxL16", kernels._BALANCE_MAX_L16),
+    ("kProbeMinCells", kernels._BALANCE_PROBE_MIN)])
 def test_route_rule_constants_match_kernel(name, value):
     """The route rule's sizes are the kernel's, read from its source."""
     assert _constants("knn_balance.cu")[name] == value
+
+
+@pytest.mark.parametrize("kind", ["negative", "past_n", "wide"])
+def test_raw_labels_balance_as_their_dense_ranks(kind):
+    """Group labels of any int32 value (negative, n or more) balance as
+    the dense ranks the walk is handed (kernels._dense_labels) do: in the
+    plain scan, the host loop and the JAX package's device scan."""
+    case = CASES["constrained"]
+    dist, dsi, cst = _case(**case)
+    n, maxl, k = case["n"], case["maxl"], case["k"]
+    raw = {"negative": cst * 7919 - 40000, "past_n": cst + n,
+           "wide": np.array([-2 ** 31, 0, 2 ** 31 - 1])[cst]}[kind]
+    raw = raw.astype(np.int32)
+    dense = kernels._dense_labels(torch.as_tensor(raw))
+    assert dense.dtype == torch.int32 and dense.shape == (n,)
+    assert int(dense.min()) == 0 and int(dense.max()) == len(np.unique(raw)) - 1
+    np.testing.assert_array_equal(
+        (dense[:, None] == dense[None, :]).numpy(),
+        raw[:, None] == raw[None, :])
+    dsi_t, dist_t = torch.as_tensor(dsi), torch.as_tensor(dist)
+    lsi = tkd._hub_order_impl(dsi_t)
+    got = tkd._balance_scan_plain(dsi_t, dist_t, lsi, torch.as_tensor(raw),
+                                  maxl, k)
+    want = tkd._balance_scan_plain(dsi_t, dist_t, lsi, dense, maxl, k)
+    _assert_same(got, [t.numpy() for t in want], kind)
+    _assert_same(got, tknn.balance_knn_loop(dsi, dist, lsi.numpy(), maxl, k,
+                                            True, raw), kind)
+    _assert_same(got, jkd.balance_knn_dev(
+        jnp.asarray(dsi, jnp.int32), jnp.asarray(dist, jnp.float64),
+        maxl=maxl, k=k, constraint=raw), kind)
+
+
+# ---------------------------------------------------------------------------
+# the decode's plain twin, from the plain scan's acceptances
+# ---------------------------------------------------------------------------
+
+# the regimes the walk's bits must carry (tests at CPU size): 12 groups,
+# maxl == k, a small cap that self-fills (maxl = 50 below k), rows examined
+# past the staged depth T, indices outside [0, n)
+DECODE_CASES = {
+    "constrained_12": dict(n=600, sight=80, k=20, maxl=30, d=5, groups=12),
+    "maxl_eq_k": dict(n=500, sight=60, k=15, maxl=15, d=4, dup=True),
+    "self_fill_50": dict(n=400, sight=150, k=100, maxl=50, d=5),
+    "past_T": dict(n=700, sight=600, k=20, maxl=3, d=4),
+    "out_of_range": dict(n=300, sight=40, k=10, maxl=15, d=4, bad=True),
+}
+
+
+def _bits_of(dsi, dsi_new, k, garbage=None):
+    """The walk's (bits, meta) for the balanced rows dsi_new of the
+    candidates dsi: the positions of the accepted candidates as bits, the
+    accepted count and whether slot 0 holds the node.  With garbage (a
+    RandomState), the words past each row's last accepted one are random
+    where the row took k (the walk never writes them)."""
+    n, sight = dsi.shape
+    words = -(-sight // 32)
+    bits = np.zeros((n, words), dtype=np.uint32)
+    meta = np.zeros((n, 2), dtype=np.int32)
+    for el in range(n):
+        acc = [v for v in dsi_new[el, 1:] if v != el]
+        pos = [int(np.flatnonzero(dsi[el] == v)[0]) for v in acc]
+        assert pos == sorted(pos)               # acceptance order is row order
+        for j in pos:
+            bits[el, j // 32] |= np.uint32(1 << (j % 32))
+        meta[el] = len(acc), int(dsi_new[el, 0] == el)
+        if garbage is not None and len(acc) == k:
+            first = pos[-1] // 32 + 1 if pos else 0
+            bits[el, first:] = garbage.randint(0, 2 ** 32, words - first,
+                                               dtype=np.uint64)
+    return torch.as_tensor(bits.view(np.int32)), torch.as_tensor(meta)
+
+
+def _decode_case(n, sight, k, maxl, d, dup=False, groups=None, bad=False):
+    dist, dsi, cst = _case(n, sight, k, maxl, d, dup=dup, groups=groups)
+    if bad:           # indices outside [0, n), never accepted
+        rng = np.random.RandomState(5)
+        for v in (-1, n, n + 7, 2 ** 40):
+            rows = rng.randint(0, n, n // 4)
+            dsi[rows, rng.randint(1, sight, n // 4)] = v
+    dsi_t, dist_t = torch.as_tensor(dsi), torch.as_tensor(dist)
+    c = None if cst is None else torch.as_tensor(cst, dtype=torch.int32)
+    lsi = tkd._hub_order_impl(dsi_t.clamp(0, n - 1))
+    want = tkd._balance_scan_plain(dsi_t, dist_t, lsi, c, maxl, k)
+    return dsi_t, dist_t, lsi, c, want
+
+
+@pytest.mark.parametrize("garbage", [False, True], ids=["clean", "garbage"])
+@pytest.mark.parametrize("name", list(DECODE_CASES))
+def test_decode_plain_reproduces_the_scan(name, garbage):
+    """The decode's plain twin, fed the bits of the plain scan's
+    acceptances, gives the plain scan's dist_new and dsi_new bitwise;
+    words the walk never writes do not matter."""
+    case = DECODE_CASES[name]
+    dsi, dist, lsi, c, want = _decode_case(**case)
+    k = case["k"]
+    bits, meta = _bits_of(dsi.numpy(), want[1].numpy(), k,
+                          np.random.RandomState(1) if garbage else None)
+    got = tkd._balance_decode_plain(bits, meta, dsi, dist, k, block=128)
+    _assert_same(got, [t.numpy() for t in want[:2]], name)
+    # the case shows its regime
+    took = meta[:, 0]
+    if name == "self_fill_50" or name == "past_T":
+        assert int((took < k).sum()) > 0
+    if name == "past_T":             # accepted positions at or past T
+        depth = kernels.balance_depth(case["sight"], k)
+        clean = _bits_of(dsi.numpy(), want[1].numpy(), k)[0]
+        assert depth % 32 == 0 and bool((clean[:, depth // 32:] != 0).any())
+    if name == "out_of_range":
+        assert bool((dsi < 0).any()) and bool((dsi >= case["n"]).any())
+        assert not bool(((want[1] >= case["n"]) |
+                         (want[1] < -1)).any())
+
+
+def test_decode_plain_unvisited_rows_and_k0():
+    """A row the walk never visited (meta p = -1) decodes as -1 with
+    distance 0; k = 0 leaves slot 0 alone."""
+    dsi, dist, lsi, c, want = _decode_case(**DECODE_CASES["maxl_eq_k"])
+    bits, meta = _bits_of(dsi.numpy(), want[1].numpy(), 15)
+    meta[7] = torch.tensor([-1, 0])
+    got = tkd._balance_decode_plain(bits, meta, dsi, dist, 15)
+    assert bool((got[1][7] == -1).all()) and bool((got[0][7] == 0).all())
+    keep = torch.arange(dsi.shape[0]) != 7
+    assert torch.equal(got[1][keep], want[1][keep])
+    z = tkd._balance_scan_plain(dsi, dist, lsi, None, 15, 0)
+    bits, meta = _bits_of(dsi.numpy(), z[1].numpy(), 0)
+    _assert_same(tkd._balance_decode_plain(bits, meta, dsi, dist, 0),
+                 [t.numpy() for t in z[:2]])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(bits_dtype=torch.int64), dict(bits_words=3),
+    dict(meta_shape=(40, 3)), dict(meta_dtype=torch.int64),
+    dict(dist_dtype=torch.float32), dict(k=9), dict(k=-1)],
+    ids=["bits_int64", "bits_words", "meta_shape", "meta_int64",
+         "dist_f32", "sight_below_k", "negative_k"])
+def test_decode_refuses_before_building(kw):
+    n, sight = 40, 8
+    bits = torch.zeros((n, kw.get("bits_words", 1)),
+                       dtype=kw.get("bits_dtype", torch.int32))
+    meta = torch.zeros(kw.get("meta_shape", (n, 2)),
+                       dtype=kw.get("meta_dtype", torch.int32))
+    dsi = torch.zeros((n, sight), dtype=torch.int64)
+    dist = torch.zeros((n, sight), dtype=kw.get("dist_dtype", torch.float64))
+    with pytest.raises((ValueError, TypeError)):
+        kernels.balance_decode(*map(_OnCard, (bits, meta, dsi, dist)),
+                               kw.get("k", 5))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.balance_decode(torch.zeros((n, 1), dtype=torch.int32),
+                               torch.zeros((n, 2), dtype=torch.int32), dsi,
+                               dist.double(), 5)
+    assert kernels._lib is None and kernels.balance_decode_launches == 0
+
+
+@pytest.mark.parametrize("kw", [dict(labels="warp"), dict(stages=0),
+                                dict(stages=3), dict(stages=10),
+                                dict(route="warp")])
+def test_walk_refuses_before_building(kw):
+    dsi, _dist, lsi, cst, k = (_OnCard(t) if isinstance(t, torch.Tensor)
+                               else t for t in _inputs())
+    with pytest.raises(ValueError):
+        kernels.balance_walk(dsi, lsi, cst, 3, k, **kw)
+    with pytest.raises(ValueError):
+        kernels.knn_balance(dsi, _dist, lsi, cst, 3, k, **kw)
+    assert kernels._lib is None and kernels.balance_launches == 0

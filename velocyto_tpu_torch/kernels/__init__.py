@@ -14,14 +14,18 @@ module that calls it and serves CPU tensors there:
   fma_probe            bench.py::_fma_plain
   svr_smo              ops/svr.py::_smo_plain
   tsne_grad            ops/tsne.py::_tsne_grad_plain
-  knn_balance          ops/knn_device.py::_balance_scan_plain
+  knn_balance          ops/knn_device.py::_balance_scan_plain (the walk
+                       and its decode, together)
+  balance_decode       ops/knn_device.py::_balance_decode_plain
 
 ``dense_launches``, ``partial_launches``, ``fma_launches``,
-``svr_launches``, ``tsne_launches`` and ``balance_launches`` count each
-kernel's launches (a ``tsne_grad`` call, one gradient, adds two: the pair
-pass and the attractive pass), so a run can show that its main path went
-through it; ``svr_shared_launches`` and ``svr_global_launches`` split the
-SVR solver's launches by where it keeps its state (``svr_route``).
+``svr_launches``, ``tsne_launches``, ``balance_launches`` (the balance
+walk) and ``balance_decode_launches`` count each kernel's launches (a
+``tsne_grad`` call, one gradient, adds two: the pair pass and the
+attractive pass; a ``knn_balance`` call one walk and one decode), so a
+run can show that its main path went through it; ``svr_shared_launches``
+and ``svr_global_launches`` split the SVR solver's launches by where it
+keeps its state (``svr_route``).
 ``svr_sync_probe`` and ``balance_probe`` are measurement probes beside the
 SVR solver and the balance scan, not path kernels, and have no count.
 """
@@ -32,7 +36,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -48,7 +52,8 @@ svr_launches = 0        # launches of the SVR solver (one per fit)
 svr_shared_launches = 0     # of them, with the state in shared memory
 svr_global_launches = 0     # of them, with the state in global memory
 tsne_launches = 0       # launches of the t-SNE gradient (two per call)
-balance_launches = 0    # launches of the kNN balance scan (one per graph)
+balance_launches = 0    # launches of the kNN balance walk (one per graph)
+balance_decode_launches = 0     # launches of its decode (one per graph)
 build_log = ""          # nvcc's output (-Xptxas -v) from the last build
 
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
@@ -70,8 +75,10 @@ _SIGNATURES = {
     "tsne_attract": ("tsne_grad", "vtt_tsne_attract",
                      [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
                       _P]),
-    "knn_balance": ("knn_balance", "vtt_knn_balance",
-                    [_P] * 8 + [_I] * 5 + [_P]),
+    "knn_balance_walk": ("knn_balance", "vtt_knn_balance_walk",
+                         [_P] * 7 + [_I] * 8 + [_P]),
+    "knn_balance_decode": ("knn_balance", "vtt_knn_balance_decode",
+                           [_P] * 6 + [_I] * 3 + [_P]),
     "knn_balance_probe": ("knn_balance", "vtt_knn_balance_probe",
                           [_P, _I, _I, _P, _I, _I, _P, _P]),
 }
@@ -450,74 +457,238 @@ def tsne_grad(y: torch.Tensor, indptr: torch.Tensor, indices: torch.Tensor,
     return w["grad"], (w["err"] if compute_error else None)
 
 
-_BALANCE_THREADS = 1024       # knn_balance.cu kThreads
-_BALANCE_SMEM = 224 * 1024    # kMaxSmem: shared memory for l, bytes
-_BALANCE_MAX_L16 = 65535      # kMaxL16: the largest l a uint16 holds
+_BALANCE_THREADS = 256       # knn_balance.cu kThreads: the walkers
+_BALANCE_MAX_DEPTH = 1024    # kMaxDepth: staged positions a row, at most
+_BALANCE_MAX_STAGES = 8      # kMaxStages: stages of the ring, at most
+_BALANCE_SMEM = 224 * 1024   # kMaxSmem: dynamic shared memory, bytes
+_BALANCE_OUT_WORDS = 34      # kOutWords: a stage's results, bits, p, self
+_BALANCE_MAX_L16 = 65535     # kMaxL16: the largest l or label a uint16 holds
+_BALANCE_PROBE_MIN = 1024    # kProbeMinCells: the probe's smallest n
+_LABEL_CODES = {None: 0, "shared": 1, "staged": 2}
 
 
-def balance_route(n: int, maxl: int) -> str:
-    """Where the balance scan keeps the in-degrees l of n cells under the
-    cap maxl: "shared" while every l fits uint16 (no l passes min(maxl,
-    n - 1)) and 2 B a cell fit the block's shared memory (up to 114,688
-    cells), else "global" (an int32 array in device memory, L2-resident);
-    the same loop either way."""
+class BalancePlan(NamedTuple):
+    """How the balance walk runs: where l lives ("shared" or "global"),
+    the ring's stages R and staged depth T, and where the candidates'
+    group labels live (None unconstrained, "shared" beside l, "staged"
+    through the ring)."""
+    route: str
+    stages: int
+    depth: int
+    labels: Optional[str]
+
+
+def _pad16(b: int) -> int:
+    return -(-b // 16) * 16
+
+
+def _balance_smem(n: int, depth: int, stages: int, labels: Optional[str],
+                  route: str) -> int:
+    """Bytes of the walk's dynamic shared memory (knn_balance.cu layout()):
+    the ring's indices (and staged labels), each stage's results (its
+    staged chunk's bits, p and self), l as uint16, the labels as
+    uint16."""
+    cells = stages * depth
+    # a stage holds T + 1 indices rounded up to even (knn_balance.cu
+    # stage_len): a row copied from the 16-byte boundary before it
+    return (_pad16(8 * stages * ((depth + 2) // 2 * 2))
+            + (_pad16(4 * cells) if labels == "staged" else 0)
+            + _pad16(4 * stages * _BALANCE_OUT_WORDS)
+            + (_pad16(2 * n) if route == "shared" else 0)
+            + (_pad16(2 * n) if labels == "shared" else 0))
+
+
+def balance_depth(sight: int, k: int) -> int:
+    """T, the candidates of a row staged ahead: the JAX package's depth
+    (velocyto_tpu/ops/knn_device.py::_balance_plan, k + 1 + max(192,
+    k // 2) rounded up to 128), at most 1,024 (one warp scans the chunk's
+    warp totals) and the row."""
+    t = -(-(k + 1 + max(192, k // 2)) // 128) * 128
+    return max(1, min(sight, t, _BALANCE_MAX_DEPTH))
+
+
+def balance_plan(n: int, sight: int, k: int, maxl: int, grouped: bool,
+                 route: Optional[str] = None, stages: Optional[int] = None,
+                 labels: Optional[str] = None) -> BalancePlan:
+    """How the walk balances n cells of `sight` candidates, k a node,
+    under the cap maxl, with or without group labels.
+
+    l stays in shared memory ("shared") while every in-degree (at most
+    min(maxl, n - 1)) fits uint16 and 2 B a cell fit beside a ring of two
+    stages (with staged labels when grouped), else it goes to global
+    memory.  Labels sit beside l as uint16 when n <= 65,535 (the walk's
+    dense labels lie in [0, n)) and the layout still holds the longest ring, else they are
+    staged through the ring.  R is the longest even ring up to 8 that
+    fits.  route, stages or labels force one (raising ValueError where it
+    cannot be)."""
+    depth = balance_depth(sight, k)
     top = min(max(int(maxl), 0), n - 1)
-    return "shared" if top <= _BALANCE_MAX_L16 and \
-        -(-2 * n // 16) * 16 <= _BALANCE_SMEM else "global"
+    staged = "staged" if grouped else None
+    fits_shared = top <= _BALANCE_MAX_L16 and _balance_smem(
+        n, depth, 2, staged, "shared") <= _BALANCE_SMEM
+    if route is None:
+        route = "shared" if fits_shared else "global"
+    elif route not in ("shared", "global") or \
+            route == "shared" and not fits_shared:
+        raise ValueError(f"route {route!r} cannot take n={n}, maxl={maxl}")
+    if labels is None:
+        labels = staged
+        if grouped and n <= _BALANCE_MAX_L16 and _balance_smem(
+                n, depth, _BALANCE_MAX_STAGES, "shared", route) <= \
+                _BALANCE_SMEM:
+            labels = "shared"
+    elif not grouped or labels not in ("shared", "staged") or \
+            labels == "shared" and n > _BALANCE_MAX_L16:
+        raise ValueError(f"labels {labels!r} cannot take n={n}, grouped="
+                         f"{grouped}")
+    fit = [r for r in range(2, _BALANCE_MAX_STAGES + 1, 2)
+           if _balance_smem(n, depth, r, labels, route) <= _BALANCE_SMEM]
+    if not fit:
+        raise ValueError(f"labels {labels!r} do not fit beside l for n={n}")
+    if stages is None:
+        stages = fit[-1]
+    elif stages not in fit:
+        raise ValueError(f"stages={stages} cannot take n={n} (fit: {fit})")
+    return BalancePlan(route, stages, depth, labels)
 
 
-def knn_balance(dsi: torch.Tensor, dist: torch.Tensor, lsi: torch.Tensor,
-                constraint: Optional[torch.Tensor], maxl: int, k: int,
-                route: Optional[str] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The greedy degree-capped kNN balance on the card in one launch of
-    one block: dsi (n, sight) int64 candidate indices (distinct in each
-    row) and dist (n, sight) float64 in row order, lsi (n,) int64 visit
-    order, constraint (n,) int32 group labels or None -> (dist_new (n,
-    k+1) float64, dsi_new (n, k+1) int64, l (n,) int64), the layout of
-    ops.knn_device._balance_scan_plain, bitwise.  An index outside [0, n)
-    is never accepted.  route: "shared" or "global", where the kernel keeps
-    l; None takes ``balance_route(n, maxl)``.  The two give bitwise equal
-    results.  Launches on the current stream and does not synchronise."""
-    global balance_launches
+def _balance_check(dsi: torch.Tensor, lsi: torch.Tensor,
+                   constraint: Optional[torch.Tensor], k: int,
+                   dist: Optional[torch.Tensor] = None) -> Tuple[int, int]:
+    """Check the walk's inputs (devices, dtypes, shapes); returns (n,
+    sight)."""
     _check("dsi", dsi, (torch.int64,))
-    _check("dist", dist, (torch.float64,))
     _check("lsi", lsi, (torch.int64,), dim=1)
-    tensors = dict(dsi=dsi, dist=dist, lsi=lsi)
+    tensors = dict(dsi=dsi, lsi=lsi)
+    if dist is not None:
+        _check("dist", dist, (torch.float64,))
+        tensors["dist"] = dist
     if constraint is not None:
         _check("constraint", constraint, (torch.int32,), dim=1)
         tensors["constraint"] = constraint
     _check_same_device(**tensors)
     n, sight = dsi.shape
-    k = int(k)
-    if dist.shape != dsi.shape or lsi.shape != (n,) or n < 1 or \
-            n >= 2 ** 31 - 1 or sight >= 2 ** 31 - 1 or k < 0 or \
+    if (dist is not None and dist.shape != dsi.shape) or \
+            lsi.shape != (n,) or n < 1 or n >= 2 ** 31 - 1 or \
+            sight >= 2 ** 31 - 1 or k < 0 or \
             (constraint is not None and constraint.shape != (n,)):
-        raise ValueError(f"unsupported shapes: dsi {tuple(dsi.shape)}, dist "
-                         f"{tuple(dist.shape)}, lsi {tuple(lsi.shape)}, k {k}")
+        raise ValueError(f"unsupported shapes: dsi {tuple(dsi.shape)}, "
+                         f"dist {None if dist is None else tuple(dist.shape)}"
+                         f", lsi {tuple(lsi.shape)}, k {k}")
     if sight < k:
         raise ValueError(f"sight needs to be bigger than k: {sight} < {k}")
+    return n, sight
+
+
+def _dense_labels(constraint: torch.Tensor) -> torch.Tensor:
+    """Each label's rank among the distinct labels, as int32 in [0, n):
+    the same equalities as the labels given, with no copy to the host (a
+    sort and a scan, not torch.unique)."""
+    s, order = torch.sort(constraint)
+    rank = torch.zeros_like(constraint)
+    rank[1:] = torch.cumsum(s[1:] != s[:-1], 0)
+    return torch.empty_like(constraint).scatter_(0, order, rank)
+
+
+def balance_walk(dsi: torch.Tensor, lsi: torch.Tensor,
+                 constraint: Optional[torch.Tensor], maxl: int, k: int,
+                 route: Optional[str] = None, stages: Optional[int] = None,
+                 labels: Optional[str] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            BalancePlan]:
+    """The balance walk on the card in one launch of one block (the
+    walkers and a producer warp that fills their ring of rows): dsi (n,
+    sight) int64 candidates (distinct in each row), lsi (n,) int64 visit
+    order, constraint (n,) int32 group labels (any values: only their
+    equality matters; the walk gets their dense ranks) or None ->
+    (bits (n, ceil(sight / 32)) int32, the accepted positions of each row
+    as bits, the words of its examined region written where it accepted
+    any, the rest left as they were; meta (n, 2)
+    int32, the accepted count p and whether the row examined its own
+    node, (-1, 0) for a row never visited; l (n,) int64; the plan).
+    route, stages, labels: as ``balance_plan``.  Launches on the current
+    stream and does not synchronise."""
+    global balance_launches
+    k = int(k)
+    n, sight = _balance_check(dsi, lsi, constraint, k)
     # no l passes n - 1, so every cap from n up takes the same decisions,
     # and every cap up to 0 accepts nothing
     maxl = min(max(int(maxl), 0), n)
-    if route is None:
-        route = balance_route(n, maxl)
-    if route not in ("shared", "global") or \
-            route == "shared" and balance_route(n, maxl) != "shared":
-        raise ValueError(f"route {route!r} cannot take n={n}, maxl={maxl}")
+    plan = balance_plan(n, sight, k, maxl, constraint is not None, route,
+                        stages, labels)
+    dev = dsi.device
+    bits = torch.empty((n, -(-sight // 32)), dtype=torch.int32, device=dev)
+    meta = torch.empty((n, 2), dtype=torch.int32, device=dev)
+    l = torch.empty(n, dtype=torch.int64, device=dev)
+    work = None if plan.route == "shared" else \
+        torch.empty(n, dtype=torch.int32, device=dev)
+    if constraint is not None:
+        constraint = _dense_labels(constraint)
+    _launch("knn_balance_walk", dev, dsi.data_ptr(), lsi.data_ptr(),
+            None if constraint is None else constraint.data_ptr(),
+            None if work is None else work.data_ptr(), bits.data_ptr(),
+            meta.data_ptr(), l.data_ptr(), n, sight, maxl, k, plan.depth,
+            plan.stages, _LABEL_CODES[plan.labels],
+            int(plan.route == "shared"))
+    balance_launches += 1
+    return bits, meta, l, plan
+
+
+def balance_decode(bits: torch.Tensor, meta: torch.Tensor,
+                   dsi: torch.Tensor, dist: torch.Tensor, k: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The walk's bits and meta with the candidates dsi (n, sight) int64
+    and dist (n, sight) float64 -> (dist_new (n, k+1) float64, dsi_new
+    (n, k+1) int64) on the card, one warp a row over every SM: slot 0 the
+    node or -1, slots 1..p the accepted candidates in acceptance order,
+    slots p+1..k the node with dist[el, 0]; a row with p < 0 is -1 / 0.
+    The plain twin is ops.knn_device._balance_decode_plain.  Launches on
+    the current stream and does not synchronise."""
+    global balance_decode_launches
+    k = int(k)
+    _check("bits", bits, (torch.int32,))
+    _check("meta", meta, (torch.int32,))
+    _check("dsi", dsi, (torch.int64,))
+    _check("dist", dist, (torch.float64,))
+    _check_same_device(bits=bits, meta=meta, dsi=dsi, dist=dist)
+    n, sight = dsi.shape
+    if dist.shape != dsi.shape or bits.shape != (n, -(-sight // 32)) or \
+            meta.shape != (n, 2) or n < 1 or n >= 2 ** 31 - 1 or \
+            sight >= 2 ** 31 - 1 or k < 0 or sight < k:
+        raise ValueError(f"unsupported shapes: bits {tuple(bits.shape)}, "
+                         f"meta {tuple(meta.shape)}, dsi {tuple(dsi.shape)}, "
+                         f"dist {tuple(dist.shape)}, k {k}")
     dev = dsi.device
     idx_new = torch.empty((n, k + 1), dtype=torch.int64, device=dev)
     dist_new = torch.empty((n, k + 1), dtype=torch.float64, device=dev)
-    l = torch.empty(n, dtype=torch.int64, device=dev)
-    work = None if route == "shared" else \
-        torch.empty(n, dtype=torch.int32, device=dev)
-    _launch("knn_balance", dev, dsi.data_ptr(), dist.data_ptr(),
-            lsi.data_ptr(),
-            None if constraint is None else constraint.data_ptr(),
-            None if work is None else work.data_ptr(), idx_new.data_ptr(),
-            dist_new.data_ptr(), l.data_ptr(), n, sight, maxl, k,
-            int(route == "shared"))
-    balance_launches += 1
+    _launch("knn_balance_decode", dev, bits.data_ptr(), meta.data_ptr(),
+            dsi.data_ptr(), dist.data_ptr(), idx_new.data_ptr(),
+            dist_new.data_ptr(), n, sight, k)
+    balance_decode_launches += 1
+    return dist_new, idx_new
+
+
+def knn_balance(dsi: torch.Tensor, dist: torch.Tensor, lsi: torch.Tensor,
+                constraint: Optional[torch.Tensor], maxl: int, k: int,
+                route: Optional[str] = None, stages: Optional[int] = None,
+                labels: Optional[str] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The greedy degree-capped kNN balance on the card: the walk (one
+    block, ``balance_walk``) then the decode (every SM,
+    ``balance_decode``).  dsi (n, sight) int64 candidate indices
+    (distinct in each row) and dist (n, sight) float64 in row order, lsi
+    (n,) int64 visit order, constraint (n,) int32 group labels (any
+    values: candidates match on equal labels) or None ->
+    (dist_new (n, k+1) float64, dsi_new (n, k+1) int64, l (n,) int64),
+    the layout of ops.knn_device._balance_scan_plain, bitwise.  An index
+    outside [0, n) is never accepted.  route, stages, labels: as
+    ``balance_walk``; every choice gives bitwise equal results.  Launches
+    on the current stream and does not synchronise."""
+    k = int(k)
+    _balance_check(dsi, lsi, constraint, k, dist)
+    bits, meta, l, _plan = balance_walk(dsi, lsi, constraint, maxl, k,
+                                        route, stages, labels)
+    dist_new, idx_new = balance_decode(bits, meta, dsi, dist, k)
     return dist_new, idx_new, l
 
 
@@ -525,20 +696,22 @@ def balance_probe(n: int, reps: int, route: str = "shared",
                   device: Union[str, torch.device] = "cuda",
                   rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Run `reps` dependent steps of what chains one node of the balance
-    scan to the next (a load of l, a ballot, the chunk's barrier and scan,
-    a store to l, the node's barrier) in one block of the scan's shape,
-    over n >= 1024 cells with l in `route`'s memory; with rows (n, sight)
-    int64 on a card (the probe then runs on its device), each step first
-    reads the first chunk of a row no step read before, only once the
-    step before has ended (a node's row, read when it is needed).
-    Returns a (1,) int64 tensor.  Timed with reps = n, it gives the scan's
-    latency floor.  A measurement probe, not counted.  Launches on the
-    current stream and does not synchronise."""
+    walk to the next (a load of l, a ballot, the chunk's barrier and
+    scan, a store to l, the node's barrier) in one block of the walk's
+    256 walkers, over n >= 1024 cells with l in `route`'s memory
+    ("shared" while n uint16 fit the block's shared memory); with rows
+    (n, sight) int64 on a card (the probe then runs on its device), each
+    step first reads the first chunk of a row no step read before, only
+    once the step before has ended (a node's row, read when it is
+    needed).  Returns a (1,) int64 tensor.  Timed with reps = n, it gives
+    the walk's latency floor.  A measurement probe, not counted.
+    Launches on the current stream and does not synchronise."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"balance_probe runs on a CUDA device, got {device}")
-    if n < _BALANCE_THREADS or reps < 1 or route not in ("shared", "global") \
-            or route == "shared" and balance_route(n, 0) != "shared":
+    if n < _BALANCE_PROBE_MIN or reps < 1 or \
+            route not in ("shared", "global") or \
+            route == "shared" and _pad16(2 * n) > _BALANCE_SMEM:
         raise ValueError(f"unsupported probe: n={n}, reps={reps}, "
                          f"route={route!r}")
     if rows is not None:
@@ -562,7 +735,7 @@ def reset_counts() -> None:
     """Set every launch count to 0."""
     global dense_launches, partial_launches, fma_launches, svr_launches, \
         svr_shared_launches, svr_global_launches, tsne_launches, \
-        balance_launches
+        balance_launches, balance_decode_launches
     dense_launches = partial_launches = fma_launches = svr_launches = \
         svr_shared_launches = svr_global_launches = tsne_launches = \
-        balance_launches = 0
+        balance_launches = balance_decode_launches = 0

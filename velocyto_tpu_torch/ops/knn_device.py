@@ -8,8 +8,9 @@ stays on the device:
     -> lexicographic (distance, index) ordering  [sklearn tie-breaks]
     -> hub order and the greedy degree-capped balance (reference
        velocyto/neighbors.py:11-140): the hand CUDA kernel
-       kernels/knn_balance.cu on the card, _balance_scan_plain (one
-       torch step per node) on the CPU
+       kernels/knn_balance.cu on the card (a walk in one block that
+       writes acceptance bits, then a decode over every SM),
+       _balance_scan_plain (one torch step per node) on the CPU
     -> compact (N, K) neighbor-index/weight arrays and the smoothing
        convolution (reference velocyto/analysis.py:1006-1016)
 
@@ -131,7 +132,8 @@ def _balance_scan_plain(dsi: torch.Tensor, dist: torch.Tensor,
     l for each.  Slot 0 holds the node (distance 0) when it appears among
     the examined positions (up to and including the k-th acceptance, the
     whole row when fewer are accepted), else -1; slots p+1..k self-fill
-    with the node and dist[el, 0].  Returns (dist_new (N, k+1) float64,
+    with the node and dist[el, 0].  An index outside [0, n) is never
+    accepted.  Returns (dist_new (N, k+1) float64,
     dsi_new (N, k+1) int64, l (N,) int64) on dsi's device."""
     n, sight = dsi.shape
     if sight < k:
@@ -144,9 +146,11 @@ def _balance_scan_plain(dsi: torch.Tensor, dist: torch.Tensor,
     l = torch.zeros(n, dtype=torch.int64, device=dev)
     for el in lsi.tolist():
         row = dsi[el]
-        ok = (l[row] < maxl) & (row != el)
+        cell = (row >= 0) & (row < n)     # an index outside [0, n) never is
+        rowc = row.clamp(0, n - 1)
+        ok = cell & (l[rowc] < maxl) & (row != el)
         if constraint is not None:
-            ok &= constraint[row] == constraint[el]
+            ok &= constraint[rowc] == constraint[el]
         cs = torch.cumsum(ok, 0)                  # acceptances up to here
         acc = ok & (cs <= k)
         # the node itself is never accepted, so it is examined when fewer
@@ -158,9 +162,64 @@ def _balance_scan_plain(dsi: torch.Tensor, dist: torch.Tensor,
         target = torch.where(acc, cs, k + 1)
         dsi_new[el].scatter_(0, target, row)
         dist_new[el].scatter_(0, target, dist[el])
-        l.index_add_(0, row, acc.to(torch.int64))
+        l.index_add_(0, rowc, acc.to(torch.int64))
     return (dist_new[:, :k + 1].contiguous(), dsi_new[:, :k + 1].contiguous(),
             l)
+
+
+def _balance_decode_plain(bits: torch.Tensor, meta: torch.Tensor,
+                          dsi: torch.Tensor, dist: torch.Tensor, k: int,
+                          block: int = 4096
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain twin of the balance walk's decode
+    (kernels.balance_decode): bits (n, ceil(sight / 32)) int32, each row's
+    accepted positions (bit j % 32 of word j // 32), and meta (n, 2) int32,
+    (accepted count p, examined its own node), with the candidates dsi
+    (n, sight) int64 and dist (n, sight) float64 -> (dist_new (n, k+1)
+    float64, dsi_new (n, k+1) int64).  Slot 0 is the node (distance 0)
+    when it examined itself, else -1; slots 1..q hold the candidates at
+    the first q set bits in position order, q = min(p, k, the row's set
+    bits), so bits past them (words the walk never wrote) are never read;
+    slots q+1..k hold the node with dist[el, 0]; a row with p < 0 (never
+    visited) is -1 with distance 0.  Blocked over rows."""
+    n, sight = dsi.shape
+    dev = dsi.device
+    words = bits.shape[1]
+    shifts = torch.arange(32, dtype=torch.int64, device=dev)
+    dsi_new = torch.empty((n, k + 1), dtype=torch.int64, device=dev)
+    dist_new = torch.empty((n, k + 1), dtype=torch.float64, device=dev)
+    for r0 in range(0, n, block):
+        b = bits[r0:r0 + block].to(torch.int64) & 0xFFFFFFFF
+        m = meta[r0:r0 + block].to(torch.int64)
+        rows = b.shape[0]
+        el = torch.arange(r0, r0 + rows, dtype=torch.int64, device=dev)
+        on = ((b[:, :, None] >> shifts) & 1).reshape(rows, words * 32) > 0
+        rank = torch.cumsum(on, 1) - 1                 # of each set bit
+        p = m[:, 0].clamp(max=k)
+        take = on & (rank < p[:, None])
+        q = take.sum(1)
+        slot = torch.arange(k + 2, dtype=torch.int64, device=dev)
+        out_i = torch.where(slot[:k + 1] <= q[:, None], -1, el[:, None])
+        out_d = torch.zeros((rows, k + 1), dtype=torch.float64, device=dev)
+        if k:
+            out_d = torch.where(slot[:k + 1] <= q[:, None], out_d,
+                                dist[r0:r0 + rows, :1])
+        out_i = torch.cat([out_i, out_i[:, :1]], 1)      # k + 1: a sink
+        out_d = torch.cat([out_d, out_d[:, :1]], 1)
+        pos = torch.arange(words * 32, dtype=torch.int64, device=dev)
+        pos = pos.clamp(max=max(sight - 1, 0)).expand(rows, -1)
+        target = torch.where(take, rank + 1, k + 1)
+        if sight:
+            out_i.scatter_(1, target, dsi[r0:r0 + rows].gather(1, pos))
+            out_d.scatter_(1, target, dist[r0:r0 + rows].gather(1, pos))
+        out_i[:, 0] = torch.where(m[:, 1] != 0, el, -1)
+        out_d[:, 0] = 0.0
+        unvisited = m[:, 0] < 0
+        out_i[unvisited] = -1
+        out_d[unvisited] = 0.0
+        dsi_new[r0:r0 + rows] = out_i[:, :k + 1]
+        dist_new[r0:r0 + rows] = out_d[:, :k + 1]
+    return dist_new, dsi_new
 
 
 def _balance_scan_impl(dsi: torch.Tensor, dist: torch.Tensor,
@@ -168,8 +227,9 @@ def _balance_scan_impl(dsi: torch.Tensor, dist: torch.Tensor,
                        maxl: int, k: int
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The greedy balance of (dsi, dist) in the visit order lsi: the hand
-    kernel (kernels.knn_balance) for CUDA tensors, _balance_scan_plain for
-    CPU tensors.  Returns (dist_new, dsi_new, l), the reference layout."""
+    kernels (kernels.knn_balance: the walk, then its decode) for CUDA
+    tensors, _balance_scan_plain for CPU tensors.  Returns (dist_new,
+    dsi_new, l), the reference layout."""
     if dsi.is_cuda:
         return kernels.knn_balance(dsi, dist, lsi, constraint, maxl, k)
     return _balance_scan_plain(dsi, dist, lsi, constraint, maxl, k)
