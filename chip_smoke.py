@@ -61,7 +61,17 @@ without its copies are timed, and a probe of the node-to-node chain
 alone gives the latency floor.  Every path that balances shows one walk
 and one decode.
 
-Before the paths, the SVR solver kernel (a thread-block cluster holding
+Before the paths, the counting pipeline runs on the host (no kernel):
+native/bam.cpp is built from the checkout and asserted loaded, the
+tracked counting fixture is held bitwise to counting_golden.npz for
+every logic with and without the repeat mask, the chr UMI extension and
+discovery mode, and bench_counting's fixture (250,000 reads, 400 cells,
+64 genes) is written, cell-sorted by the native sorter and counted by
+the SoA engine on the native reader, bitwise against object mode on the
+pure-Python reader and against pcount on 4 spawned workers; its reads/s
+are printed beside the card and the host CPU.
+
+Then the SVR solver kernel (a thread-block cluster holding
 its state in shared memory at the session's sizes) is held bitwise
 against its plain version and against its global-memory route on a
 small, a CV-vs-mean-shaped and a totals-shaped fit at full size, and a
@@ -76,7 +86,7 @@ through the kernel.
     python3 chip_smoke.py
 
 Needs one CUDA device, nvcc (CUDA_HOME or the default toolkit path) and a
-host C++ compiler; imports nothing of JAX.  Exits non-zero, via an
+host C++ compiler with zlib; imports nothing of JAX.  Exits non-zero, via an
 uncaught exception, on any failed phase; the last line of stdout is a
 JSON verdict printed only after every phase passed.
 """
@@ -2044,6 +2054,140 @@ def checkpoint_phase(v):
           f"{t2 - t1:.3f} s; all equal", flush=True)
 
 
+# the counting phase: the tracked fixture's valid barcodes and cell batch
+# (tests/test_golden_counting.py), the golden cases, and the synthetic
+# fixture at bench size (bench_counting's recipe), counted serially and
+# by pcount on COUNT_PROCESSES spawned workers
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "golden")
+COUNT_LOGICS = ["Permissive10X", "Intermediate10X", "ValidatedIntrons10X",
+                "Stricter10X", "ObservedSpanning10X", "Discordant10X",
+                "SmartSeq2"]
+COUNT_READS, COUNT_CELLS, COUNT_GENES, COUNT_PROCESSES = 250000, 400, 64, 4
+
+
+def _golden_count(logic, mask=False, valid=True, umi_extension="no"):
+    """The tracked fixture through the port's ExInCounter: layers and
+    cell order sorted by barcode, and the readers its passes opened."""
+    from velocyto_tpu_torch.counting import ExInCounter, LOGICS
+    g = lambda name: os.path.join(GOLDEN_DIR, name)  # noqa: E731
+    c = ExInCounter("s", LOGICS[logic],
+                    valid_bcset={f"C{i:03d}" for i in range(15)}
+                    if valid else None, umi_extension=umi_extension)
+    c.peek(g("cnt_fix.bam"))
+    c.read_transcriptmodels(g("cnt_ann.gtf"))
+    if mask:
+        c.read_repeats(g("cnt_mask.gtf"))
+    c.mark_up_introns([g("cnt_fix.bam")], multimap=False)
+    d, cells = c.count([g("cnt_fix_cellsorted.bam")], multimap=False,
+                       cell_batch_size=5)
+    o = np.argsort(cells)
+    layers = {k: (np.concatenate(v, axis=1)[:, o] if v else
+                  np.zeros((0, 0))) for k, v in d.items()}
+    return layers, np.array(cells)[o], c._soa.readers_opened
+
+
+def _same_counts(a, b, what, same_dtype=True):
+    """Equal cell orders and layers (shape, values; dtype unless the
+    reference is an archive)."""
+    (la, ca), (lb, cb) = a, b
+    assert list(ca) == list(cb), f"{what}: cell order differs"
+    assert la.keys() == lb.keys(), what
+    for k in la:
+        assert la[k].shape == lb[k].shape and np.array_equal(la[k], lb[k]), \
+            f"{what}: layer {k} differs"
+        assert not same_dtype or la[k].dtype == lb[k].dtype, (what, k)
+
+
+def counting_phase(smi):
+    """The counting pipeline on the host: builds native/bam.cpp from the
+    checkout (asserted loaded, no fallback), holds the tracked fixture's
+    counts for every logic with and without the mask, the chr UMI
+    extension and discovery mode bitwise to counting_golden.npz, then
+    writes bench_counting's fixture (COUNT_READS reads, COUNT_CELLS
+    cells, COUNT_GENES genes) with the port's bamio, cell-sorts it with
+    the native sorter and counts it with the SoA engine on the native
+    reader, held bitwise against object mode on the pure-Python reader
+    and against pcount on COUNT_PROCESSES workers.  No kernel runs."""
+    from velocyto_tpu_torch import bench_counting, kernels, native
+    from velocyto_tpu_torch.counting import ExInCounter, LOGICS
+    phase("counting (host): native BAM engine, goldens, bench fixture")
+    kernels.reset_counts()
+    before = set(native._BUILD.glob("*.so"))
+    t0 = time.perf_counter()
+    lib = native.build_bam()
+    build_s = time.perf_counter() - t0
+    fresh = lib not in before
+    assert native.available(), "native BAM engine did not load"
+    assert os.path.samefile(native._load()._name, lib), "stale library"
+    print(f"# native/bam.cpp -> {lib.name}: {build_s:.3f} s "
+          f"({'built' if fresh else 'cached'})", flush=True)
+
+    golden = np.load(os.path.join(GOLDEN_DIR, "counting_golden.npz"))
+    cases = [(lg + ("_mask" if m else ""), dict(logic=lg, mask=m))
+             for lg in COUNT_LOGICS for m in (False, True)]
+    cases += [("ext_chr", dict(logic="Permissive10X", umi_extension="chr")),
+              ("discovery", dict(logic="Permissive10X", valid=False))]
+    assert {k for k, _ in cases} == {k.split("__")[0] for k in golden}
+    t0 = time.perf_counter()
+    for key, kw in cases:
+        layers, cells, readers = _golden_count(**kw)
+        assert readers and set(readers) == {"NativeBamReader"}, (key, readers)
+        _same_counts((layers, cells),
+                     ({k: golden[f"{key}__{k}"] for k in layers},
+                      golden[f"{key}__cells"]), f"golden {key}",
+                     same_dtype=False)
+    print(f"# counting goldens: {len(cases)} cases bitwise "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+
+    with _scratch_dir() as work:
+        t0 = time.perf_counter()
+        gtf, bam, cs, bcf = bench_counting.make_fixture(
+            work, COUNT_READS, COUNT_CELLS, COUNT_GENES)
+        fixture_s = time.perf_counter() - t0
+        assert native.read_tag_index(cs + ".vtx") is not None
+        bcs = bench_counting.load_bcs(bcf)
+        layers, cells, markup_s, count_s, engine = \
+            bench_counting.count_two_pass(gtf, bam, cs, bcs)
+        assert engine == "soa+NativeBamReader", engine
+        assert len(cells) == COUNT_CELLS, len(cells)
+        molecules = int(sum(int(m.sum()) for m in layers.values()))
+        assert molecules > 0
+        t0 = time.perf_counter()
+        p_layers, p_cells, _m, p_count_s, p_engine = \
+            bench_counting.count_two_pass(gtf, bam, cs, bcs,
+                                          n_processes=COUNT_PROCESSES)
+        pcount_s = time.perf_counter() - t0
+        _same_counts((layers, cells), (p_layers, p_cells),
+                     f"pcount({COUNT_PROCESSES})")
+        t0 = time.perf_counter()
+        c = ExInCounter("s", LOGICS["Permissive10X"], valid_bcset=set(bcs))
+        c._fastpath_ok = lambda: False       # object mode, Python reader
+        c.peek(bam)
+        c.read_transcriptmodels(gtf)
+        c.mark_up_introns((bam,), multimap=False)
+        d, o_cells = c.count((cs,), multimap=False)
+        object_s = time.perf_counter() - t0
+        _same_counts((layers, cells),
+                     ({k: np.concatenate(v, axis=1) for k, v in d.items()},
+                      o_cells), "object mode")
+    launches = _launches()
+    assert not any(launches.values()), f"counting launched {launches}"
+    rps = COUNT_READS / (markup_s + count_s)
+    result = {"engine": engine, "reads": COUNT_READS, "cells": len(cells),
+              "genes": COUNT_GENES, "molecules": molecules,
+              "markup_s": markup_s, "count_s": count_s,
+              "reads_per_sec": rps, "build_s": build_s,
+              "build": "built" if fresh else "cached",
+              "fixture_s": fixture_s, "object_mode_s": object_s,
+              "pcount_processes": COUNT_PROCESSES, "pcount_s": pcount_s,
+              "pcount_count_s": p_count_s, "card": smi,
+              "host_cpu": bench_counting.host_cpu(),
+              "host_cores": os.cpu_count()}
+    print("# counting " + json.dumps(result), flush=True)
+    return result
+
+
 def main():
     _card, smi = device_phase()
     build_phase()
@@ -2051,6 +2195,7 @@ def main():
     sampled = sampled_phase(smi)
     cross_check_phase()
     sampler_phase()
+    counting = counting_phase(smi)
     fma = fma_phase(smi)
     svr = svr_phase(smi)
     torch.cuda.empty_cache()
@@ -2125,6 +2270,7 @@ def main():
                           r["total"] for r in knn50k["runs"]],
                       "profile": profile,
                       "attribution": attr,
+                      "counting": counting,
                       "chip_smoke_s": time.perf_counter() - _START}))
     b20, b50 = balance["20k"], balance["50k"]
     # the paths that balance, each read just after its run

@@ -412,6 +412,25 @@ v.calculate_grid_arrows(smooth=0.5, steps=(6, 6), n_neighbors=10)
 assert v.sampling_ixs.shape == (n, 10) and v._corr_dev.shape == (n, 10)
 assert np.isfinite(v.delta_embedding).all() and np.isfinite(v.flow).all()
 assert np.isfinite(v.flow_rndm).all() and v.transition_prob.shape == (n, n)
+# counting: the tracked fixture through the native SoA engine
+import velocyto_tpu_torch.counting as cnt
+import velocyto_tpu_torch.native as nat
+assert nat.available()
+c = cnt.ExInCounter("s", cnt.LOGICS["Permissive10X"],
+                    valid_bcset={f"C{i:03d}" for i in range(15)})
+c.peek("tests/golden/cnt_fix.bam")
+c.read_transcriptmodels("tests/golden/cnt_ann.gtf")
+c.mark_up_introns(["tests/golden/cnt_fix.bam"], multimap=False)
+d, cells = c.count(["tests/golden/cnt_fix_cellsorted.bam"], multimap=False,
+                   cell_batch_size=5)
+assert c._soa.readers_opened == ["NativeBamReader", "NativeBamReader"]
+g = np.load("tests/golden/counting_golden.npz")
+o = np.argsort(cells)
+assert (np.array(cells)[o] == g["Permissive10X__cells"]).all()
+for layer, arrs in d.items():
+    assert (np.concatenate(arrs, 1)[:, o] ==
+            g[f"Permissive10X__{layer}"]).all(), layer
+assert "click" not in sys.modules and "h5py" not in sys.modules
 assert not any(m == "jax" or m.startswith(("jax.", "velocyto_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("JAX-FREE OK")

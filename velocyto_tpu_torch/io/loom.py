@@ -1,17 +1,19 @@
-"""Loom (HDF5) file reader.
+"""Loom (HDF5) file I/O.
 
-Copied from the read half of velocyto_tpu/io/loom.py; the JAX package
-cannot be imported here, because its package import loads jax.  h5py is
-imported when a file is opened, so the port imports on machines that
-lack it.
+Copied from velocyto_tpu/io/loom.py (the reader and ``create``, the
+writer); the JAX package cannot be imported here, because its package
+import loads jax.  h5py is imported when a file is opened or written, so
+the port imports on machines that lack it.
 
-Reads the loom v2/v3 on-disk layout: root dataset ``matrix`` (genes x
-cells), groups ``layers/``, ``row_attrs/`` and ``col_attrs/``
-(reference: analysis.py:56-64).
+The loom v2/v3 on-disk layout: root dataset ``matrix`` (genes x cells),
+groups ``layers/``, ``row_attrs/``, ``col_attrs/`` and file attributes.
+The counting half writes it (reference: commands/_run.py:284-297) and
+the analysis half reads it (reference: analysis.py:56-64).
 """
 from __future__ import annotations
 
-from typing import Dict
+import os
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -20,6 +22,13 @@ def _decode(arr: np.ndarray) -> np.ndarray:
     if arr.dtype.kind in ("S", "O"):
         return np.array([v.decode() if isinstance(v, bytes) else v
                          for v in arr])
+    return arr
+
+
+def _encodable(arr: np.ndarray) -> np.ndarray:
+    arr = np.asarray(arr)
+    if arr.dtype.kind == "U" or arr.dtype == object:
+        return arr.astype("S")
     return arr
 
 
@@ -60,3 +69,45 @@ class LoomConnection:
 
 def connect(path: str) -> LoomConnection:
     return LoomConnection(path)
+
+
+def create(filename: str, layers: Dict[str, np.ndarray],
+           row_attrs: Dict[str, np.ndarray],
+           col_attrs: Dict[str, np.ndarray],
+           file_attrs: Optional[Dict[str, Any]] = None) -> None:
+    """Create a loom file.  ``layers[""]`` is the main matrix; other keys
+    become named layers.  Matches the loompy.create(layers=...) contract
+    used by the reference writer (commands/_run.py:295-297)."""
+    import h5py
+    if os.path.exists(filename):
+        os.remove(filename)
+    main = np.asarray(layers[""])
+    with h5py.File(filename, "w") as f:
+        f.create_dataset("matrix", data=main,
+                         chunks=_chunks(main.shape), compression="gzip",
+                         compression_opts=2)
+        lg = f.create_group("layers")
+        for name, mat in layers.items():
+            if name == "":
+                continue
+            mat = np.asarray(mat)
+            if mat.shape != main.shape:
+                raise ValueError(f"layer {name} shape {mat.shape} != "
+                                 f"main matrix {main.shape}")
+            lg.create_dataset(name, data=mat, chunks=_chunks(mat.shape),
+                              compression="gzip", compression_opts=2)
+        ra = f.create_group("row_attrs")
+        for k, v in row_attrs.items():
+            ra.create_dataset(k, data=_encodable(v))
+        ca = f.create_group("col_attrs")
+        for k, v in col_attrs.items():
+            ca.create_dataset(k, data=_encodable(v))
+        f.create_group("attrs")
+        for k, v in (file_attrs or {}).items():
+            f.attrs[k] = v
+
+
+def _chunks(shape):
+    if len(shape) != 2 or 0 in shape:
+        return None
+    return (min(64, shape[0]), min(64, shape[1]))

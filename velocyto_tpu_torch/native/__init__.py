@@ -1,36 +1,55 @@
 """Host C++ helpers of the port, bound by ctypes.
 
 ``sampler.cpp`` replays numpy's MT19937 stream for the per-cell neighbour
-sampling of ``estimate_transition_prob(knn_random=True)``.  It is
-compiled on first use (never at import) with the host C++ compiler into
-``_build/``, named by the hash of its source, so an edited source is
-rebuilt.  ``choice_rows_plain`` is the numpy loop it replaces: the tests
-and ``chip_smoke.py`` hold the two to bit equality.
+sampling of ``estimate_transition_prob(knn_random=True)``.
+``choice_rows_plain`` is the numpy loop it replaces: the tests and
+``chip_smoke.py`` hold the two to bit equality.
+
+``bam.cpp`` is the counting engine's BGZF/BAM decoder, its exact hash
+factorize and its external sorter by cell tag (the counting half of the
+JAX package's ``velocyto_tpu/native/vtpu.cpp``).  The wrappers below
+(``available``, ``bam_sort_by_tag``, ``read_tag_index``,
+``bam_record_ranges``, ``factorize_fixed``) are copies of the JAX
+package's (``velocyto_tpu/native/__init__.py``).  As there, counting
+falls back to its Python and numpy paths when the library cannot be
+built; ``available()`` then logs the compiler's error once.
+
+Both are compiled on first use (never at import) with the host C++
+compiler into ``_build/``, named by the hash of their source, so an
+edited source is rebuilt.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import shutil
+import struct
 import subprocess
 from pathlib import Path
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
 _HERE = Path(__file__).resolve().parent
 _BUILD = _HERE / "_build"
 SOURCE = _HERE / "sampler.cpp"
+BAM_SOURCE = _HERE / "bam.cpp"
 
 _lib = None
+_bam_lib = None
+_bam_error: Optional[str] = None     # the compiler's error, once logged
+
+# most record boundaries bam_record_ranges holds at once (bam.cpp thins
+# them, doubling their spacing, when more qualify)
+MAX_BOUNDARIES = 65536
 
 
-def build() -> Path:
-    """Compile sampler.cpp unless a library built from the same source
-    exists; returns the library's path.  Raises on any compiler error."""
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = _BUILD / f"libvtt_sampler_{tag}.so"
+def _compile(source: Path, stem: str, flags: List[str],
+             libs: List[str]) -> Path:
+    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    lib = _BUILD / f"lib{stem}_{tag}.so"
     if lib.exists():
         return lib
     cxx = shutil.which("c++")
@@ -38,10 +57,9 @@ def build() -> Path:
         raise RuntimeError("no host C++ compiler (c++) on PATH")
     _BUILD.mkdir(exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    # no -march=native (the library must run on any host of the arch) and
-    # no FMA contraction (the cdf sums must round as numpy's do)
-    cmd = [cxx, "-O3", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off",
-           "-o", str(tmp), str(SOURCE)]
+    # no -march=native: the library must run on any host of the arch
+    cmd = [cxx, "-O3", "-std=c++17", "-shared", "-fPIC", *flags,
+           "-o", str(tmp), str(source), *libs]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"c++ failed ({proc.returncode}):\n"
@@ -50,7 +68,21 @@ def build() -> Path:
     return lib
 
 
-def _load():
+def build() -> Path:
+    """Compile sampler.cpp unless a library built from the same source
+    exists; returns the library's path.  Raises on any compiler error."""
+    # no FMA contraction: the cdf sums must round as numpy's do
+    return _compile(SOURCE, "vtt_sampler", ["-ffp-contract=off"], [])
+
+
+def build_bam() -> Path:
+    """Compile bam.cpp (zlib, threads) unless a library built from the
+    same source exists; returns the library's path.  Raises on any
+    compiler error."""
+    return _compile(BAM_SOURCE, "vtt_bam", ["-pthread"], ["-lz"])
+
+
+def _load_sampler():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
@@ -71,7 +103,7 @@ def choice_noreplace_rows(seed: int, n_rows: int, pop: int, size: int,
     Returns (positions (n_rows, size) int64, doubles drawn, numpy's final
     state as an ``np.random.set_state`` tuple).  numpy's own global
     stream is not touched.  Releases the GIL while it samples."""
-    lib = _load()
+    lib = _load_sampler()
     p = np.ascontiguousarray(p, dtype=np.float64)
     if p.shape != (pop,):
         raise ValueError(f"p has shape {p.shape}, expected ({pop},)")
@@ -95,3 +127,221 @@ def choice_rows_plain(seed: int, n_rows: int, pop: int, size: int,
     rows = np.stack([np.random.choice(pop, size=(size,), replace=False, p=p)
                      for _ in range(n_rows)], 0)
     return rows, np.random.get_state()
+
+
+# -- the counting engine's library (bam.cpp) --------------------------------
+
+def _configure_bam(lib) -> None:
+    from ctypes import POINTER, c_char_p, c_int, c_int32, c_int64, c_uint8, \
+        c_uint64, c_void_p
+    lib.vtpu_bam_open.restype = c_void_p
+    lib.vtpu_bam_open.argtypes = [c_char_p]
+    lib.vtpu_bam_close.argtypes = [c_void_p]
+    lib.vtpu_bam_close.restype = None
+    lib.vtpu_bam_n_refs.argtypes = [c_void_p]
+    lib.vtpu_bam_n_refs.restype = c_int64
+    lib.vtpu_bam_ref_name.argtypes = [c_void_p, c_int64]
+    lib.vtpu_bam_ref_name.restype = c_char_p
+    lib.vtpu_bam_read_batch.restype = c_int64
+    lib.vtpu_bam_read_batch.argtypes = [
+        c_void_p,           # handle
+        c_int64,            # max_reads
+        c_int64,            # max_segs per read
+        c_char_p, c_char_p,  # bc tag (2 chars), umi tag (2 chars)
+        POINTER(c_int32),   # out chrom_id (n,)
+        POINTER(c_uint8),   # out strand  (n,) 0='+', 1='-'
+        POINTER(c_int64),   # out pos     (n,) 1-based
+        POINTER(c_int32),   # out n_segs  (n,)
+        POINTER(c_int64),   # out seg_start (n, max_segs)
+        POINTER(c_int64),   # out seg_end   (n, max_segs)
+        POINTER(c_int32),   # out clip5, (n,)
+        POINTER(c_int32),   # out clip3  (n,)
+        POINTER(c_uint8),   # out ref_skip (n,)
+        POINTER(c_uint8),   # out flags_ok (n,) 1 = keep
+        c_char_p,           # out bc buffer   (n * 32)
+        c_char_p,           # out umi buffer  (n * 32)
+        c_int,              # require_unique (NH==1)
+        c_char_p,           # aux tag (2 chars) or b""
+        c_char_p,           # out aux buffer (n * 32) or None
+        c_int32,            # seq prefix length to decode (0 = none)
+        c_char_p,           # out seq buffer (n * 32) or None
+    ]
+    lib.vtpu_bam_sort_by_tag_indexed.restype = c_int64
+    lib.vtpu_bam_sort_by_tag_indexed.argtypes = [
+        c_char_p, c_char_p, c_char_p,   # src, dst, tag
+        c_int64,                        # mem_limit bytes
+        c_int32, c_int32,               # n_threads, compression level
+        c_char_p,                       # .vtx cell-index path (or None)
+    ]
+    lib.vtpu_bam_seek_uncompressed.restype = c_int
+    lib.vtpu_bam_seek_uncompressed.argtypes = [c_void_p, c_uint64]
+    lib.vtpu_bam_set_limit.restype = None
+    lib.vtpu_bam_set_limit.argtypes = [c_void_p, c_uint64]
+    lib.vtpu_bam_record_offsets.restype = c_int64
+    lib.vtpu_bam_record_offsets.argtypes = [
+        c_char_p, c_uint64,             # path, stride bytes
+        POINTER(c_uint64), c_int64,     # out offsets, max_out
+        POINTER(c_int64),               # out n_records
+        POINTER(c_uint64),              # out end-of-records offset
+    ]
+    lib.vtpu_factorize_fixed.restype = c_int64
+    lib.vtpu_factorize_fixed.argtypes = [
+        c_char_p,                       # keys (n * width bytes)
+        c_int64, c_int64,               # n, width
+        POINTER(c_int64),               # out codes (n,)
+        POINTER(c_int64),               # out firsts (n,)
+    ]
+
+
+def _load():
+    """The counting engine's library, built on first call; None (and the
+    compiler's error logged once) when it cannot be built or loaded."""
+    global _bam_lib, _bam_error
+    if _bam_lib is None and _bam_error is None:
+        try:
+            lib = ctypes.CDLL(str(build_bam()))
+            _configure_bam(lib)
+            _bam_lib = lib
+        except (RuntimeError, OSError) as e:
+            _bam_error = str(e)
+            logging.warning("native BAM engine unavailable, counting runs "
+                            f"its Python/numpy paths: {_bam_error}")
+    return _bam_lib
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+def bam_sort_by_tag(src: str, dst: str, tag: str,
+                    mem_limit: int = 4 << 30, n_threads: int = 0,
+                    level: int = 1, write_index: bool = True) -> int:
+    """Sort a BAM by an aux tag (the `samtools sort -t CB` equivalent).
+    External sort with spill runs above mem_limit bytes; BGZF output is
+    compressed by a thread pool.  Returns the number of records.
+
+    write_index=True also emits `dst + ".vtx"`: the per-cell
+    uncompressed-offset index that lets multi-feeder counting seek each
+    feeder straight to its barcode range (see read_tag_index)."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native BAM engine not available")
+    if n_threads <= 0:
+        n_threads = max(1, (os.cpu_count() or 2) - 1)
+    ix = (dst + ".vtx").encode() if write_index else None
+    n = lib.vtpu_bam_sort_by_tag_indexed(src.encode(), dst.encode(),
+                                         tag.encode()[:2], mem_limit,
+                                         n_threads, level, ix)
+    if n < 0:
+        raise IOError(f"native BAM sort failed for {src}")
+    return int(n)
+
+
+def read_tag_index(path: str):
+    """Parse a `.vtx` cell index: returns (keys list[bytes], offsets
+    np.uint64 (n+1,)) where offsets[i] is the uncompressed stream offset
+    of the first record with tag value keys[i] and offsets[-1] is the
+    end-of-records offset.  Returns None if absent, invalid, or STALE:
+    the VTX2 header records the compressed size of the BAM it was
+    written with, and a mismatch (e.g. the BAM was re-sorted by a tool
+    that writes no index) rejects the index rather than seeking into
+    the wrong stream."""
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+    except OSError:
+        return None
+    if len(data) < 12 or data[:4] != b"VTX2":
+        return None
+    (bam_size,) = struct.unpack_from("<Q", data, 4)
+    bam_path = path[:-4] if path.endswith(".vtx") else None
+    try:
+        if bam_path is None or os.path.getsize(bam_path) != bam_size:
+            return None
+    except OSError:
+        return None
+    keys, offs = [], []
+    p = 12
+    while p + 12 <= len(data):
+        klen, off = struct.unpack_from("<IQ", data, p)
+        p += 12
+        if klen == 0xFFFFFFFF:          # terminal entry
+            offs.append(off)
+            return keys, np.asarray(offs, dtype=np.uint64)
+        if p + klen > len(data):
+            return None
+        keys.append(data[p:p + klen])
+        p += klen
+        offs.append(off)
+    return None                          # missing terminal entry
+
+
+def bam_record_ranges(path: str, n_ranges: int,
+                      stride: Optional[int] = None):
+    """Split a BAM's record stream into `n_ranges` contiguous
+    (ustart, uend) uncompressed ranges at record boundaries, for ranged
+    parallel scans of an un-indexed (e.g. position-sorted) BAM.  One
+    native pass walks record length prefixes only (inflate-bound, no
+    field/tag parse, no python).  Returns a list of ranges covering
+    [first record, end-of-records), or None when the native library is
+    unavailable or the scan fails.
+
+    Unlike the JAX package's copy, it returns min(n_ranges, records)
+    ranges whatever the file's size: bam.cpp keeps at most
+    MAX_BOUNDARIES boundaries spread over the whole stream, and each cut
+    is the boundary nearest its ideal split point."""
+    lib = _load()
+    if lib is None:
+        return None
+    if stride is None:
+        # ~8 candidate boundaries per range; the compressed size is a
+        # conservative lower bound on the uncompressed span
+        try:
+            csize = os.path.getsize(path)
+        except OSError:
+            return None
+        stride = max(4096, min(8 << 20, csize // (8 * max(1, n_ranges))))
+    out = np.zeros(MAX_BOUNDARIES, dtype=np.uint64)
+    n_records = ctypes.c_int64(0)
+    u_end = ctypes.c_uint64(0)
+    n = lib.vtpu_bam_record_offsets(
+        path.encode(), ctypes.c_uint64(max(1, int(stride))),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)), MAX_BOUNDARIES,
+        ctypes.byref(n_records), ctypes.byref(u_end))
+    if n <= 0:
+        return None
+    offs = out[:n].astype(np.int64)
+    end = int(u_end.value)
+    n_ranges = max(1, min(int(n_ranges), int(n)))
+    span = end - int(offs[0])
+    cuts = [0]                    # indices into offs, strictly increasing
+    for i in range(1, n_ranges):
+        target = int(offs[0]) + span * i // n_ranges
+        j = int(np.searchsorted(offs, target))
+        if j > 0 and (j == n or target - offs[j - 1] <= offs[j] - target):
+            j -= 1                # the nearer of the two neighbours
+        # leave one boundary for each cut still to place
+        cuts.append(min(max(j, cuts[-1] + 1), int(n) - (n_ranges - i)))
+    bounds = [int(offs[j]) for j in cuts] + [end]
+    return [(bounds[i], bounds[i + 1]) for i in range(n_ranges)]
+
+
+def factorize_fixed(arr: np.ndarray
+                    ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """(uniques, codes) for a fixed-width numpy bytes array (dtype S*),
+    exact (open-addressing hash + memcmp), uniques in first-appearance
+    order.  Returns None when the native library is absent."""
+    lib = _load()
+    if lib is None:
+        return None
+    from ctypes import POINTER, c_char_p, c_int64, cast
+    arr = np.ascontiguousarray(arr)
+    n = len(arr)
+    width = arr.dtype.itemsize
+    codes = np.empty(n, np.int64)
+    firsts = np.empty(n, np.int64)
+    k = lib.vtpu_factorize_fixed(
+        cast(arr.ctypes.data, c_char_p), n, width,
+        codes.ctypes.data_as(POINTER(c_int64)),
+        firsts.ctypes.data_as(POINTER(c_int64)))
+    return arr[firsts[:k]], codes
