@@ -9,19 +9,28 @@ comes out:
     and the randomized control) at 20,000 cells x 2,000 genes, through
     velocyto_tpu_torch.bench_pipeline.run_once (the JAX harness's
     stages);
-  - the pipeline in its default mode (knn_random=True, sampled
-    colDeltaCor kernel in embedding-locality order), in
-    bench_pipeline.py's configuration; the transition stage's dual
-    launch is then timed on its own inputs with the identity order and
-    with the locality order, in turns, and the two outputs compared
-    bitwise; the session's device tensors, host arrays and metadata are
-    checkpointed (io.checkpoint) and reloaded on the card, bitwise;
+  - the pipeline in its default mode (knn_random=True), in
+    bench_pipeline.py's configuration: the transition stage consumes the
+    neighbour-sampling replay in 4 row chunks, one dual launch of the
+    sampled colDeltaCor kernel per chunk (each chunk's cells in
+    embedding-locality order), and permutes the randomized control on
+    the card.  Its compact correlations must equal one unchunked dual
+    launch on the same neighbours, delta_S_rndm permute_rows_nsign on
+    the same float32 rows, sampling_ixs and numpy's state the numpy
+    loop's, all bitwise, and no (genes, cells) tensor may be copied to
+    the host in the call; the chunk launches are timed against the
+    single launch, the single launch with the identity order against
+    the locality order (outputs bitwise equal), and the device
+    permutation alone; the session's device tensors, host arrays and
+    metadata are checkpointed (io.checkpoint) and reloaded on the card,
+    bitwise;
   - both pipelines again under torch.profiler (utils.profiling.trace):
     the device's idle share over the pipeline and its transition stage,
     the five device kernels that took the most time, the profiled total
     beside the unprofiled one;
   - the port's bench harnesses at reduced repeats: bench_pipeline (3
-    runs, one dual sampled launch each, the JAX harness's stage names),
+    runs, one dual sampled launch per replay chunk, the JAX harness's
+    stage names),
     bench_attr (the transition stage's and the 50k kNN's sub-stages, the
     idle share over one whole transition call) and bench_knn50k (2 runs
     at 50,000 cells);
@@ -568,8 +577,18 @@ def cross_check_phase():
         assert ok, f"dense and sampled kernels disagree: {tf}"
 
 
+def _same_state(a, b):
+    """Two np.random.get_state() tuples hold the same MT19937 state."""
+    return a[0] == b[0] and np.array_equal(a[1], b[1]) and a[2:] == b[2:]
+
+
 def sampler_phase():
-    from velocyto_tpu_torch import native
+    """The neighbour sampler against numpy's loop, small and at the
+    operating point, where the chunked replay (the path's) must equal
+    the whole replay and the loop bitwise.  Returns the operating
+    point's times and the loop's rows and final state (the default
+    pipeline's call is held to them)."""
+    from velocyto_tpu_torch import analysis, native
     phase("neighbour sampler against numpy")
     n, nn_k, n_samp = 2000, 401, 200
     p = np.linspace(0.5, 0.1, nn_k)
@@ -577,9 +596,7 @@ def sampler_phase():
     got, draws, state = native.choice_noreplace_rows(15071990, n, nn_k,
                                                      n_samp, p)
     want, want_state = native.choice_rows_plain(15071990, n, nn_k, n_samp, p)
-    same = (np.array_equal(got, want) and state[0] == want_state[0]
-            and np.array_equal(state[1], want_state[1])
-            and state[2:] == want_state[2:])
+    same = np.array_equal(got, want) and _same_state(state, want_state)
     print(f"# sampler N={n} nn_k={nn_k} n_samp={n_samp}: positions and "
           f"final MT19937 state equal to the numpy loop: {same} "
           f"({draws} doubles drawn)", flush=True)
@@ -588,10 +605,34 @@ def sampler_phase():
     p = np.linspace(0.5, 0.1, nn_k)
     p /= p.sum()
     t0 = time.perf_counter()
-    native.choice_noreplace_rows(15071990, CELLS, nn_k, NN_SAMPLED, p)
+    whole, w_draws, w_state = native.choice_noreplace_rows(
+        15071990, CELLS, nn_k, NN_SAMPLED, p)
+    whole_s = time.perf_counter() - t0
+    bounds = []
+    t0 = time.perf_counter()
+    chunked, c_draws, c_state = native.choice_noreplace_rows_chunked(
+        15071990, CELLS, nn_k, NN_SAMPLED, p,
+        n_chunks=analysis.SAMPLER_CHUNKS,
+        on_chunk=lambda lo, hi, rows: bounds.append((lo, hi)))
+    chunked_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain, plain_state = native.choice_rows_plain(15071990, CELLS, nn_k,
+                                                  NN_SAMPLED, p)
+    plain_s = time.perf_counter() - t0
+    same = (np.array_equal(whole, chunked) and w_draws == c_draws
+            and _same_state(w_state, c_state))
+    same_plain = np.array_equal(whole, plain) and \
+        _same_state(w_state, plain_state)
     print(f"# sampler at the operating point (N={CELLS}, nn_k={nn_k}, "
-          f"n_samp={NN_SAMPLED}): {time.perf_counter() - t0:.3f} s host",
-          flush=True)
+          f"n_samp={NN_SAMPLED}): whole replay {whole_s:.3f} s host, "
+          f"chunked replay ({len(bounds)} chunks {bounds}) {chunked_s:.3f} s;"
+          f" positions and final state bitwise equal: {same}; both equal "
+          f"to the numpy loop ({plain_s:.3f} s): {same_plain}", flush=True)
+    assert same, "the chunked replay differs from the whole replay"
+    assert same_plain, "the replay differs from np.random.choice"
+    assert len(bounds) == analysis.SAMPLER_CHUNKS
+    return {"whole_s": whole_s, "chunked_s": chunked_s, "plain_s": plain_s,
+            "rows": plain, "state": plain_state}
 
 
 def fma_phase(smi):
@@ -667,6 +708,13 @@ def _launches():
     return {k: getattr(kernels, attr) for k, attr in _COUNTS.items()}
 
 
+def _sampler_chunks():
+    """Sampled launches per default transition call: one dual launch
+    per chunk of the neighbour-sampling replay."""
+    from velocyto_tpu_torch import analysis
+    return analysis.SAMPLER_CHUNKS
+
+
 def _uncounted(fn):
     """fn() with its kernel launches left out of the path's counts (the
     timing repeats of a call the path already made once)."""
@@ -693,12 +741,43 @@ def _new_loom(S, U, genes):
     return v
 
 
-def pipeline_phase(knn_random, smi):
+class _HostCopies:
+    """Records the shape of every CUDA tensor copied to the host through
+    Tensor.cpu / Tensor.to while it is active."""
+
+    def __init__(self):
+        self.shapes = []
+
+    def __enter__(self):
+        self._cpu, self._to = torch.Tensor.cpu, torch.Tensor.to
+        copies, cpu, to = self.shapes, self._cpu, self._to
+
+        def _cpu(t, *args, **kw):
+            out = cpu(t, *args, **kw)
+            if t.is_cuda:
+                copies.append(tuple(t.shape))
+            return out
+
+        def _to(t, *args, **kw):
+            out = to(t, *args, **kw)
+            if t.is_cuda and isinstance(out, torch.Tensor) and not out.is_cuda:
+                copies.append(tuple(t.shape))
+            return out
+        torch.Tensor.cpu, torch.Tensor.to = _cpu, _to
+        return self
+
+    def __exit__(self, *exc):
+        torch.Tensor.cpu, torch.Tensor.to = self._cpu, self._to
+
+
+def pipeline_phase(knn_random, smi, sampler=None):
     """Drive the pipeline through bench_pipeline.run_once (the
     VelocytoLoom entry points, stage by stage) with the launch counts set
     to 0 just before; returns (stage seconds, total, launch counts, peak
-    device memory, in the default mode the order timing of the
-    transition stage's dual launch, and the VelocytoLoom)."""
+    device memory, in the default mode the timings of the transition
+    stage's sampled launches and its device permutation, and the
+    VelocytoLoom).  sampler: sampler_phase's result, which the default
+    mode's transition call is held to."""
     from velocyto_tpu_torch import analysis, bench_pipeline, kernels
     mode = "default mode (knn_random=True)" if knn_random else \
         "full mode (knn_random=False)"
@@ -708,36 +787,45 @@ def pipeline_phase(knn_random, smi):
     print(f"# synthesize: {time.perf_counter() - t0:.3f} s host, on {smi}",
           flush=True)
 
-    transition_launches, captured = {}, []
-    compact = analysis.col_delta_cor_partial_compact
+    transition, captured = {}, {"runs": []}
+    chunked = analysis.make_partial_compact_chunked
     estimate = analysis.VelocytoLoom.estimate_transition_prob
 
-    def _capture(*args, **kw):
-        # the sampled call's inputs, kept for the order timing below
-        captured.append((args, kw))
-        return compact(*args, **kw)
+    def _capture(emat, tf, psc):
+        # the sampled call's inputs and chunks, kept for the checks below
+        captured.update(emat=emat, tf=tf, psc=psc)
+        prep_d, run = chunked(emat, tf, psc)
+
+        def _run(d_rows, lo, hi, ixs, d_rows_random=None, order=None):
+            captured["runs"].append((d_rows, lo, hi, ixs, d_rows_random,
+                                     order))
+            return run(d_rows, lo, hi, ixs, d_rows_random, order=order)
+        return prep_d, _run
 
     def _transition(self, *args, **kw):
         before = (kernels.dense_launches, kernels.partial_launches)
-        estimate(self, *args, **kw)
-        transition_launches.update(
+        with _HostCopies() as copies:
+            estimate(self, *args, **kw)
+        transition.update(
             dense=kernels.dense_launches - before[0],
-            partial=kernels.partial_launches - before[1])
+            partial=kernels.partial_launches - before[1],
+            rng_state=np.random.get_state(), host_copies=copies.shapes,
+            split=self.__dict__.get("_sampled_split"))
 
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()              # count this path's launches only
-    analysis.col_delta_cor_partial_compact = _capture
+    analysis.make_partial_compact_chunked = _capture
     analysis.VelocytoLoom.estimate_transition_prob = _transition
     try:
         total, stages, v = bench_pipeline.run_once(S, U, DEVICE, knn_random)
     finally:
-        analysis.col_delta_cor_partial_compact = compact
+        analysis.make_partial_compact_chunked = chunked
         analysis.VelocytoLoom.estimate_transition_prob = estimate
     launches = _launches()
     peak = torch.cuda.max_memory_allocated()
     print(f"# pipeline total: {total:.3f} s on {smi}; kernel launches "
-          f"{launches} "
-          f"(transition stage {transition_launches}); peak device memory "
+          f"{launches} (transition stage: dense {transition['dense']}, "
+          f"sampled {transition['partial']}); peak device memory "
           f"{peak / 2**30:.2f} GiB", flush=True)
 
     phase(f"checks, {mode}")
@@ -745,45 +833,176 @@ def pipeline_phase(knn_random, smi):
     for name in ("delta_embedding", "delta_embedding_random", "flow"):
         assert np.all(np.isfinite(getattr(v, name))), f"{name} not finite"
     _check_gammas(v, gamma_true)
-    order_times = None
+    sampled_times = None
     if knn_random:
-        # the dual form: main field and randomized control in one launch
-        assert launches == {"dense": 0, "partial": 1, "fma": 0, "svr": 0,
-                            "tsne": 0, "balance": 1,
+        # one dual launch (main field and randomized control) per chunk
+        chunks = analysis.SAMPLER_CHUNKS
+        assert launches == {"dense": 0, "partial": chunks, "fma": 0,
+                            "svr": 0, "tsne": 0, "balance": 1,
                             "balance_decode": 1} and \
-            transition_launches["partial"] == 1, launches
+            transition["partial"] == chunks, launches
         _check_sampled_state(v)
-        assert len(captured) == 1, len(captured)
-        order_times = _uncounted(lambda: _order_timing(*captured[0], smi))
+        _check_transition_call(v, transition, sampler, smi)
+        sampled_times = _uncounted(lambda: _sampled_timings(v, captured,
+                                                            smi))
+        sampled_times["split"] = transition["split"]
     else:
         # the dual form: main field and randomized control in one launch
         assert launches == {"dense": 1, "partial": 0, "fma": 0, "svr": 0,
                             "tsne": 0, "balance": 1,
                             "balance_decode": 1} and \
-            transition_launches["dense"] == 1, launches
+            transition["dense"] == 1, launches
         corr = v._get_dev("corrcoef")           # diagonal already set to 0
         assert corr.shape == (CELLS, CELLS) and bool(torch.isfinite(corr).all())
         assert bool(torch.isfinite(v._get_dev("corrcoef_random")).all())
         _check_knn_rows(v)
-    return stages, total, launches, peak, order_times, v
+    return stages, total, launches, peak, sampled_times, v
 
 
-def _order_timing(args, kw, smi, n=3):
-    """The transition stage's dual sampled launch on its own inputs (the
-    pipeline's embedding-kNN samples), with the identity center order and
-    with the locality order, in turns (identity, ordered, ordered,
-    identity, ...); the two outputs must be bitwise equal.  Returns the
-    median ms of each."""
+def _check_transition_call(v, transition, sampler, smi):
+    """The default transition call: no (G, N) tensor (delta_S) crossed to
+    the host; sampling_ixs and numpy's state after the call equal the
+    numpy loop's (sampler_phase); delta_S_rndm equals permute_rows_nsign
+    on the same float32 rows from the same numpy state, bitwise."""
+    from velocyto_tpu_torch import analysis
+    big = [sh for sh in transition["host_copies"]
+           if int(np.prod(sh)) >= GENES * CELLS]
+    split = transition["split"]
+    print(f"# transition call: {len(transition['host_copies'])} tensors "
+          f"copied to the host, largest "
+          f"{max(transition['host_copies'], key=np.prod, default=None)}; "
+          f"{split['chunks']} chunks; replay {split['replay_s']:.3f} s in "
+          f"the call against {sampler['chunked_s']:.3f} s alone (chunked) / "
+          f"{sampler['whole_s']:.3f} s (whole) in sampler_phase; calling "
+          f"thread busy {split['main_busy_s']:.3f} s; tail after the replay "
+          f"{split['tail_s']:.3f} s; call {split['call_s']:.3f} s on {smi}",
+          flush=True)
+    assert not big, f"(G, N) tensors copied to the host: {big}"
+    assert split["chunks"] == analysis.SAMPLER_CHUNKS
+    assert np.array_equal(v.sampling_ixs, sampler["rows"]), \
+        "sampling_ixs differ from the numpy loop"
+    assert _same_state(transition["rng_state"], sampler["state"]), \
+        "numpy's state after the call differs from the numpy loop's"
+    host = v._get_dev("delta_S").cpu().numpy().astype(np.float64)
+    np.random.seed(15071990)             # the call's numba_random_seed
+    analysis.permute_rows_nsign(host)
+    got = v.__dict__["_dev_state"]["delta_S_rndm"].cpu().numpy()
+    same = got.dtype == np.float32 and np.array_equal(
+        got.view(np.uint32), host.astype(np.float32).view(np.uint32))
+    print(f"# delta_S_rndm (device permutation) against permute_rows_nsign "
+          f"on the host, bitwise: {same}; sampling_ixs and numpy's state "
+          f"after the call equal the numpy loop's: True", flush=True)
+    assert same, "the device permutation differs from permute_rows_nsign"
+
+
+def _sampled_timings(v, captured, smi):
+    """The transition call's sampled launches (chunked against one
+    launch, then the one launch in both center orders) and its device
+    permutation, on the call's own inputs."""
+    times = _chunk_timing(v, captured, smi)
+    times.update(_order_timing(captured, smi))
+    times.update(_permutation_timing(v, smi))
+    return times
+
+
+def _chunk_timing(v, captured, smi, n=3):
+    """The transition call's chunks against one unchunked dual launch on
+    the same neighbours (the path's locality order): the call's compact
+    correlations must equal it bitwise, and each chunk's order must be
+    the global order within the chunk.  Times the chunks' launches
+    (summed) against the single launch, in turns."""
+    from velocyto_tpu_torch import analysis, kernels
+    from velocyto_tpu_torch.ops.coldeltacor import (_TRANSFORMS, chunk_order,
+                                                    locality_order)
+    runs = captured["runs"]
+    e_rows = captured["emat"].to(torch.float32).T.contiguous()
+    d_rows, d2_rows = runs[0][0], runs[0][4]
+    tc, psc = _TRANSFORMS[captured["tf"]], captured["psc"]
+    ixs = torch.cat([r[3] for r in runs])
+    assert torch.equal(ixs, v._compact_ixs_dev)
+    order = locality_order(torch.as_tensor(v.ts, device=ixs.device))
+    captured.update(e_rows=e_rows, ixs=ixs, order=order)
+    for _d, lo, hi, _i, _d2, o in runs:
+        assert torch.equal(o, chunk_order(order, lo, hi)), (lo, hi)
+    assert [(r[1], r[2]) for r in runs] == [
+        (int(a), int(b)) for a, b in zip(
+            np.linspace(0, CELLS, analysis.SAMPLER_CHUNKS + 1)[:-1].astype(
+                np.int64),
+            np.linspace(0, CELLS, analysis.SAMPLER_CHUNKS + 1)[1:].astype(
+                np.int64))]
+
+    def single():
+        return kernels.coldeltacor_partial(e_rows, e_rows, d_rows, ixs, tc,
+                                           psc, d_ctr2=d2_rows, order=order)
+
+    def chunks():
+        return [kernels.coldeltacor_partial(
+            e_rows, e_rows[lo:hi], d[lo:hi], i, tc, psc, d_ctr2=d2[lo:hi],
+            order=o) for d, lo, hi, i, d2, o in runs]
+
+    times = {"single": [], "chunks": []}
+    for k in range(n):
+        for name, fn in ((("single", single), ("chunks", chunks)) if k % 2
+                         == 0 else (("chunks", chunks), ("single", single))):
+            t, out = _time_ms(fn)
+            times[name].append(t)
+            if name == "single":
+                whole = out
+    main, rndm = (analysis._fix_nans(t)[0] for t in whole)
+    same = _bitwise(main, v._corr_dev) and _bitwise(rndm, v._corr_rndm_dev)
+    single_ms = statistics.median(times["single"])
+    chunks_ms = statistics.median(times["chunks"])
+    print(f"# time sampled dual, the call's {len(runs)} chunk launches "
+          f"(each chunk in its own locality order) {chunks_ms!r} ms in all "
+          f"against one launch over the {CELLS} rows {single_ms!r} ms "
+          f"(median of {n}, in turns, CUDA events) on {smi}; the call's "
+          f"compact correlations equal the single launch bitwise: {same}",
+          flush=True)
+    assert same, "the chunked call differs from one unchunked launch"
+    return {"chunks_ms": chunks_ms, "single_ms": single_ms,
+            "launches_per_call": len(runs)}
+
+
+def _permutation_timing(v, smi, n=3):
+    """The randomized control's device apply (analysis._permute_apply_dev,
+    plain torch) on the pipeline's delta_S, its plan drawn from the call's
+    numpy state; median ms of n, and its bound (bytes)."""
+    from velocyto_tpu_torch import analysis
+    dS = v._get_dev("delta_S")
+    g, n_cells = dS.shape
+    rng = np.random.RandomState(15071990)
+    perms, bits = analysis._permute_rows_nsign_plan(g, n_cells, rng=rng)
+    perms = torch.from_numpy(perms).to(dS.device)
+    bits = torch.from_numpy(bits).to(dS.device)
+    ms = [_time_ms(lambda: analysis._permute_apply_dev(dS, perms, bits))
+          for _ in range(n)]
+    got = ms[-1][1]
+    ms = statistics.median(t for t, _ in ms)
+    assert _bitwise(got, v.__dict__["_dev_state"]["delta_S_rndm"])
+    nbytes = g * n_cells * (4 + perms.element_size() + 4) + bits.numel()
+    bound = _bound(0, nbytes)
+    print(f"# time device permutation (_permute_apply_dev, plain torch: "
+          f"gather, sign unpack, multiply) ({g}, {n_cells}) on {smi}: "
+          f"{ms!r} ms (median of {n}, CUDA events); bound "
+          f"{bound['bound_ms']!r} ms ({bound['bound_by']}, {nbytes} bytes)",
+          flush=True)
+    return {"permute_ms": ms, "permute_bound_ms": bound["bound_ms"]}
+
+
+def _order_timing(captured, smi, n=3):
+    """The transition stage's sampled launch over all rows on its own
+    inputs (the pipeline's embedding-kNN samples, both fields), with the
+    identity center order and with the locality order, in turns
+    (identity, ordered, ordered, identity, ...); the two outputs must be
+    bitwise equal.  Returns the median ms of each."""
     from velocyto_tpu_torch import kernels
     from velocyto_tpu_torch.ops.coldeltacor import _TRANSFORMS
-    emat, d_main, ixs, tf, psc = args
-    order = kw["order"]
-    e_rows = emat.to(torch.float32).T.contiguous()
-    d_rows = d_main.to(torch.float32).T.contiguous()
-    d2_rows = kw["dmat_random"].to(torch.float32).T.contiguous()
+    e_rows, ixs, order = captured["e_rows"], captured["ixs"], \
+        captured["order"]
+    d_rows, d2_rows = captured["runs"][0][0], captured["runs"][0][4]
     # the path builds its sampled ids as int32: nothing is converted
     assert ixs.dtype == torch.int32, ixs.dtype
-    tc = _TRANSFORMS[tf]
+    tc, psc = _TRANSFORMS[captured["tf"]], captured["psc"]
 
     def run(o):
         return kernels.coldeltacor_partial(e_rows, e_rows, d_rows, ixs, tc,
@@ -803,10 +1022,10 @@ def _order_timing(args, kw, smi, n=3):
     n_cells, nn = ixs.shape
     gbps = n_cells * nn * e_rows.shape[1] * 4 / (ms_o / 1e3) / 1e9
     print(f"# time sampled dual on the pipeline's own indices "
-          f"(N={n_cells}, nn={nn}, G={e_rows.shape[1]}, {tf}) on {smi}: "
-          f"identity order {ms_i!r} ms, locality order {ms_o!r} ms (median "
-          f"of {n}, in turns, CUDA events); gathered rows {gbps!r} GB/s "
-          f"with the locality order; outputs bitwise equal: {same}",
+          f"(N={n_cells}, nn={nn}, G={e_rows.shape[1]}, {captured['tf']}) on "
+          f"{smi}: identity order {ms_i!r} ms, locality order {ms_o!r} ms "
+          f"(median of {n}, in turns, CUDA events); gathered rows {gbps!r} "
+          f"GB/s with the locality order; outputs bitwise equal: {same}",
           flush=True)
     assert same, "the center order changed the sampled kernel's output"
     return {"identity_ms": ms_i, "ordered_ms": ms_o}
@@ -955,14 +1174,16 @@ def tutorial_phase(smi):
     print(f"# tutorial path total (session, velocity_step, shims): "
           f"{total:.3f} s on {smi}; kernel launches {launches}; peak device "
           f"memory {peak / 2**30:.2f} GiB", flush=True)
-    # the session's dual sampled launch and balance, the check chain's
-    # and velocity_step's, and one launch of each shim
-    assert session_launches == {"dense": 0, "partial": 1, "fma": 0, "svr": 0,
-                                "tsne": 0, "balance": 1,
+    # the session's dual sampled launches (one per replay chunk) and
+    # balance, the check chain's (its transition call: one per chunk) and
+    # velocity_step's, and one launch of each shim
+    chunks = _sampler_chunks()
+    assert session_launches == {"dense": 0, "partial": chunks, "fma": 0,
+                                "svr": 0, "tsne": 0, "balance": 1,
                                 "balance_decode": 1}, session_launches
-    assert launches == {"dense": 3, "partial": 6, "fma": 0, "svr": 0,
-                        "tsne": 0, "balance": 2, "balance_decode": 2}, \
-        launches
+    assert launches == {"dense": 3, "partial": 2 * chunks + 4, "fma": 0,
+                        "svr": 0, "tsne": 0, "balance": 2,
+                        "balance_decode": 2}, launches
     return stages, session_total, launches, peak, shims, step_ms
 
 
@@ -1567,7 +1788,8 @@ def heuristic_phase(smi):
           f"{int(v.cv_mean_selected.sum())} for N={n_cv}", flush=True)
     assert len(fits) == 2 and fits[0][0] >= SVR_CV_MIN and \
         fits[1][0] == CELLS, fits
-    assert launches["svr"] == 2 and launches["partial"] == 1 and \
+    assert launches["svr"] == 2 and \
+        launches["partial"] == _sampler_chunks() and \
         launches["dense"] == 0 and launches["fma"] == 0 and \
         launches["balance"] == launches["balance_decode"] == 1, launches
     assert svr_routes == {"shared": 2, "global": 0}, svr_routes
@@ -1626,8 +1848,8 @@ def _scratch_dir():
 def bench_pipeline_phase(smi):
     """python3 -m velocyto_tpu_torch.bench_pipeline at full size with
     BENCH_PIPE_REPS runs (one warm-up); each run makes one dual sampled
-    launch and a finite delta_embedding, and the JSON's stages are the JAX
-    harness's."""
+    launch per replay chunk and a finite delta_embedding, and the JSON's
+    stages are the JAX harness's."""
     from velocyto_tpu_torch import bench_pipeline, kernels
     phase(f"pipeline bench (python3 -m velocyto_tpu_torch.bench_pipeline), "
           f"{BENCH_PIPE_REPS} runs")
@@ -1655,8 +1877,9 @@ def bench_pipeline_phase(smi):
           f"{result['n_clean']} clean of {BENCH_PIPE_REPS - 1} measured); "
           f"launches per run {per_run}", flush=True)
     assert len(per_run) == BENCH_PIPE_REPS and all(
-        r == {"dense": 0, "partial": 1, "fma": 0, "svr": 0, "tsne": 0,
-              "balance": 1, "balance_decode": 1} for r in per_run), per_run
+        r == {"dense": 0, "partial": _sampler_chunks(), "fma": 0, "svr": 0,
+              "tsne": 0, "balance": 1, "balance_decode": 1}
+        for r in per_run), per_run
     assert list(result["stages"]) == PIPELINE_STAGES, list(result["stages"])
     assert all(list(r["stages"]) == PIPELINE_STAGES for r in result["runs"])
     return result, launches
@@ -1707,7 +1930,8 @@ def profile_phase(smi, S, U, unprofiled):
             assert 0.0 <= share < 1.0, share
         torch.cuda.empty_cache()
     launches = _launches()
-    assert launches["dense"] == 1 and launches["partial"] == 1 and \
+    assert launches["dense"] == 1 and \
+        launches["partial"] == _sampler_chunks() and \
         launches["balance"] == launches["balance_decode"] == 2, launches
     return out, launches
 
@@ -1730,9 +1954,11 @@ def attr_phase(smi):
           f"the host loop on the same candidates "
           f"{k20['balance_loop(host)']!r} s; launches {launches}",
           flush=True)
-    # warm-up and timed: main alone, dual; whole: warm-up, timed, profiled;
-    # one balance per kNN run, each kNN warm-up and timed
-    assert launches["partial"] == 7 and launches["dense"] == 0 and \
+    # warm-up and timed: main alone, dual; whole (one launch per replay
+    # chunk): warm-up, timed, profiled; one balance per kNN run, each kNN
+    # warm-up and timed
+    assert launches["partial"] == 4 + 3 * _sampler_chunks() and \
+        launches["dense"] == 0 and \
         launches["balance"] == launches["balance_decode"] == 4, launches
     assert 0.0 <= t["idle_share(whole)"] < 1.0
     for table in res.values():
@@ -2194,7 +2420,7 @@ def main():
     dense = dense_phase(smi)
     sampled = sampled_phase(smi)
     cross_check_phase()
-    sampler_phase()
+    sampler = sampler_phase()
     counting = counting_phase(smi)
     fma = fma_phase(smi)
     svr = svr_phase(smi)
@@ -2205,8 +2431,10 @@ def main():
         pipeline_phase(knn_random=False, smi=smi)
     del v
     torch.cuda.empty_cache()
-    stages_samp, total_samp, launches_samp, peak_samp, order_ms, v = \
-        pipeline_phase(knn_random=True, smi=smi)
+    stages_samp, total_samp, launches_samp, peak_samp, sampled_ms, v = \
+        pipeline_phase(knn_random=True, smi=smi, sampler=sampler)
+    sampler_s = {k: sampler[k] for k in ("whole_s", "chunked_s", "plain_s")}
+    del sampler
     checkpoint_phase(v)
     S, U = v.S, v.U                     # the raw counts, for the profile
     pcs = np.ascontiguousarray(v.pcs)   # the pipeline's kNN space
@@ -2237,6 +2465,8 @@ def main():
                       "pipeline_default_s": total_samp,
                       "stages_default_s": stages_samp,
                       "peak_default_gib": peak_samp / 2**30,
+                      "sampler_s": sampler_s,
+                      "transition_default": sampled_ms,
                       "tutorial_session_s": total_tut,
                       "stages_tutorial_s": stages_tut,
                       "peak_tutorial_gib": peak_tut / 2**30,
@@ -2301,8 +2531,11 @@ def main():
          "max_abs_err": sampled["max_abs_err"], "ms": sampled["ms"],
          "plain_ms": sampled["plain_ms"], "bound_ms": sampled["bound_ms"],
          "bound_by": sampled["bound_by"], "library_ms": None,
-         "path_identity_ms": order_ms["identity_ms"],
-         "path_locality_ms": order_ms["ordered_ms"]},
+         "path_identity_ms": sampled_ms["identity_ms"],
+         "path_locality_ms": sampled_ms["ordered_ms"],
+         "path_chunks_ms": sampled_ms["chunks_ms"],
+         "path_single_ms": sampled_ms["single_ms"],
+         "launches_per_call": sampled_ms["launches_per_call"]},
         {"name": "fma_probe", "route": "cuda",
          "source": "velocyto_tpu_torch/kernels/fma_probe.cu",
          "replaces": "bench.py:192",

@@ -264,3 +264,39 @@ def test_bench_counting_small(tmp_path, capsys):
     assert rec["reads"] > 0 and rec["counting_reads_per_sec"] > 0
     assert rec["molecules"] > 0 and rec["cells"] == 12
     assert os.listdir(tmp_path) == ["bench"]
+
+
+def test_run_raises_when_the_native_cell_sort_fails(tmp_path, inputs,
+                                                    monkeypatch):
+    """With no samtools the cell sort runs on the native sorter's
+    thread; when that sort raises, `run` raises too and writes no loom
+    (the JAX package's handle reads the failure as success, reference
+    fault R5)."""
+    import subprocess
+
+    from velocyto_tpu_torch import native
+    from velocyto_tpu_torch.commands import _run
+
+    popen = subprocess.Popen
+
+    def no_samtools(args, *a, **kw):
+        if args[0] == "samtools":
+            raise FileNotFoundError(2, "No such file or directory: samtools")
+        return popen(args, *a, **kw)
+
+    def failing_sort(*args, **kw):
+        raise IOError("native BAM sort failed")
+
+    assert native.available()
+    monkeypatch.setattr(_run.subprocess, "Popen", no_samtools)
+    monkeypatch.setattr(native, "bam_sort_by_tag", failing_sort)
+    w = _workdir(tmp_path, inputs, "sortfail")
+    res = CliRunner().invoke(cli, [
+        "run", str(w / "sample.bam"), str(w / "ann.gtf"),
+        "-b", str(w / "barcodes.tsv"), "-o", str(w / "out"),
+        "-e", "sortfail"])
+    assert res.exit_code != 0
+    assert isinstance(res.exception, MemoryError), res.exception
+    assert "could not be sorted" in str(res.exception)
+    assert not (w / "out" / "sortfail.loom").exists()
+    assert not list(w.rglob("*.loom"))

@@ -26,7 +26,7 @@ from velocyto_tpu_torch import analysis as tanalysis
 from velocyto_tpu_torch.models import velocity as tvelocity
 from velocyto_tpu_torch.ops import knn_device as kd
 from velocyto_tpu_torch.ops.coldeltacor import (_hilbert_index,
-                                                col_delta_cor,
+                                                chunk_order, col_delta_cor,
                                                 col_delta_cor_partial_compact,
                                                 locality_order)
 
@@ -173,21 +173,32 @@ def test_partial_compact_refuses_an_order_that_is_not_a_permutation(edit):
         col_delta_cor_partial_compact(et, dt, ix, "sqrt", 1e-10, order=bad)
 
 
+def _chunk_spy(monkeypatch):
+    """Record (lo, hi, ids dtype, order) of each chunk the sampled path
+    runs through make_partial_compact_chunked."""
+    seen = []
+    make = tanalysis.make_partial_compact_chunked
+
+    def spy_make(*args, **kw):
+        prep_d, run = make(*args, **kw)
+
+        def spy_run(d_rows, lo, hi, ixs, *rest, **run_kw):
+            seen.append((lo, hi, ixs.dtype, run_kw.get("order")))
+            return run(d_rows, lo, hi, ixs, *rest, **run_kw)
+        return prep_d, spy_run
+
+    monkeypatch.setattr(tanalysis, "make_partial_compact_chunked", spy_make)
+    return seen
+
+
 def test_sampled_path_hands_the_kernel_int32_ids(monkeypatch):
     """The sampled neighbour ids are built as int32, the dtype the kernel
-    reads, so the path converts nothing before the launch."""
+    reads, so the path converts nothing before a chunk's launch."""
     golden = np.load(GOLDEN)
-    seen = []
-    compact = tanalysis.col_delta_cor_partial_compact
-
-    def spy(emat, dmat, ixs, *args, **kw):
-        seen.append(ixs.dtype)
-        return compact(emat, dmat, ixs, *args, **kw)
-
-    monkeypatch.setattr(tanalysis, "col_delta_cor_partial_compact", spy)
+    seen = _chunk_spy(monkeypatch)
     v = _fresh(vtt, golden, device=CPU)
     _sampled(v, golden, randomized=True, scaling=False)
-    assert seen == [torch.int32]
+    assert [s[2] for s in seen] == [torch.int32] * tanalysis.SAMPLER_CHUNKS
     assert v._compact_ixs.dtype == np.int64    # the host view keeps int64
 
 
@@ -204,13 +215,22 @@ def _order_spy(monkeypatch, module):
 
 
 def test_sampled_path_passes_the_embedding_locality_order(monkeypatch):
+    """Each chunk's centers go to the kernel in the embedding-locality
+    order restricted to the chunk: the chunk's rows in the order the
+    global order lists them, minus the chunk's first row."""
     golden = np.load(GOLDEN)
-    seen = _order_spy(monkeypatch, tanalysis)
+    seen = _chunk_spy(monkeypatch)
     v = _fresh(vtt, golden, device=CPU)
     _sampled(v, golden, randomized=True, scaling=False)
-    assert len(seen) == 1
     want = locality_order(torch.as_tensor(golden["ts"]))
-    assert torch.equal(seen[0], want)
+    n = want.shape[0]
+    assert len(seen) == tanalysis.SAMPLER_CHUNKS
+    assert [s[0] for s in seen] == [0] + [s[1] for s in seen[:-1]]
+    assert seen[-1][1] == n
+    for lo, hi, _dtype, order in seen:
+        rows = want[(want >= lo) & (want < hi)] - lo
+        assert torch.equal(order, rows)
+        assert torch.equal(order, chunk_order(want, lo, hi))
 
 
 def test_velocity_step_passes_the_embedding_locality_order(monkeypatch):

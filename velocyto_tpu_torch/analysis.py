@@ -19,20 +19,24 @@ kernels on a CUDA device (ops/coldeltacor.py), and so does the balanced
 kNN's greedy balance (ops/knn_device.py), which keeps the whole kNN chain
 on the device.  Host stages (the filter/score family and the raw-count
 normalizations in float64, PCA, the gene-axis kNN balance, the
-randomized-control permutation, the neighbour-sampling replay and the
-grid field) stay numpy/scipy/C++, as in the JAX package.  The two SVR noise models (score_cv_vs_mean,
-adjust_totS_totU) and perform_TSNE run on the object's device through
-the port's own ops/svr.py and ops/tsne.py (hand CUDA kernels for the SMO
-loop and the t-SNE gradient), without sklearn; set_clusters without
-colours imports matplotlib, as the JAX package does.
+randomized control's permutation plan (in full mode the permutation
+itself), the neighbour-sampling replay and the grid field) stay
+numpy/scipy/C++, as in the JAX package.  The two SVR noise models
+(score_cv_vs_mean, adjust_totS_totU) and perform_TSNE run on the
+object's device through the port's own ops/svr.py and ops/tsne.py (hand
+CUDA kernels for the SMO loop and the t-SNE gradient), without sklearn;
+set_clusters without colours imports matplotlib, as the JAX package
+does.
 """
 from __future__ import annotations
 
 import io
 import logging
 import pickle
+import queue
+import threading
+import time
 import warnings
-from concurrent.futures import ThreadPoolExecutor
 from copy import deepcopy
 from typing import Any, Dict, List, Optional, Tuple, Union
 
@@ -45,8 +49,8 @@ from . import native
 from .diffusion import Diffusion
 from .io import loom as loomio
 from .ops import knn_device as kd
-from .ops.coldeltacor import (col_delta_cor, col_delta_cor_partial_compact,
-                              locality_order)
+from .ops.coldeltacor import (chunk_order, col_delta_cor, locality_order,
+                              make_partial_compact_chunked)
 from .ops.gamma import (clusters_stats, compute_fit_weights, fit_slope,
                         fit_slope_offset, fit_slope_weighted,
                         fit_slope_weighted_offset)
@@ -60,6 +64,10 @@ from .ops.tsne import tsne
 from .serialization import dump_hdf5, load_hdf5
 
 _F32, _F64 = torch.float32, torch.float64
+
+# row chunks of the neighbour-sampling replay in the sampled path (the
+# JAX package's n_chunks); one sampled colDeltaCor launch each on a card
+SAMPLER_CHUNKS = 4
 
 
 # Copied from velocyto_tpu/analysis.py::_scaled_pair (bit-exact to the
@@ -222,7 +230,8 @@ class VelocytoLoom:
 
     # runtime state, not data: the device tensors and the handles to them
     _RUNTIME = ("device", "_corr_dev", "_corr_rndm_dev", "_dev_state",
-                "_dev_host_cache", "_knn_graph_dev", "_compact_ixs_dev")
+                "_dev_host_cache", "_knn_graph_dev", "_compact_ixs_dev",
+                "_sampled_split")
 
     def to_hdf5(self, filename: str, **kwargs: Any) -> None:
         """Snapshot every attribute to hdf5 (resume with
@@ -1130,13 +1139,18 @@ class VelocytoLoom:
         knn_random=True (the reference default): each cell is correlated
         with a random sample of its embedding neighbours, drawn from
         numpy's stream exactly as the reference draws them (a C++ replay
-        of its per-cell np.random.choice loop, ``native``).  The sampled
-        colDeltaCor (hand CUDA kernel on a CUDA device; the main field and
-        the randomized control in one pass) keeps the compact (N, nn)
-        correlations on the device; the dense (N, N) attributes are built
-        only when read.  knn_random=False: the dense colDeltaCor (hand
-        CUDA kernel on a CUDA device).  The randomized control permutes
-        delta_S with numpy's global stream, like the JAX package."""
+        of its per-cell np.random.choice loop, ``native``, consumed in
+        row chunks as it runs).  The sampled colDeltaCor (hand CUDA kernel
+        on a CUDA device; the main field and the randomized control in
+        one pass per chunk) keeps the compact (N, nn) correlations on the
+        device; the dense (N, N) attributes are built only when read; the
+        randomized control is permuted on the device (see
+        _estimate_sampled).  A failed call raises and leaves the object
+        and numpy's stream as they were.  knn_random=False: the dense
+        colDeltaCor (hand CUDA kernel on a CUDA device), the randomized
+        control permuted on the host with numpy's global stream, like the
+        JAX package."""
+        rng_before = np.random.get_state()
         numba_random_seed(random_seed)
         self.which_hidim = hidim
 
@@ -1188,52 +1202,173 @@ class VelocytoLoom:
             self._estimate_full(hidim, ndims, transform, psc,
                                 calculate_randomized, embedding, nn_k)
             return
+        try:
+            self._estimate_sampled(hidim, ndims, transform, psc,
+                                   calculate_randomized, embedding, nn_k,
+                                   sampled_fraction, sampling_probs,
+                                   random_seed)
+        except BaseException:
+            # nothing of a failed call survives, numpy's stream included
+            np.random.set_state(rng_before)
+            raise
+
+    def _estimate_sampled(self, hidim: str, ndims: Optional[int],
+                          transform: str, psc: float,
+                          calculate_randomized: bool, embedding: np.ndarray,
+                          nn_k: int, sampled_fraction: float,
+                          sampling_probs: Tuple[float, float],
+                          random_seed: int) -> None:
+        """estimate_transition_prob(knn_random=True) as the JAX package
+        runs it (velocyto_tpu/analysis.py:1152-1413).
+
+        The neighbour-sampling replay starts first, on a worker thread,
+        and hands over its rows in SAMPLER_CHUNKS chunks (uploaded on a
+        side stream on a card).  The randomized control's plan is drawn
+        on a second worker from a snapshot of numpy's stream and applied
+        on the device.  Meanwhile this thread computes the transforms,
+        the embedding kNN and the locality order; then it gathers each
+        chunk's neighbours and runs the sampled colDeltaCor on them (one
+        dual launch a chunk on a card) while later chunks are sampled.
+        Every attribute is set only once the whole call has succeeded
+        (reference fault R2 is not inherited: no chunk result of a failed
+        replay is kept).
+
+        The call's split on the host clock goes to self._sampled_split:
+        call_s, replay_s (the replay and its chunk uploads, on its
+        thread), main_busy_s (this thread minus its waits for the
+        workers), tail_s (from the replay's end to the call's end) and
+        chunks."""
+        t_call = time.perf_counter()
+        waited = 0.0               # seconds this thread waits for a worker
+        N = embedding.shape[0]
+        dev = torch.device(self.device)
         p_samp = np.linspace(sampling_probs[0], sampling_probs[1], nn_k)
         p_samp = p_samp / p_samp.sum()
         n_samp = int(sampled_fraction * nn_k)
-        # the C++ replay releases the GIL: it samples while the
-        # permutation, the transform and the embedding kNN run here
-        with ThreadPoolExecutor(max_workers=1) as pool:
-            sampling = pool.submit(native.choice_noreplace_rows, random_seed,
-                                   N, nn_k, n_samp, p_samp)
-            tf, emat, d_main, d_rndm = self._corr_inputs(
-                hidim, ndims, transform, psc, calculate_randomized,
-                sampled=True)
-            _dists, idx = kd.knn_search_dev(embedding, min(nn_k + 1, N),
-                                            device=self.device)
-            # the reference seeds here, then calls np.random.choice once
-            # per cell; the replay leaves numpy's stream where they would
-            np.random.seed(random_seed)
-            sampling_ixs, _draws, mt_state = sampling.result()
-        np.random.set_state(mt_state)
-        self.sampling_ixs = sampling_ixs
-        self.corr_calc = "knn_random"
-        neigh = _sample_neighbors_dev(
-            idx, torch.as_tensor(sampling_ixs, device=idx.device))
-        # embedding_knn materializes lazily from the sampled indices
-        self._drop("embedding_knn", "_compact_ixs")
-        self._compact_ixs_dev = neigh
+        samp_dt = np.uint16 if nn_k <= 65536 else np.int32
+        chunks: "queue.Queue" = queue.Queue()
+        span = {}
+        # a copy from pageable memory is synchronous: on the current
+        # stream it would wait for this thread's queued work
+        side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
-        # the kernel takes the cells in embedding-locality order, so the
-        # rows it gathers for neighbouring cells are served by L2
-        corr = col_delta_cor_partial_compact(
-            emat, d_main, neigh, tf, psc, dmat_random=d_rndm,
-            order=locality_order(torch.as_tensor(embedding,
-                                                 device=neigh.device)))
-        corr_m, corr_r = corr if d_rndm is not None else (corr, None)
-        corr_m, had_nan = _fix_nans(corr_m)
+        def on_chunk(lo, hi, rows):
+            host = torch.from_numpy(rows.astype(samp_dt))
+            if side is None:
+                chunks.put((lo, hi, host, None))
+                return
+            with torch.cuda.stream(side):
+                samp = host.to(dev)
+                ready = torch.cuda.Event()
+                ready.record(side)
+            chunks.put((lo, hi, samp, ready))
+
+        def replay():
+            span["start"] = time.perf_counter()
+            try:
+                return native.choice_noreplace_rows_chunked(
+                    random_seed, N, nn_k, n_samp, p_samp,
+                    n_chunks=SAMPLER_CHUNKS, on_chunk=on_chunk)
+            finally:
+                span["end"] = time.perf_counter()
+                chunks.put(None)
+
+        sampler = _Worker(replay)
+        control = None
+        try:
+            if calculate_randomized:
+                # the plan draws from numpy's stream at the reference's
+                # point (between numba_random_seed and np.random.seed);
+                # this thread draws nothing until the seed below
+                control = _Worker(_permute_rows_nsign_dev,
+                                  self._get_dev("delta_S"),
+                                  np.random.get_state())
+            if "pcs" in hidim:  # sic (reference :1531)
+                tf, emat, d_main = self._pcs_inputs(hidim, ndims, transform,
+                                                    psc)
+            else:
+                tf = _KERNEL_TRANSFORM[transform]
+                hi = self._get_dev(hidim)
+                emat = torch.log2(hi + psc) if transform == "logratio" \
+                    else hi
+
+                def d_of(shift):
+                    return _corr_transform_dev(hi, shift, self.used_delta_t,
+                                               psc, transform)
+                d_main = d_of(self._get_dev("delta_S"))
+            _dists, idx = kd.knn_search_dev(embedding, min(nn_k + 1, N),
+                                            device=dev)
+            # the kernel takes each chunk's cells in embedding-locality
+            # order, so the rows it gathers for neighbouring cells are
+            # served by L2
+            order = locality_order(torch.as_tensor(embedding,
+                                                   device=idx.device))
+            prep_d, run = make_partial_compact_chunked(emat, tf, psc)
+            d_rows = prep_d(d_main)
+            d_rndm_rows = delta_rndm = None
+            if control is not None:
+                t = time.perf_counter()
+                delta_rndm = control.join()
+                waited += time.perf_counter() - t
+                d_rndm_rows = prep_d(d_of(delta_rndm))
+            neigh, outs = [], []
+            while True:
+                t = time.perf_counter()
+                item = chunks.get()
+                waited += time.perf_counter() - t
+                if item is None:
+                    break
+                lo, hi, samp, ready = item
+                if ready is not None:
+                    stream = torch.cuda.current_stream(dev)
+                    stream.wait_event(ready)
+                    samp.record_stream(stream)
+                neigh.append(_sample_neighbors_dev(idx[lo:hi], samp,
+                                                   row_offset=lo))
+                outs.append(run(d_rows, lo, hi, neigh[-1], d_rndm_rows,
+                                order=chunk_order(order, lo, hi)))
+            t = time.perf_counter()
+            sampling_ixs, _draws, mt_state = sampler.join()
+            waited += time.perf_counter() - t
+            if d_rndm_rows is None:
+                corr_m, corr_r = torch.cat(outs), None
+            else:
+                corr_m = torch.cat([o[0] for o in outs])
+                corr_r, _ = _fix_nans(torch.cat([o[1] for o in outs]))
+            corr_m, had_nan = _fix_nans(corr_m)
+        except BaseException:
+            for worker in (sampler, control):
+                if worker is not None:
+                    worker.wait()
+            raise
+
+        # the reference seeds here, then calls np.random.choice once per
+        # cell; the replay leaves numpy's stream where they would
+        np.random.seed(random_seed)
+        np.random.set_state(mt_state)
         if had_nan:
             logging.warning(
                 "Nans encountered in corrcoef and corrected to 1s. If not "
                 "identical cells were present it is probably a small "
                 "isolated cluster converging after imputation.")
+        self.sampling_ixs = sampling_ixs
+        self.corr_calc = "knn_random"
+        # embedding_knn materializes lazily from the sampled indices
+        self._drop("embedding_knn", "_compact_ixs")
+        self._compact_ixs_dev = torch.cat(neigh)
         self._corr_dev = corr_m
         # the reference overwrites corrcoef here but leaves any old
         # transition_prob stale until the next embedding-shift call
         self._drop("_compact_corr", "corrcoef", "_tp_sigma")
         if corr_r is not None:
-            self._corr_rndm_dev, _ = _fix_nans(corr_r)
+            self._set_dev("delta_S_rndm", delta_rndm)
+            self._corr_rndm_dev = corr_r
             self._drop("_compact_corr_random", "corrcoef_random")
+        t_end = time.perf_counter()
+        self._sampled_split = dict(
+            call_s=t_end - t_call, replay_s=span["end"] - span["start"],
+            main_busy_s=t_end - t_call - waited,
+            tail_s=t_end - span["end"], chunks=len(outs))
 
     def _estimate_full(self, hidim: str, ndims: Optional[int],
                        transform: str, psc: float, calculate_randomized: bool,
@@ -1245,7 +1380,7 @@ class VelocytoLoom:
                    "_compact_corr_random", "_compact_ixs", "_compact_ixs_dev",
                    "_tp_sigma")
         tf, emat, d_main, d_rndm = self._corr_inputs(
-            hidim, ndims, transform, psc, calculate_randomized, sampled=False)
+            hidim, ndims, transform, psc, calculate_randomized)
         N = embedding.shape[0]
         # embedding neighbors: device f32 candidate pass + f64 re-score
         # (sklearn's exact ordering and tie-breaks)
@@ -1272,50 +1407,40 @@ class VelocytoLoom:
             corr_r.fill_diagonal_(0.0)
             self._set_dev("corrcoef_random", corr_r)
 
-    def _corr_inputs(self, hidim: str, ndims: Optional[int], transform: str,
-                     psc: float, calculate_randomized: bool, sampled: bool):
-        """(kernel transform name, emat, dmat, dmat_random or None) as f32
-        (G, N) tensors for the colDeltaCor call (reference :1575-1601).
+    def _pcs_inputs(self, hidim: str, ndims: Optional[int], transform: str,
+                    psc: float):
+        """(kernel transform name, emat, dmat) for hidim="pcs": the first
+        ndims components of hidim and hidim + "_t", transformed in f64
+        (reference :1531, :1575-1601)."""
+        hi_dim, hi_dim_t = (torch.as_tensor(
+            np.array(getattr(self, name).T[:, :ndims], order="C"),
+            dtype=_F64, device=self.device)
+            for name in (hidim, hidim + "_t"))
+        tf, emat, d_of = _transform_for_corr(transform, psc, hi_dim)
+        return tf, emat, d_of(hi_dim_t)
 
-        With calculate_randomized, first permutes delta_S into
+    def _corr_inputs(self, hidim: str, ndims: Optional[int], transform: str,
+                     psc: float, calculate_randomized: bool):
+        """(kernel transform name, emat, dmat, dmat_random or None) as f32
+        (G, N) tensors for the full mode's colDeltaCor call (reference
+        :1575-1601), transformed in f64.
+
+        With calculate_randomized, first permutes the host delta_S into
         delta_S_rndm with numpy's global stream at the reference's point
-        in the sequence (bit-identical to the JAX package's control).
-        The sampled gene-space path transforms on the device in f32 from
-        delta_S directly, as the JAX package does; the full path and the
-        "pcs" hidim transform in f64."""
+        in the sequence (bit-identical to the JAX package's control)."""
         if calculate_randomized:
-            # the sampled path permutes the f32 device delta_S, as the
-            # JAX package does; the full path the host delta_S
-            self.delta_S_rndm = (
-                self._get_dev("delta_S").cpu().numpy().astype(np.float64)
-                if sampled and "pcs" not in hidim else np.copy(self.delta_S))
+            self.delta_S_rndm = np.copy(self.delta_S)
             permute_rows_nsign(self.delta_S_rndm)
         if "pcs" in hidim:  # sic (reference :1531)
-            hi_dim, hi_dim_t = (torch.as_tensor(
-                np.array(getattr(self, name).T[:, :ndims], order="C"),
-                dtype=_F64, device=self.device)
-                for name in (hidim, hidim + "_t"))
-            tf, emat, d_of = _transform_for_corr(transform, psc, hi_dim)
-            d_main, d_rndm = d_of(hi_dim_t), None
+            tf, emat, d_main = self._pcs_inputs(hidim, ndims, transform, psc)
+            d_rndm = None
         else:
             dt = self.used_delta_t
-            if sampled:
-                tf = _KERNEL_TRANSFORM[transform]
-                hi = self._get_dev(hidim)
-                emat = torch.log2(hi + psc) if transform == "logratio" else hi
-
-                def d_of_shift(name):
-                    return _corr_transform_dev(hi, self._get_dev(name), dt,
-                                               psc, transform)
-            else:
-                hi = self._get_dev(hidim, _F64)
-                tf, emat, d_of = _transform_for_corr(transform, psc, hi)
-
-                def d_of_shift(name):
-                    return d_of(hi + dt * self._get_dev(name, _F64))
-            d_main = d_of_shift("delta_S")
-            d_rndm = (d_of_shift("delta_S_rndm") if calculate_randomized
-                      else None)
+            hi = self._get_dev(hidim, _F64)
+            tf, emat, d_of = _transform_for_corr(transform, psc, hi)
+            d_main = d_of(hi + dt * self._get_dev("delta_S", _F64))
+            d_rndm = (d_of(hi + dt * self._get_dev("delta_S_rndm", _F64))
+                      if calculate_randomized else None)
         return (tf, emat.to(_F32).contiguous(), d_main.to(_F32).contiguous(),
                 None if d_rndm is None else d_rndm.to(_F32).contiguous())
 
@@ -2055,3 +2180,79 @@ def permute_rows_nsign(A: np.ndarray) -> None:
     for i in range(A.shape[0]):
         np.random.shuffle(A[i, :])
         A[i, :] = A[i, :] * np.random.choice(plmi, size=A.shape[1])
+
+
+# Copied from velocyto_tpu/analysis.py::_permute_rows_nsign_plan.
+def _permute_rows_nsign_plan(g: int, n: int, rng=np.random):
+    """The row permutations and sign flips permute_rows_nsign would
+    apply to a (g, n) matrix, drawn from the same np.random sequence
+    without touching the data: (g, n) uint16 (int32 past 65,536 columns)
+    permutations and the signs bit-packed, (g, ceil(n / 8)) uint8 with
+    the first column in the top bit and 1 for +1.  rng: the global
+    np.random module or a RandomState at the same state (the same
+    draws; shuffling an int row draws as shuffling a float row)."""
+    perms = np.empty((g, n), np.uint16 if n <= 65536 else np.int32)
+    signs = np.empty((g, n), np.int8)
+    plmi = np.array([+1, -1])
+    base = np.arange(n)
+    for i in range(g):
+        p = base.copy()
+        rng.shuffle(p)
+        perms[i] = p
+        signs[i] = rng.choice(plmi, size=n)
+    return perms, np.packbits(signs > 0, axis=1)
+
+
+def _permute_apply_dev(delta: torch.Tensor, perms: torch.Tensor,
+                       sign_bits: torch.Tensor) -> torch.Tensor:
+    """out[i, j] = delta[i, perms[i, j]] * sign[i, j] on delta's device
+    (plain torch: a gather along the columns, the sign bits unpacked, a
+    multiply by +-1), with perms and sign_bits from
+    _permute_rows_nsign_plan.  The floats are moved and their sign
+    flipped, never rounded, so the result equals permute_rows_nsign on
+    the same rows bitwise.  The JAX package applies the inverse
+    permutations with a sort (velocyto_tpu/analysis.py::
+    _permute_apply_dev), a TPU workaround not carried over."""
+    n = delta.shape[1]
+    shift = torch.arange(7, -1, -1, dtype=torch.uint8, device=delta.device)
+    bits = (sign_bits[:, :, None] >> shift) & 1
+    sign = bits.reshape(sign_bits.shape[0], -1)[:, :n].to(delta.dtype) * 2 - 1
+    return delta.gather(1, perms.to(torch.int64)) * sign
+
+
+def _permute_rows_nsign_dev(delta: torch.Tensor,
+                            rng_state: tuple) -> torch.Tensor:
+    """permute_rows_nsign of the (G, N) device tensor delta, drawn from a
+    RandomState set to rng_state (numpy's global stream is not touched):
+    the plan on the host, its upload, the apply on the device."""
+    rng = np.random.RandomState()
+    rng.set_state(rng_state)
+    perms, sign_bits = _permute_rows_nsign_plan(*delta.shape, rng=rng)
+    return _permute_apply_dev(
+        delta, torch.from_numpy(perms).to(delta.device),
+        torch.from_numpy(sign_bits).to(delta.device))
+
+
+class _Worker:
+    """fn(*args) on a daemon thread.  join() returns its result or raises
+    its error; wait() only waits."""
+
+    def __init__(self, fn, *args) -> None:
+        self._out: Dict[str, Any] = {}
+
+        def run():
+            try:
+                self._out["result"] = fn(*args)
+            except BaseException as exc:       # re-raised by join()
+                self._out["error"] = exc
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        self._thread.join()
+
+    def join(self) -> Any:
+        self._thread.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["result"]

@@ -7,15 +7,18 @@ device.
 Port of the JAX package's bench_attr.py.  Splits
   - estimate_transition_prob(knn_random=True) at 20k cells x 2k genes,
     nn=3500, frac=0.5, randomized control, into the pieces the port's
-    path runs: the embedding kNN, the sampler's replay (native), the
-    sampled-neighbour gather, the randomized control's permutation on
-    the host (delta_S copied to the host, as the path does), the two
-    displacement transforms, and the sampled colDeltaCor in locality
-    order, once as the path's dual launch and once for the main field
-    alone; then one whole estimate_transition_prob call, timed, and once
+    path runs: the embedding kNN, the sampler's replay (native, whole),
+    the sampled-neighbour gather, the randomized control's permutation
+    applied on the device (its plan drawn untimed, as the path draws it
+    on a worker), the two displacement transforms, and the sampled
+    colDeltaCor in locality order, once as a dual launch over all rows
+    and once for the main field alone; then one whole
+    estimate_transition_prob call, timed, with its split (the replay's
+    own seconds in the call, on its thread; the calling thread's busy
+    seconds; the tail from the replay's end to the call's end), and once
     more under torch.profiler for the device's idle share over it (the
-    path overlaps the replay with the rest, so the whole is less than
-    the sum);
+    path runs the rest beside the replay and consumes its rows chunk by
+    chunk, so the whole is less than the sum);
   - the 50k balanced kNN into bench_knn50k's stages;
   - the same stages at the pipeline's operating point (20,000 x 50 PCs,
     sight 3000, k=500, maxl 1500), with the host greedy loop timed
@@ -45,11 +48,15 @@ from .bench_common import (device_probe, host_window, idle_share,
 from .utils.profiling import trace
 
 # the JAX script's keys -> the port's, where the port's piece differs
-RENAMED = {"permute_rndm(sort)": "permute_rndm(host)",
+RENAMED = {"permute_rndm(sort)": "permute_rndm(device)",
            "corr_kernel_rndm": "corr_kernel_dual"}
 # keys of the transition table that the JAX script has no counterpart of
-ADDED = ("transition_prob(whole)", "transition_prob(whole,profiled)",
+ADDED = ("transition_prob(whole)", "replay(in_call)", "main_busy(in_call)",
+         "tail(in_call)", "transition_prob(whole,profiled)",
          "idle_share(whole)")
+# the whole call and its split: left out of the sum of the pieces
+_WHOLE = ("transition_prob(whole", "replay(", "main_busy(", "tail(",
+          "idle_share")
 
 
 def timed(name, fn, out, device):
@@ -73,7 +80,8 @@ def _probe(device):
 def attr_transition(n=20000, g=2000, nn=3500, frac=0.5, device="cuda"):
     from . import native
     from .analysis import (VelocytoLoom, _corr_transform_dev,
-                           _sample_neighbors_dev, permute_rows_nsign)
+                           _permute_apply_dev, _permute_rows_nsign_plan,
+                           _sample_neighbors_dev)
     from .ops import knn_device as kd
     from .ops.coldeltacor import col_delta_cor_partial_compact, locality_order
 
@@ -100,17 +108,15 @@ def attr_transition(n=20000, g=2000, nn=3500, frac=0.5, device="cuda"):
     neigh = timed("sample_gather(fused)", lambda: _sample_neighbors_dev(
         idx_dev, torch.as_tensor(samp, device=device)), out, device)
 
-    def permute():
-        # the path's control: delta_S to the host in f64, permuted there
-        a = dS.cpu().numpy().astype(np.float64)
-        permute_rows_nsign(a)
-        return a
-    dS_r = timed("permute_rndm(host)", permute, out, device)
+    perms, sign_bits = _permute_rows_nsign_plan(g, n)
+    perms = torch.from_numpy(perms).to(device)
+    sign_bits = torch.from_numpy(sign_bits).to(device)
+    dS_r = timed("permute_rndm(device)", lambda: _permute_apply_dev(
+        dS, perms, sign_bits), out, device)
     d_main = timed("transform_main", lambda: _corr_transform_dev(
         Sx, dS, 1.0, 1e-10, "sqrt"), out, device)
     d_rndm = timed("transform_rndm", lambda: _corr_transform_dev(
-        Sx, torch.as_tensor(dS_r, dtype=torch.float32, device=device), 1.0,
-        1e-10, "sqrt"), out, device)
+        Sx, dS_r, 1.0, 1e-10, "sqrt"), out, device)
 
     def order():
         return locality_order(torch.as_tensor(emb, device=device))
@@ -132,6 +138,12 @@ def attr_transition(n=20000, g=2000, nn=3500, frac=0.5, device="cuda"):
             hidim="Sx_sz", embed="ts", transform="sqrt", knn_random=True,
             n_neighbors=nn, sampled_fraction=frac, calculate_randomized=True)
     timed("transition_prob(whole)", whole, out, device)
+    split = vlm._sampled_split
+    for key, name in (("replay_s", "replay(in_call)"),
+                      ("main_busy_s", "main_busy(in_call)"),
+                      ("tail_s", "tail(in_call)")):
+        out[name] = split[key]
+        print(f"#   {name}: {split[key]:.3f}s", flush=True)
     with tempfile.TemporaryDirectory(prefix="vtt-attr-") as logdir:
         with trace(logdir) as prof:
             t0 = time.perf_counter()
@@ -150,8 +162,7 @@ def attr_transition(n=20000, g=2000, nn=3500, frac=0.5, device="cuda"):
     print(f"#   probe_after: {p1}ms", flush=True)
     out["probe_ms"] = [p0, p1]
     out["sum"] = sum(v for k, v in out.items() if isinstance(v, float)
-                     and not k.startswith(("transition_prob(whole",
-                                           "idle_share")))
+                     and not k.startswith(_WHOLE))
     return out
 
 

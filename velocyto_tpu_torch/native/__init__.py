@@ -1,7 +1,8 @@
 """Host C++ helpers of the port, bound by ctypes.
 
 ``sampler.cpp`` replays numpy's MT19937 stream for the per-cell neighbour
-sampling of ``estimate_transition_prob(knn_random=True)``.
+sampling of ``estimate_transition_prob(knn_random=True)``, resumably, so
+the rows come out in chunks (``choice_noreplace_rows_chunked``).
 ``choice_rows_plain`` is the numpy loop it replaces: the tests and
 ``chip_smoke.py`` hold the two to bit equality.
 
@@ -86,10 +87,11 @@ def _load_sampler():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        fn = lib.vtt_choice_noreplace_rows
-        fn.argtypes = [ctypes.c_uint32, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p]
+        lib.vtt_mt19937_seed.argtypes = [ctypes.c_uint32, ctypes.c_void_p]
+        lib.vtt_mt19937_seed.restype = None
+        fn = lib.vtt_choice_noreplace_resume
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int64
         _lib = lib
     return _lib
@@ -102,18 +104,54 @@ def choice_noreplace_rows(seed: int, n_rows: int, pop: int, size: int,
 
     Returns (positions (n_rows, size) int64, doubles drawn, numpy's final
     state as an ``np.random.set_state`` tuple).  numpy's own global
-    stream is not touched.  Releases the GIL while it samples."""
+    stream is not touched.  Releases the GIL while it samples.  The
+    whole replay in one chunk of ``choice_noreplace_rows_chunked``."""
+    return choice_noreplace_rows_chunked(seed, n_rows, pop, size, p,
+                                         n_chunks=1)
+
+
+def choice_noreplace_rows_chunked(seed: int, n_rows: int, pop: int,
+                                  size: int, p: np.ndarray,
+                                  n_chunks: int = 4, on_chunk=None
+                                  ) -> Tuple[np.ndarray, int, tuple]:
+    """``choice_noreplace_rows`` produced in row chunks: after each chunk
+    of rows is sampled, ``on_chunk(lo, hi, rows_view)`` fires, so the
+    caller can hand the rows on while the MT19937 replay goes on with
+    the next chunk.  Copy of the JAX package's
+    ``velocyto_tpu/native/__init__.py::choice_noreplace_rows_chunked``:
+    the same ``np.linspace`` chunk bounds, empty chunks skipped, the same
+    rows and final state as the whole replay for every ``n_chunks``.
+
+    Unlike the JAX copy it raises where that one returns None: a
+    ValueError when fewer than ``size`` weights are positive, checked
+    before the first chunk (so no ``on_chunk`` fires before a refusal),
+    and a RuntimeError when the state between two chunks is not a
+    valid position (``state[624]`` past 624)."""
     lib = _load_sampler()
     p = np.ascontiguousarray(p, dtype=np.float64)
     if p.shape != (pop,):
         raise ValueError(f"p has shape {p.shape}, expected ({pop},)")
-    out = np.empty((n_rows, size), np.int64)
-    state = np.empty(625, np.uint32)
-    draws = lib.vtt_choice_noreplace_rows(
-        seed & 0xFFFFFFFF, n_rows, pop, size, p.ctypes.data,
-        out.ctypes.data, state.ctypes.data)
-    if draws < 0:
+    if int(np.count_nonzero(p > 0)) < size:
         raise ValueError("Fewer non-zero entries in p than size")
+    state = np.empty(625, np.uint32)
+    lib.vtt_mt19937_seed(seed & 0xFFFFFFFF, state.ctypes.data)
+    out = np.empty((n_rows, size), np.int64)
+    draws = 0
+    bounds = np.linspace(0, n_rows, max(1, n_chunks) + 1).astype(np.int64)
+    for lo, hi in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
+        if hi <= lo:
+            continue
+        d = lib.vtt_choice_noreplace_resume(
+            state.ctypes.data, hi - lo, pop, size, p.ctypes.data,
+            out[lo:].ctypes.data)
+        if d < 0:
+            raise ValueError("Fewer non-zero entries in p than size")
+        if state[624] > 624:
+            raise RuntimeError(f"MT19937 position {state[624]} past 624 "
+                               f"after rows [{lo}, {hi})")
+        draws += d
+        if on_chunk is not None:
+            on_chunk(lo, hi, out[lo:hi])
     return out, int(draws), ("MT19937", state[:624].copy(), int(state[624]),
                              0, 0.0)
 

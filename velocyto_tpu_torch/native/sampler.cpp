@@ -2,9 +2,10 @@
 // sampling of VelocytoLoom.estimate_transition_prob(knn_random=True).
 //
 // A copy of the sampler of velocyto_tpu/native/vtpu.cpp (struct Mt19937,
-// choice_rows_core, make_cdf0, vtpu_choice_noreplace_rows2), and of nothing
-// else in that file: the port builds it on first use with the host C++
-// compiler and needs neither zlib nor the JAX package's prebuilt library.
+// choice_rows_core, make_cdf0, vtpu_mt19937_seed,
+// vtpu_choice_noreplace_resume), and of nothing else in that file: the
+// port builds it on first use with the host C++ compiler and needs
+// neither zlib nor the JAX package's prebuilt library.
 //
 // It replays numpy's legacy RandomState.choice(pop, size, replace=False,
 // p=p) once per row, byte for byte: standard MT19937 (init_genrand seeding,
@@ -153,23 +154,36 @@ void make_cdf0(const double* p_in, int64_t pop, std::vector<double>& cdf0) {
 
 extern "C" {
 
-// out: (n_rows, size) int64.  out_state: 625 uint32 slots receiving the
-// final MT19937 state (624 key words, then the position).  Returns the
-// number of doubles drawn, or -1 if fewer than `size` weights are
-// positive (the sampling could not terminate).
-int64_t vtt_choice_noreplace_rows(uint32_t seed, int64_t n_rows, int64_t pop,
-                                  int64_t size, const double* p_in,
-                                  int64_t* out, uint32_t* out_state) {
+// The resumable replay (copies of vtpu_mt19937_seed and
+// vtpu_choice_noreplace_resume, velocyto_tpu/native/vtpu.cpp:874-902):
+// state625 holds the 624 MT19937 key words and the position.  Seed it
+// with vtt_mt19937_seed, then call vtt_choice_noreplace_resume once per
+// chunk of rows: it reads the state, samples n_rows rows into out
+// ((n_rows, size) int64) and writes the advanced state back, so a caller
+// can hand each finished chunk on while the next one is sampled.
+// Returns the number of doubles drawn, or -1 if fewer than `size`
+// weights are positive (the sampling could not terminate).
+void vtt_mt19937_seed(uint32_t seed, uint32_t* state625) {
+    Mt19937 rng(seed);
+    for (int i = 0; i < 624; ++i) state625[i] = rng.mt[i];
+    state625[624] = (uint32_t)rng.mti;
+}
+
+int64_t vtt_choice_noreplace_resume(uint32_t* state625, int64_t n_rows,
+                                    int64_t pop, int64_t size,
+                                    const double* p_in, int64_t* out) {
     int64_t positive = 0;
     for (int64_t j = 0; j < pop; ++j) positive += p_in[j] > 0;
     if (positive < size) return -1;
-    Mt19937 rng(seed);
+    Mt19937 rng(0);
+    for (int i = 0; i < 624; ++i) rng.mt[i] = state625[i];
+    rng.mti = (int)state625[624];
     std::vector<double> cdf0;
     make_cdf0(p_in, pop, cdf0);
     int64_t draws = choice_rows_core(rng, n_rows, pop, size, p_in,
                                      cdf0.data(), out);
-    for (int i = 0; i < 624; ++i) out_state[i] = rng.mt[i];
-    out_state[624] = (uint32_t)rng.mti;
+    for (int i = 0; i < 624; ++i) state625[i] = rng.mt[i];
+    state625[624] = (uint32_t)rng.mti;
     return draws;
 }
 

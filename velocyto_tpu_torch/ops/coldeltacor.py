@@ -213,6 +213,64 @@ def _col_delta_cor_partial_plain(e_full: torch.Tensor, e_ctr: torch.Tensor,
     return out
 
 
+def chunk_order(order: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """The center order of the rows [lo, hi) taken from ``order``, a
+    permutation of range(N): those rows in the order ``order`` lists
+    them, minus lo, so a permutation of range(hi - lo).  Computed from
+    the ranks (an argsort of the rows' positions in ``order``), with no
+    host synchronisation."""
+    rank = torch.empty_like(order)
+    rank[order.to(torch.int64)] = torch.arange(
+        order.shape[0], dtype=order.dtype, device=order.device)
+    return torch.argsort(rank[lo:hi]).to(torch.int32)
+
+
+def make_partial_compact_chunked(emat: torch.Tensor,
+                                 transform: str = "linear", psc: float = 0.0):
+    """Row-chunked sampled colDeltaCor, to run behind the neighbour
+    sampler: the correlations of center rows [lo, hi) depend only on that
+    chunk's sampled neighbours, so each chunk runs as soon as the sampler
+    hands it over (estimate_transition_prob).  Port of the JAX package's
+    ``velocyto_tpu/ops/coldeltacor.py::make_partial_compact_chunked``.
+
+    emat: (genes, cells).  Returns (prep_d, run): ``prep_d(dmat)`` turns a
+    (genes, cells) displacement matrix into the (cells, genes) f32 rows
+    the kernel reads, once per call; ``run(d_rows, lo, hi, ixs_chunk,
+    d_rows_random=None, order=None)`` gives the compact (hi - lo, nn)
+    correlations of rows [lo, hi) (the pair for d_rows and d_rows_random
+    with the second).  ``order``: an optional permutation of
+    range(hi - lo), the chunk's own center order (``chunk_order``);
+    anything else raises ValueError.  A CUDA tensor makes one launch of
+    the hand kernel per chunk, both fields in it; a CPU tensor runs the
+    plain version on the same rows.  Concatenated row-wise, the chunks
+    equal one run over all rows bitwise (the rows are independent, and
+    the order changes no output)."""
+    tcode = _TRANSFORMS[transform]
+    e_rows = emat.to(torch.float32).T.contiguous()
+
+    def prep_d(dmat: torch.Tensor) -> torch.Tensor:
+        return dmat.to(torch.float32).T.contiguous()
+
+    def run(d_rows: torch.Tensor, lo: int, hi: int, ixs_chunk: torch.Tensor,
+            d_rows_random: Optional[torch.Tensor] = None,
+            order: Optional[torch.Tensor] = None):
+        if order is not None:
+            _check_permutation(order, hi - lo)
+        ds = [d[lo:hi] for d in (d_rows, d_rows_random) if d is not None]
+        if e_rows.is_cuda:
+            return kernels.coldeltacor_partial(
+                e_rows, e_rows[lo:hi], ds[0], ixs_chunk.contiguous(), tcode,
+                psc, *ds[1:],
+                order=None if order is None else order.to(torch.int32))
+        if e_rows.device.type == "cpu":
+            outs = tuple(_col_delta_cor_partial_plain(
+                e_rows, e_rows[lo:hi], d, ixs_chunk, tcode, psc) for d in ds)
+            return outs[0] if d_rows_random is None else outs
+        raise ValueError(f"unsupported device {e_rows.device}")
+
+    return prep_d, run
+
+
 def col_delta_cor_partial_compact(
         emat: torch.Tensor, dmat: torch.Tensor, ixs: torch.Tensor,
         transform: str = "linear", psc: float = 0.0,
@@ -232,24 +290,12 @@ def col_delta_cor_partial_compact(
     Replaces reference colDeltaCorpartial / colDeltaCorSqrtpartial /
     colDeltaCorLog10partial (velocyto/estimation.py:36-62, 144-170).  A
     CUDA tensor goes through the hand-written kernel, a CPU tensor
-    through the plain version."""
-    tcode = _TRANSFORMS[transform]
-    if order is not None:
-        _check_permutation(order, ixs.shape[0])
-    e_rows = emat.to(torch.float32).T.contiguous()
-    d_rows = [d.to(torch.float32).T.contiguous()
-              for d in (dmat, dmat_random) if d is not None]
-    if emat.is_cuda:
-        return kernels.coldeltacor_partial(
-            e_rows, e_rows, d_rows[0], ixs.contiguous(), tcode, psc,
-            *d_rows[1:],
-            order=None if order is None else order.to(torch.int32))
-    if emat.device.type == "cpu":
-        outs = tuple(_col_delta_cor_partial_plain(e_rows, e_rows, d, ixs,
-                                                  tcode, psc)
-                     for d in d_rows)
-        return outs[0] if dmat_random is None else outs
-    raise ValueError(f"unsupported device {emat.device}")
+    through the plain version: one chunk of
+    ``make_partial_compact_chunked`` over all rows."""
+    prep_d, run = make_partial_compact_chunked(emat, transform, psc)
+    return run(prep_d(dmat), 0, emat.shape[1], ixs,
+               None if dmat_random is None else prep_d(dmat_random),
+               order=order)
 
 
 def col_delta_cor_partial(emat: torch.Tensor, dmat: torch.Tensor,
