@@ -70,6 +70,25 @@ without its copies are timed, and a probe of the node-to-node chain
 alone gives the latency floor.  Every path that balances shows one walk
 and one decode.
 
+Each of the two pipelines runs again with a mesh (parallel.make_mesh):
+two shards on the card, each on its own stream (one shard a card where
+there are several), through the same entry points (run_once(...,
+mesh=)).  The mesh run must equal the mesh=None run on the same inputs
+bitwise: the kNN graph, the transition probabilities, delta_embedding
+and its control; in the default mode the sampled neighbours, both
+compact correlations, sampling_ixs and numpy's state after the call (one
+dual sampled launch a shard); in full mode both dense corrcoefs (one
+dual center-range launch of the dense kernel a shard).  After the tutorial
+session, the sharded velocity_step (genes split, one all-to-all, one
+sampled launch a shard) runs on the session's state against the
+unsharded step; at the end, the dense kernel's center ranges are held
+bitwise to the whole launch, the forced ring at 20,000 cells (P x P flat
+launches) against one sampled launch, the flat kernel against its plain
+twin on every table of that ring, and bench_scaling runs the sharded and
+ring calls at 1, 2 and 4 shards.  The counting phase also runs
+count_distributed (4 feeders, merged over the mesh), bitwise the serial
+count.
+
 Before the paths, the counting pipeline runs on the host (no kernel):
 native/bam.cpp is built from the checkout and asserted loaded, the
 tracked counting fixture is held bitwise to counting_golden.npz for
@@ -698,7 +717,8 @@ def _stager(stages, smi):
 
 
 _COUNTS = {"dense": "dense_launches", "partial": "partial_launches",
-           "fma": "fma_launches", "svr": "svr_launches",
+           "flat": "flat_launches", "fma": "fma_launches",
+           "svr": "svr_launches",
            "tsne": "tsne_launches", "balance": "balance_launches",
            "balance_decode": "balance_decode_launches"}
 
@@ -837,8 +857,8 @@ def pipeline_phase(knn_random, smi, sampler=None):
     if knn_random:
         # one dual launch (main field and randomized control) per chunk
         chunks = analysis.SAMPLER_CHUNKS
-        assert launches == {"dense": 0, "partial": chunks, "fma": 0,
-                            "svr": 0, "tsne": 0, "balance": 1,
+        assert launches == {"dense": 0, "flat": 0, "partial": chunks,
+                            "fma": 0, "svr": 0, "tsne": 0, "balance": 1,
                             "balance_decode": 1} and \
             transition["partial"] == chunks, launches
         _check_sampled_state(v)
@@ -848,8 +868,8 @@ def pipeline_phase(knn_random, smi, sampler=None):
         sampled_times["split"] = transition["split"]
     else:
         # the dual form: main field and randomized control in one launch
-        assert launches == {"dense": 1, "partial": 0, "fma": 0, "svr": 0,
-                            "tsne": 0, "balance": 1,
+        assert launches == {"dense": 1, "flat": 0, "partial": 0, "fma": 0,
+                            "svr": 0, "tsne": 0, "balance": 1,
                             "balance_decode": 1} and \
             transition["dense"] == 1, launches
         corr = v._get_dev("corrcoef")           # diagonal already set to 0
@@ -1166,7 +1186,7 @@ def tutorial_phase(smi):
           f"each filter {counts}; kernel launches {session_launches}",
           flush=True)
     _check_session(v, counts, gamma_true, stages, smi)
-    step_ms = velocity_step_phase(v, smi)
+    step_ms, step_args, step_out = velocity_step_phase(v, smi)
     shims = shims_phase(v, smi)
     total = time.perf_counter() - t_all
     launches = _launches()
@@ -1178,13 +1198,14 @@ def tutorial_phase(smi):
     # balance, the check chain's (its transition call: one per chunk) and
     # velocity_step's, and one launch of each shim
     chunks = _sampler_chunks()
-    assert session_launches == {"dense": 0, "partial": chunks, "fma": 0,
-                                "svr": 0, "tsne": 0, "balance": 1,
+    assert session_launches == {"dense": 0, "flat": 0, "partial": chunks,
+                                "fma": 0, "svr": 0, "tsne": 0, "balance": 1,
                                 "balance_decode": 1}, session_launches
-    assert launches == {"dense": 3, "partial": 2 * chunks + 4, "fma": 0,
-                        "svr": 0, "tsne": 0, "balance": 2,
+    assert launches == {"dense": 3, "flat": 0, "partial": 2 * chunks + 4,
+                        "fma": 0, "svr": 0, "tsne": 0, "balance": 2,
                         "balance_decode": 2}, launches
-    return stages, session_total, launches, peak, shims, step_ms
+    return stages, session_total, launches, peak, shims, step_ms, \
+        (step_args, step_out)
 
 
 def _check_session(v, counts, gamma_true, stages, smi):
@@ -1226,13 +1247,20 @@ def _check_session(v, counts, gamma_true, stages, smi):
           flush=True)
 
 
+# velocity_step's (rtol, atol) against the step-by-step chain on the
+# tutorial session's state, and the sharded step's against velocity_step
+STEP_TOL = {"gammas": (2e-3, 2e-3), "q": (5e-3, 5e-3),
+            "velocity": (2e-3, 2e-2), "corr": (1e-3, 2e-3),
+            "transition_prob": (2e-3, 2e-4), "delta_embedding": (2e-3, 2e-4)}
+
+
 def velocity_step_phase(v, smi):
     """The fused velocity_step on the session's state (its S_sz / U_sz,
     kNN graph, embedding), against the step-by-step chain re-run from
     the same state with the step's settings (the smoothing of those
     S_sz / U_sz, maxmin weights with offset, no randomized control, no
     expression scaling) at tests/test_velocity_model.py's tolerances;
-    returns its ms."""
+    returns its ms, its inputs and its outputs."""
     from velocyto_tpu_torch.analysis import _compact_softmax
     from velocyto_tpu_torch.models import velocity_step
     from velocyto_tpu_torch.ops import knn_device as kd
@@ -1262,11 +1290,8 @@ def velocity_step_phase(v, smi):
              "corr": v._corr_dev,
              "transition_prob": _compact_softmax(v._corr_dev, 0.05),
              "delta_embedding": v.delta_embedding}
-    tol = {"gammas": (2e-3, 2e-3), "q": (5e-3, 5e-3),
-           "velocity": (2e-3, 2e-2), "corr": (1e-3, 2e-3),
-           "transition_prob": (2e-3, 2e-4), "delta_embedding": (2e-3, 2e-4)}
     errs, bad = {}, {}
-    for name, (rtol, atol) in tol.items():
+    for name, (rtol, atol) in STEP_TOL.items():
         got = getattr(out, name)
         want = torch.as_tensor(np.asarray(chain[name]) if isinstance(
             chain[name], np.ndarray) else chain[name], dtype=f32,
@@ -1281,7 +1306,7 @@ def velocity_step_phase(v, smi):
           f"{args[5].shape[1]}: {ms!r} ms (median of 3 warm calls; first "
           f"call {first_ms!r} ms) on {smi} (CUDA events); max abs err "
           f"against the chain {errs}", flush=True)
-    return ms
+    return ms, args, out
 
 
 def shims_phase(v, smi):
@@ -1877,8 +1902,8 @@ def bench_pipeline_phase(smi):
           f"{result['n_clean']} clean of {BENCH_PIPE_REPS - 1} measured); "
           f"launches per run {per_run}", flush=True)
     assert len(per_run) == BENCH_PIPE_REPS and all(
-        r == {"dense": 0, "partial": _sampler_chunks(), "fma": 0, "svr": 0,
-              "tsne": 0, "balance": 1, "balance_decode": 1}
+        r == {"dense": 0, "flat": 0, "partial": _sampler_chunks(), "fma": 0,
+              "svr": 0, "tsne": 0, "balance": 1, "balance_decode": 1}
         for r in per_run), per_run
     assert list(result["stages"]) == PIPELINE_STAGES, list(result["stages"])
     assert all(list(r["stages"]) == PIPELINE_STAGES for r in result["runs"])
@@ -2325,7 +2350,7 @@ def _same_counts(a, b, what, same_dtype=True):
         assert not same_dtype or la[k].dtype == lb[k].dtype, (what, k)
 
 
-def counting_phase(smi):
+def counting_phase(smi, mesh):
     """The counting pipeline on the host: builds native/bam.cpp from the
     checkout (asserted loaded, no fallback), holds the tracked fixture's
     counts for every logic with and without the mask, the chr UMI
@@ -2333,8 +2358,9 @@ def counting_phase(smi):
     writes bench_counting's fixture (COUNT_READS reads, COUNT_CELLS
     cells, COUNT_GENES genes) with the port's bamio, cell-sorts it with
     the native sorter and counts it with the SoA engine on the native
-    reader, held bitwise against object mode on the pure-Python reader
-    and against pcount on COUNT_PROCESSES workers.  No kernel runs."""
+    reader, held bitwise against object mode on the pure-Python reader,
+    against pcount on COUNT_PROCESSES workers and against
+    count_distributed (feeders merged over the mesh).  No kernel runs."""
     from velocyto_tpu_torch import bench_counting, kernels, native
     from velocyto_tpu_torch.counting import ExInCounter, LOGICS
     phase("counting (host): native BAM engine, goldens, bench fixture")
@@ -2397,6 +2423,8 @@ def counting_phase(smi):
         _same_counts((layers, cells),
                      ({k: np.concatenate(v, axis=1) for k, v in d.items()},
                       o_cells), "object mode")
+        distributed_s = count_distributed_check(mesh, gtf, bam, cs, bcs,
+                                                layers, cells)
     launches = _launches()
     assert not any(launches.values()), f"counting launched {launches}"
     rps = COUNT_READS / (markup_s + count_s)
@@ -2407,11 +2435,355 @@ def counting_phase(smi):
               "build": "built" if fresh else "cached",
               "fixture_s": fixture_s, "object_mode_s": object_s,
               "pcount_processes": COUNT_PROCESSES, "pcount_s": pcount_s,
-              "pcount_count_s": p_count_s, "card": smi,
+              "pcount_count_s": p_count_s,
+              "count_distributed_s": distributed_s, "card": smi,
               "host_cpu": bench_counting.host_cpu(),
               "host_cores": os.cpu_count()}
     print("# counting " + json.dumps(result), flush=True)
     return result
+
+
+MESH_SHARDS = 2          # shards of the mesh phases on one card
+RING_RTOL, RING_ATOL = 1e-4, 1e-5   # the ring's floor (test_golden_mesh.py)
+
+
+def _mesh():
+    """The mesh of the mesh phases: MESH_SHARDS shards on cuda:0, each on
+    its own stream, or one shard a card where there is more than one."""
+    from velocyto_tpu_torch.parallel import make_mesh
+    cards = torch.cuda.device_count()
+    devices = ([torch.device("cuda", i) for i in range(cards)] if cards > 1
+               else [torch.device("cuda", 0)] * MESH_SHARDS)
+    return make_mesh(devices=devices)
+
+
+def _shards(mesh):
+    return mesh.shape["cells"]
+
+
+def _f64_same(a, b):
+    """Two float64 numpy arrays with the same bit patterns."""
+    return a.shape == b.shape and np.array_equal(a.view(np.uint64),
+                                                 b.view(np.uint64))
+
+
+def mesh_pipeline_phase(mesh, v1, knn_random, smi, sampler=None):
+    """bench_pipeline.run_once with mesh= on the raw counts of v1 (the
+    mesh=None run of pipeline_phase), the launch counts set to 0 just
+    before and read just after: one dual sampled launch a shard in the
+    default transition call, one dual center-range dense launch a shard
+    in full mode, one balance walk and decode.  Held bitwise to v1: the
+    kNN graph, the transition probabilities, delta_embedding and its
+    control; in the default mode the embedding kNN's sampled neighbours,
+    both compact correlations, sampling_ixs and numpy's state after the
+    call (the numpy loop's, sampler_phase); in full mode both dense
+    corrcoefs.  Returns (seconds, stage seconds, launch counts)."""
+    from velocyto_tpu_torch import analysis, bench_pipeline, kernels
+    p = _shards(mesh)
+    mode = "default mode (knn_random=True)" if knn_random else \
+        "full mode (knn_random=False)"
+    phase(f"pipeline with a mesh of {p} shards, {mode}, {CELLS} cells x "
+          f"{GENES} genes")
+    print("# mesh: " + "; ".join(mesh.describe().splitlines())
+          + f" ({torch.cuda.device_count()} card(s): {smi})", flush=True)
+    estimate = analysis.VelocytoLoom.estimate_transition_prob
+    after = {}
+
+    def _transition(self, *args, **kw):
+        estimate(self, *args, **kw)
+        after["rng_state"] = np.random.get_state()
+
+    np.random.seed(1)               # the call must set numpy's state itself
+    kernels.reset_counts()          # count this path's launches only
+    analysis.VelocytoLoom.estimate_transition_prob = _transition
+    try:
+        total, stages, vm = bench_pipeline.run_once(v1.S, v1.U, DEVICE,
+                                                    knn_random, mesh=mesh)
+    finally:
+        analysis.VelocytoLoom.estimate_transition_prob = estimate
+    launches = _launches()
+    print(f"# mesh pipeline total: {total:.3f} s on {smi}; kernel launches "
+          f"{launches}", flush=True)
+    phase(f"checks, mesh {mode}")
+    want = {"dense": 0 if knn_random else p, "flat": 0,
+            "partial": p if knn_random else 0, "fma": 0, "svr": 0,
+            "tsne": 0, "balance": 1, "balance_decode": 1}
+    assert launches == want, (launches, want)
+    g1, gm = v1._knn_graph_dev, vm._knn_graph_dev
+    checks = {"knn graph": bool(torch.equal(g1.idx, gm.idx))
+              and _bits64(g1.dist, gm.dist)}
+    if knn_random:
+        checks["sampled neighbours"] = bool(torch.equal(
+            v1._compact_ixs_dev, vm._compact_ixs_dev))
+        checks["corr"] = _bitwise(v1._corr_dev, vm._corr_dev)
+        checks["corr_random"] = _bitwise(v1._corr_rndm_dev,
+                                         vm._corr_rndm_dev)
+        checks["sampling_ixs"] = np.array_equal(vm.sampling_ixs,
+                                                v1.sampling_ixs) and \
+            np.array_equal(vm.sampling_ixs, sampler["rows"])
+        checks["numpy state"] = _same_state(after["rng_state"],
+                                            sampler["state"])
+        tp1 = v1._transition_prob_dev()
+        checks["transition_prob"] = _bits64(tp1, vm._transition_prob_dev())
+        del tp1
+        torch.cuda.empty_cache()
+    else:
+        for name in ("corrcoef", "corrcoef_random"):
+            checks[name] = _bitwise(v1._get_dev(name), vm._get_dev(name))
+        checks["transition_prob"] = _bitwise(
+            v1._get_dev("transition_prob"), vm._get_dev("transition_prob"))
+    for name in ("delta_embedding", "delta_embedding_random"):
+        checks[name] = _f64_same(getattr(v1, name), getattr(vm, name))
+    print(f"# mesh {mode} against mesh=None on the same inputs, bitwise: "
+          f"{checks}", flush=True)
+    assert all(checks.values()), checks
+    del vm
+    torch.cuda.empty_cache()
+    return total, stages, launches
+
+
+def mesh_kernels_phase(mesh, smi):
+    """The kernels the mesh paths add, at the operating point:
+
+      - K1's center range: each shard's range of one dual launch bitwise
+        the same rows of the whole dual launch, and an unaligned range
+        (the 4-byte copy route) too; the first shard's range timed;
+      - the forced ring at 20,000 cells (uniform indices, nn = 1750, both
+        fields) through col_delta_cor_partial_sharded_dev with
+        _REPLICATION_BYTES at 1, the launch counts set to 0 just before
+        and read just after (P x P flat launches, nothing else), against
+        one sampled launch on the same indices: bitwise, or within
+        RING_RTOL / RING_ATOL; the replicated sharded call (P sampled
+        launches) bitwise against the same launch;
+      - the flat kernel against its plain twin (RTOL / ATOL) on every
+        table of that ring's plan, each launch timed, and the plain twin
+        timed on the same tables;
+      - bench_scaling (the sharded and ring calls at 1, 2 and 4 shards).
+
+    Returns the flat kernel's and K1's numbers."""
+    from velocyto_tpu_torch import bench_scaling, kernels
+    from velocyto_tpu_torch.ops import coldeltacor as cdc
+    from velocyto_tpu_torch.parallel.mesh import bounds
+    p = _shards(mesh)
+    phase(f"mesh kernels: dense center range, flat block table, ring, "
+          f"{p} shards")
+    t_phase = time.perf_counter()
+
+    def _ranges():
+        rng = np.random.RandomState(3)
+        e = torch.tensor(rng.rand(GENES, CELLS) * 10, dtype=torch.float32,
+                         device=DEVICE)
+        d = torch.tensor(rng.randn(GENES, CELLS), dtype=torch.float32,
+                         device=DEVICE)
+        d2 = torch.tensor(rng.randn(GENES, CELLS), dtype=torch.float32,
+                          device=DEVICE)
+        whole = kernels.coldeltacor_dense(e, d, 1, 1e-10, dmat2=d2)
+        same = {}
+        for lo, hi in bounds(CELLS, p) + [(37, min(CELLS, 1037))]:
+            part = kernels.coldeltacor_dense(e, d, 1, 1e-10, dmat2=d2,
+                                             c0=lo, m=hi - lo)
+            same[f"[{lo}, {hi})"] = _bitwise(part[0], whole[0][lo:hi]) and \
+                _bitwise(part[1], whole[1][lo:hi])
+        lo, hi = bounds(CELLS, p)[0]
+        ms = statistics.median(_time_ms(lambda: kernels.coldeltacor_dense(
+            e, d, 1, 1e-10, dmat2=d2, c0=lo, m=hi - lo))[0]
+            for _ in range(3))
+        whole_ms = statistics.median(_time_ms(
+            lambda: kernels.coldeltacor_dense(e, d, 1, 1e-10, dmat2=d2))[0]
+            for _ in range(3))
+        return same, ms, whole_ms, hi - lo
+
+    same, range_ms, whole_ms, rows = _uncounted(_ranges)
+    torch.cuda.empty_cache()
+    print(f"# dense center ranges of one dual launch (G={GENES}, N={CELLS},"
+          f" sqrt) against the whole launch, bitwise: {same}; the first "
+          f"shard's {rows} rows {range_ms!r} ms against the whole "
+          f"{whole_ms!r} ms (median of 3, CUDA events) on {smi}", flush=True)
+    assert all(same.values()), same
+
+    e, _e, d, d2, ixs = _sampled_case(GENES, CELLS, CELLS, NN_SAMPLED, 7,
+                                      torch.int32)
+    ref = _uncounted(lambda: kernels.coldeltacor_partial(
+        e, e, d, ixs, 1, 1e-10, d_ctr2=d2))
+    torch.cuda.synchronize()
+    saved = cdc._REPLICATION_BYTES
+    kernels.reset_counts()          # the forced ring's launches only
+    cdc._REPLICATION_BYTES = 1
+    try:
+        # one call, timed whole: its host plan (_ring_plan) takes seconds
+        ring_ms, ring = _time_ms(lambda: cdc.col_delta_cor_partial_sharded_dev(
+            mesh, e.T, d.T, ixs, "sqrt", 1e-10, dmat_random=d2.T))
+        ring_launches = _launches()
+    finally:
+        cdc._REPLICATION_BYTES = saved
+    assert ring_launches == {"dense": 0, "flat": p * p, "partial": 0,
+                             "fma": 0, "svr": 0, "tsne": 0, "balance": 0,
+                             "balance_decode": 0}, ring_launches
+    ring_bitwise = _bitwise(ring[0], ref[0]) and _bitwise(ring[1], ref[1])
+    (err, ok), (err2, ok2) = (_ring_err(ring[k], ref[k]) for k in (0, 1))
+    sharded_ms, sharded = _uncounted(lambda: _time_ms(
+        lambda: cdc.col_delta_cor_partial_sharded_dev(
+            mesh, e.T, d.T, ixs, "sqrt", 1e-10, dmat_random=d2.T)))
+    sharded_bitwise = _bitwise(sharded[0], ref[0]) and \
+        _bitwise(sharded[1], ref[1])
+    one_ms = _uncounted(lambda: statistics.median(_time_ms(
+        lambda: kernels.coldeltacor_partial(e, e, d, ixs, 1, 1e-10,
+                                            d_ctr2=d2))[0]
+        for _ in range(3)))
+    print(f"# forced ring, {p} shards, N={CELLS} nn={NN_SAMPLED} both "
+          f"fields: {ring_launches['flat']} flat launches; against one "
+          f"sampled launch bitwise={ring_bitwise}, max_abs_err="
+          f"{max(err, err2)!r} within rtol {RING_RTOL} / atol {RING_ATOL}: "
+          f"{ok and ok2}; ring call {ring_ms!r} ms (host plan included), "
+          f"replicated sharded call "
+          f"({p} launches, bitwise={sharded_bitwise}) {sharded_ms!r} ms, one "
+          f"launch {one_ms!r} ms (CUDA events) on {smi}", flush=True)
+    assert ok and ok2, "the ring disagrees with the sampled kernel"
+    assert sharded_bitwise, "the sharded call differs from one launch"
+    del ring, ref, sharded
+    torch.cuda.empty_cache()
+
+    flat = _uncounted(lambda: _flat_against_plain(e, d, d2, ixs, p, smi))
+    del e, _e, d, d2, ixs
+    torch.cuda.empty_cache()
+
+    phase("bench_scaling (python3 -m velocyto_tpu_torch.bench_scaling)")
+    scaling = _uncounted(bench_scaling.main)
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"# mesh kernels phase: {phase_s:.1f} s on {smi}", flush=True)
+    return {**flat, "center_range_ms": range_ms, "whole_dense_ms": whole_ms,
+            "ring_call_ms": ring_ms, "ring_bitwise": ring_bitwise,
+            "ring_max_abs_err": max(err, err2),
+            "sharded_call_ms": sharded_ms, "one_launch_ms": one_ms,
+            "ring_launches": ring_launches["flat"],
+            "scaling": {k: {f: r[f] for f in ("shards", "devices",
+                                              "sharded_ms", "ring_ms")}
+                        for k, r in scaling["points"].items()}}
+
+
+def _ring_err(got, want):
+    """max |got - want| and whether it lies within RING_RTOL / RING_ATOL
+    (NaNs in the same places)."""
+    same_nan = bool(torch.equal(torch.isnan(got), torch.isnan(want)))
+    fin = ~torch.isnan(want)
+    diff = (got[fin] - want[fin]).abs()
+    ok = same_nan and bool(torch.all(
+        diff <= RING_ATOL + RING_RTOL * want[fin].abs()))
+    return (float(diff.max()) if diff.numel() else 0.0), ok
+
+
+def _flat_against_plain(e, d, d2, ixs, p, smi):
+    """Every table of the ring plan of ixs over p shards: one dual flat
+    launch against the plain twin (twice, one field each), both timed by
+    CUDA events; returns the summed times, the largest error and the
+    bound of the launches' work (the table's entries, padding included)."""
+    from velocyto_tpu_torch import kernels
+    from velocyto_tpu_torch.ops import coldeltacor as cdc
+    n, g = e.shape
+    chunk = -(-n // p)
+    qloc, qrow, _inv, bmax = cdc._ring_plan(ixs.cpu().numpy(), p, chunk,
+                                            q=16)
+
+    def chunks(rows):
+        pad = torch.zeros((chunk * p, g), dtype=torch.float32, device=DEVICE)
+        pad[:n] = rows
+        return [pad[i * chunk:(i + 1) * chunk] for i in range(p)]
+
+    ec, dc, d2c = chunks(e), chunks(d), chunks(d2)
+    ms = plain_ms = err = 0.0
+    ok = True
+    entries = 0
+    for s in range(p):
+        for v in range(p):
+            ql = torch.as_tensor(qloc[s, v], device=DEVICE)
+            qr = torch.as_tensor(qrow[s, v], device=DEVICE)
+            t, (m1, m2) = _time_ms(lambda: kernels.coldeltacor_flat(
+                ec[v], ec[s], dc[s], ql, qr, 1, 1e-10, d_ctr2=d2c[s]))
+            ms += t
+            t, (w1, w2) = _time_ms(lambda: (
+                cdc._col_delta_cor_flat_plain(ec[v], ec[s], dc[s], ql, qr,
+                                              1, 1e-10),
+                cdc._col_delta_cor_flat_plain(ec[v], ec[s], d2c[s], ql, qr,
+                                              1, 1e-10)))
+            plain_ms += t
+            for got, want in ((m1, w1), (m2, w2)):
+                e_, ok_ = _err(got, want)
+                err, ok = max(err, e_), ok and ok_
+            entries += ql.numel()
+    steps = entries * g
+    padding = entries / (n * ixs.shape[1])
+    print(f"# flat block-table kernel, {p * p} tables of Bmax={bmax} x 16 "
+          f"(padding {padding!r} of the sampled pairs), both fields: kernel "
+          f"{ms!r} ms in all, plain twin {plain_ms!r} ms (CUDA events, one "
+          f"call each) on {smi}; max_abs_err={err!r} ok={ok}", flush=True)
+    assert ok, "the flat kernel disagrees with its plain twin"
+    _print_sfu_floor("flat", steps)
+    # 10 flop per (entry, gene) in the dual form; read once: every chunk
+    # of e (as gather source and centers), d and d2, the tables; written:
+    # two outputs
+    nbytes = (3 * chunk * p * g + entries + entries // 16) * 4 + \
+        2 * entries * 4
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "padding": padding, "tables": p * p,
+            **_bound(10 * steps, nbytes)}
+
+
+def mesh_step_phase(mesh, args, single, smi):
+    """make_sharded_velocity_step over the mesh on the tutorial session's
+    state (velocity_step_phase's inputs), the launch counts set to 0 just
+    before and read just after (one sampled launch a shard), against the
+    unsharded step at STEP_TOL, the tolerances velocity_step is held to
+    on the same state: a shard's smoothing contracts fewer genes at once,
+    so its f32 sums round differently, a gene's 2% / 98% percentile
+    weights can flip, and the velocity subtracts near-equal terms.  The
+    error relative to each output's largest magnitude is printed beside.
+    Returns (ms, counts)."""
+    from velocyto_tpu_torch import kernels
+    from velocyto_tpu_torch.models import make_sharded_velocity_step
+    p = _shards(mesh)
+    phase(f"sharded velocity_step over {p} shards, on the session's state")
+    step = make_sharded_velocity_step(mesh)
+    kernels.reset_counts()
+    ms, out = _time_ms(lambda: step(*args))
+    launches = _launches()
+    assert launches == {"dense": 0, "flat": 0, "partial": p, "fma": 0,
+                        "svr": 0, "tsne": 0, "balance": 0,
+                        "balance_decode": 0}, launches
+    errs, rel, bad = {}, {}, {}
+    for name, (rtol, atol) in STEP_TOL.items():
+        got, want = getattr(out, name), getattr(single, name)
+        assert got.shape == want.shape and \
+            bool(torch.isfinite(got).all()), name
+        diff = (got - want).abs()
+        errs[name] = float(diff.max())
+        rel[name] = errs[name] / max(float(want.abs().max()), 1e-30)
+        bad[name] = int((diff > atol + rtol * want.abs()).sum())
+    print(f"# sharded velocity_step, {p} shards: {ms!r} ms (one call, "
+          f"CUDA events) on {smi}; launches {launches}; max abs err "
+          f"against the unsharded step {errs}, over each output's largest "
+          f"magnitude {rel}", flush=True)
+    assert not any(bad.values()), f"sharded step disagrees: {bad}"
+    return ms, launches
+
+
+def count_distributed_check(mesh, gtf, bam, cs, bcs, layers, cells):
+    """parallel.count_distributed on bench_counting's fixture, 4 feeders
+    in this process over barcode ranges (the .vtx ranged decode), merged
+    over the mesh on the card: bitwise the serial count, values and
+    column order; returns its seconds."""
+    from velocyto_tpu_torch.parallel import count_distributed
+    t0 = time.perf_counter()
+    d_layers, d_cells = count_distributed(
+        [cs], gtf, valid_bcs=sorted(bcs), logic_name="Permissive10X",
+        markup_bamfiles=[bam], n_feeders=4, mesh=mesh, in_process=True)
+    secs = time.perf_counter() - t0
+    _same_counts((layers, cells), (d_layers, d_cells),
+                 "count_distributed (4 feeders, mesh merge)",
+                 same_dtype=False)
+    print(f"# count_distributed: 4 feeders, merged over the mesh, bitwise "
+          f"the serial count ({secs:.3f} s host)", flush=True)
+    return secs
 
 
 def main():
@@ -2421,7 +2793,8 @@ def main():
     sampled = sampled_phase(smi)
     cross_check_phase()
     sampler = sampler_phase()
-    counting = counting_phase(smi)
+    mesh = _mesh()
+    counting = counting_phase(smi, mesh)
     fma = fma_phase(smi)
     svr = svr_phase(smi)
     torch.cuda.empty_cache()
@@ -2429,10 +2802,14 @@ def main():
     torch.cuda.empty_cache()
     stages_full, total_full, launches_full, peak_full, _, v = \
         pipeline_phase(knn_random=False, smi=smi)
+    mesh_full_s, _stages, launches_mesh_full = mesh_pipeline_phase(
+        mesh, v, False, smi)
     del v
     torch.cuda.empty_cache()
     stages_samp, total_samp, launches_samp, peak_samp, sampled_ms, v = \
         pipeline_phase(knn_random=True, smi=smi, sampler=sampler)
+    mesh_default_s, mesh_stages, launches_mesh_default = mesh_pipeline_phase(
+        mesh, v, True, smi, sampler)
     sampler_s = {k: sampler[k] for k in ("whole_s", "chunked_s", "plain_s")}
     del sampler
     checkpoint_phase(v)
@@ -2455,10 +2832,19 @@ def main():
     torch.cuda.empty_cache()
     _bench, launches_bench = bench_phase()
     torch.cuda.empty_cache()
-    stages_tut, total_tut, launches_tut, peak_tut, shims, step_ms = \
+    stages_tut, total_tut, launches_tut, peak_tut, shims, step_ms, step_io = \
         tutorial_phase(smi)
     torch.cuda.empty_cache()
+    mesh_step_ms, launches_mesh_step = mesh_step_phase(mesh, *step_io, smi)
+    del step_io
+    torch.cuda.empty_cache()
     stages_heur, total_heur, launches_heur, peak_heur = heuristic_phase(smi)
+    torch.cuda.empty_cache()
+    meshk, clocks = _with_clocks(lambda: mesh_kernels_phase(mesh, smi))
+    mesh_mhz = [min(m for m, _w in clocks), max(m for m, _w in clocks)] \
+        if clocks else None
+    print(f"# nvidia-smi over the mesh kernels phase ({len(clocks)} "
+          f"samples): SM clock {mesh_mhz} MHz ({smi})", flush=True)
     print(json.dumps({"card": smi, "pipeline_full_s": total_full,
                       "stages_full_s": stages_full,
                       "peak_full_gib": peak_full / 2**30,
@@ -2501,12 +2887,25 @@ def main():
                       "profile": profile,
                       "attribution": attr,
                       "counting": counting,
+                      "mesh": {"shards": _shards(mesh),
+                               "sm_clock_mhz": mesh_mhz,
+                               "cards": torch.cuda.device_count(),
+                               "pipeline_full_s": mesh_full_s,
+                               "pipeline_default_s": mesh_default_s,
+                               "stages_default_s": mesh_stages,
+                               "sharded_velocity_step_ms": mesh_step_ms,
+                               **{k: meshk[k] for k in (
+                                   "ring_call_ms", "ring_bitwise",
+                                   "ring_max_abs_err", "sharded_call_ms",
+                                   "one_launch_ms", "whole_dense_ms",
+                                   "scaling")}},
                       "chip_smoke_s": time.perf_counter() - _START}))
     b20, b50 = balance["20k"], balance["50k"]
     # the paths that balance, each read just after its run
     path_counts = (launches_full, launches_samp, launches_prof,
                    launches_pipe_bench, launches_knn50k, launches_attr,
-                   launches_tut, launches_heur)
+                   launches_tut, launches_heur, launches_mesh_full,
+                   launches_mesh_default)
     # launches: each kernel's count summed over the paths that run it;
     # ms / plain_ms: the kernel and its plain version on the same inputs
     # (dense: one field; sampled: the dual call on uniform indices), with
@@ -2517,17 +2916,19 @@ def main():
          "source": "velocyto_tpu_torch/kernels/coldeltacor_dense.cu",
          "replaces": "velocyto_tpu/ops/coldeltacor.py:89",
          "launches": launches_full["dense"] + launches_tut["dense"]
-         + launches_prof["dense"],
+         + launches_prof["dense"] + launches_mesh_full["dense"],
          "max_abs_err": dense["max_abs_err"], "ms": dense["ms"],
          "plain_ms": dense["plain_ms"], "bound_ms": dense["bound_ms"],
          "bound_by": dense["bound_by"], "library_ms": None,
-         "dual_ms": dense["dual_ms"]},
+         "dual_ms": dense["dual_ms"],
+         "center_range_ms": meshk["center_range_ms"]},
         {"name": "coldeltacor_partial", "route": "cuda",
          "source": "velocyto_tpu_torch/kernels/coldeltacor_partial.cu",
          "replaces": "velocyto_tpu/ops/coldeltacor.py:260",
          "launches": launches_samp["partial"] + launches_tut["partial"]
          + launches_heur["partial"] + launches_prof["partial"]
-         + launches_pipe_bench["partial"] + launches_attr["partial"],
+         + launches_pipe_bench["partial"] + launches_attr["partial"]
+         + launches_mesh_default["partial"] + launches_mesh_step["partial"],
          "max_abs_err": sampled["max_abs_err"], "ms": sampled["ms"],
          "plain_ms": sampled["plain_ms"], "bound_ms": sampled["bound_ms"],
          "bound_by": sampled["bound_by"], "library_ms": None,
@@ -2536,6 +2937,14 @@ def main():
          "path_chunks_ms": sampled_ms["chunks_ms"],
          "path_single_ms": sampled_ms["single_ms"],
          "launches_per_call": sampled_ms["launches_per_call"]},
+        {"name": "coldeltacor_flat", "route": "cuda",
+         "source": "velocyto_tpu_torch/kernels/coldeltacor_partial.cu",
+         "replaces": "velocyto_tpu/ops/coldeltacor.py:589",
+         "launches": meshk["ring_launches"],
+         "max_abs_err": meshk["max_abs_err"], "ms": meshk["ms"],
+         "plain_ms": meshk["plain_ms"], "bound_ms": meshk["bound_ms"],
+         "bound_by": meshk["bound_by"], "library_ms": None,
+         "tables": meshk["tables"], "padding": meshk["padding"]},
         {"name": "fma_probe", "route": "cuda",
          "source": "velocyto_tpu_torch/kernels/fma_probe.cu",
          "replaces": "bench.py:192",

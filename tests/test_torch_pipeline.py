@@ -412,6 +412,15 @@ v.calculate_grid_arrows(smooth=0.5, steps=(6, 6), n_neighbors=10)
 assert v.sampling_ixs.shape == (n, 10) and v._corr_dev.shape == (n, 10)
 assert np.isfinite(v.delta_embedding).all() and np.isfinite(v.flow).all()
 assert np.isfinite(v.flow_rndm).all() and v.transition_prob.shape == (n, n)
+# the mesh surface: a mesh of 2 CPU shards gives the same transition
+from velocyto_tpu_torch.parallel import make_mesh
+de = v.delta_embedding.copy()
+v.mesh = make_mesh(devices=["cpu"] * 2)
+v.estimate_transition_prob(hidim="Sx_sz", embed="ts", knn_random=True,
+                           n_neighbors=20, sampled_fraction=0.5)
+v.calculate_embedding_shift(sigma_corr=0.05, expression_scaling=True)
+assert np.allclose(v.delta_embedding, de, rtol=1e-4, atol=1e-6)
+assert "velocyto_tpu" not in sys.modules
 # counting: the tracked fixture through the native SoA engine
 import velocyto_tpu_torch.counting as cnt
 import velocyto_tpu_torch.native as nat

@@ -4,8 +4,9 @@ A port of velocyto_tpu (JAX/Pallas on TPU) to PyTorch with hand-written
 CUDA kernels for NVIDIA Hopper.  It keeps the JAX package's module names
 (analysis, estimation, diffusion, models.velocity, ops.coldeltacor,
 ops.knn, ops.knn_device, ops.gamma, ops.pca, ops.smoothing, io.loom,
-io.checkpoint, serialization, utils.profiling, and the counting half:
-counting, commands, metadata, native) and never imports jax.  Every
+io.checkpoint, serialization, utils.profiling, parallel, and the
+counting half: counting, commands, metadata, native) and never imports
+jax.  Every
 object and function of the analysis surface works on an explicit torch
 device; kernels build on first use (see ``kernels``).  Counting (BAM +
 GTF -> loom) is host code, as in the JAX package; its native BAM engine
@@ -22,7 +23,8 @@ from .diffusion import Diffusion
 from .estimation import (colDeltaCor, colDeltaCorLog10, colDeltaCorLog10partial,
                          colDeltaCorpartial, colDeltaCorSqrt,
                          colDeltaCorSqrtpartial)
-from .ops.coldeltacor import col_delta_cor, col_delta_cor_partial
+from .ops.coldeltacor import (col_delta_cor, col_delta_cor_partial,
+                              col_delta_cor_partial_sharded)
 from .ops.gamma import (clusters_stats, compute_fit_weights, fit_slope,
                         fit_slope_offset, fit_slope_weighted,
                         fit_slope_weighted_offset)
@@ -32,6 +34,8 @@ from .ops.knn import (BalancedKNN, balance_knn_loop, knn_balance,
 from .ops.knn_device import knn_search_dev
 from .ops.pca import PCA
 from .ops.smoothing import connectivity_to_weights, convolve_by_sparse_weights
+from .parallel import (CELLS, GENES, make_mesh, single_device_mesh,
+                       initialize_distributed)
 from .serialization import dump_hdf5, load_hdf5
 from .metadata import Metadata, MetadataCollection
 from . import io
@@ -46,6 +50,8 @@ __all__ = ["kernels", "VelocytoLoom", "colormap_fun", "gaussian_kernel",
            "state_from_numpy", "Diffusion", "colDeltaCor", "colDeltaCorLog10",
            "colDeltaCorLog10partial", "colDeltaCorpartial", "colDeltaCorSqrt",
            "colDeltaCorSqrtpartial", "col_delta_cor", "col_delta_cor_partial",
+           "col_delta_cor_partial_sharded", "CELLS", "GENES", "make_mesh",
+           "single_device_mesh", "initialize_distributed",
            "clusters_stats", "compute_fit_weights", "fit_slope",
            "fit_slope_offset", "fit_slope_weighted",
            "fit_slope_weighted_offset", "BalancedKNN", "balance_knn_loop",

@@ -11,7 +11,11 @@ of the reference's analysis object, velocyto/analysis.py:26-2470):
   -> prepare_markov / run_markov
 
 Every object works on one explicit torch device (``device=``; the default
-is "cuda").  The heavy (genes, cells) stage outputs, the correlation
+is "cuda"), or over a mesh of shards (``mesh=``, parallel.make_mesh): the
+kNN candidate pass, the colDeltaCor kernels and the embedding shift then
+split cells over the mesh's shards with expression replicated, and every
+stage gives the mesh-free result; the rest runs on the mesh's first
+device.  The heavy (genes, cells) stage outputs, the correlation
 state and the Markov matrix stay on that device between stages; the
 numpy (or csr) attributes the reference exposes are materialized lazily
 on first read.  Both colDeltaCor variants run through hand-written CUDA
@@ -49,8 +53,9 @@ from . import native
 from .diffusion import Diffusion
 from .io import loom as loomio
 from .ops import knn_device as kd
-from .ops.coldeltacor import (chunk_order, col_delta_cor, locality_order,
-                              make_partial_compact_chunked)
+from .ops.coldeltacor import (chunk_order, col_delta_cor,
+                              col_delta_cor_partial_sharded_dev,
+                              locality_order, make_partial_compact_chunked)
 from .ops.gamma import (clusters_stats, compute_fit_weights, fit_slope,
                         fit_slope_offset, fit_slope_weighted,
                         fit_slope_weighted_offset)
@@ -60,10 +65,20 @@ from .ops.pca import PCA
 from .ops.smoothing import (connectivity_to_weights,
                             convolve_by_sparse_weights_dev)
 from .ops.svr import SVR
+from .parallel.mesh import map_rows
 from .ops.tsne import tsne
 from .serialization import dump_hdf5, load_hdf5
 
 _F32, _F64 = torch.float32, torch.float64
+
+
+
+class _Default(str):
+    """A default argument value that an explicit equal value is told
+    apart from (by identity)."""
+
+
+_CUDA = _Default("cuda")
 
 # row chunks of the neighbour-sampling replay in the sampled path (the
 # JAX package's n_chunks); one sampled colDeltaCor launch each on a card
@@ -106,9 +121,21 @@ class VelocytoLoom:
     velocity, delta_embedding, ...).
     """
 
-    def __init__(self, loom_filepath: str, device="cuda") -> None:
+    def __init__(self, loom_filepath: str, device=_CUDA, mesh=None) -> None:
+        """device: the torch device of the object's tensors.  mesh: an
+        optional parallel.Mesh; the kNN search, the colDeltaCor kernels
+        and the embedding shift then split cells over its shards, with
+        the mesh-free results, and self.device is its first device (an
+        explicit, different device raises ValueError)."""
         self.loom_filepath = loom_filepath
+        if mesh is not None:
+            if device is not _CUDA and torch.device(device) != \
+                    mesh.first_device:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {mesh.first_device}")
+            device = mesh.first_device
         self.device = torch.device(device)
+        self.mesh = mesh
         ds = loomio.connect(self.loom_filepath)
         try:
             self.S = ds.layer["spliced"][:, :]
@@ -228,8 +255,9 @@ class VelocytoLoom:
     # serialization
     # ------------------------------------------------------------------
 
-    # runtime state, not data: the device tensors and the handles to them
-    _RUNTIME = ("device", "_corr_dev", "_corr_rndm_dev", "_dev_state",
+    # runtime state, not data: the device, the mesh, the device tensors
+    # and the handles to them
+    _RUNTIME = ("device", "mesh", "_corr_dev", "_corr_rndm_dev", "_dev_state",
                 "_dev_host_cache", "_knn_graph_dev", "_compact_ixs_dev",
                 "_sampled_split")
 
@@ -240,9 +268,9 @@ class VelocytoLoom:
         lazy dense views (corrcoef / transition_prob), the device-backed
         attributes and the kNN and sampled-neighbour views are
         materialized on the host first, so the snapshot carries the
-        reference's attribute set, then the runtime state is left out of
-        the dump.  Raises TypeError, writing nothing, if any other
-        attribute holds a torch object."""
+        reference's attribute set, then the runtime state (the mesh too)
+        is left out of the dump and stays attached.  Raises TypeError,
+        writing nothing, if any other attribute holds a torch object."""
         for name in VelocytoLoom._LAZY_DENSE:
             try:
                 getattr(self, name)
@@ -785,13 +813,15 @@ class VelocytoLoom:
             g = kd.balanced_knn_graph_dev(space, k=k, sight_k=b_sight,
                                           maxl=b_maxl, metric=metric,
                                           constraint=constraint,
-                                          device=self.device)
+                                          device=self.device,
+                                          mesh=getattr(self, "mesh", None))
         else:
             if group_constraint is not None:
                 raise ValueError("group_constraint is currently supported "
                                  "only if the argument balanced is set to True")
             g = kd.knn_graph_dev(space, k=k, metric=metric,
-                                 device=self.device)
+                                 device=self.device,
+                                 mesh=getattr(self, "mesh", None))
         for stale in ("knn", "knn_smoothing_w"):
             self.__dict__.pop(stale, None)
         self._knn_graph_dev = g
@@ -1231,7 +1261,10 @@ class VelocytoLoom:
         dual launch a chunk on a card) while later chunks are sampled.
         Every attribute is set only once the whole call has succeeded
         (reference fault R2 is not inherited: no chunk result of a failed
-        replay is kept).
+        replay is kept).  With a mesh the chunks are not consumed as they
+        arrive: once the replay has ended, one sharded call
+        (col_delta_cor_partial_sharded_dev, one dual launch per shard)
+        takes every row, as in the JAX package.
 
         The call's split on the host clock goes to self._sampled_split:
         call_s, replay_s (the replay and its chunk uploads, on its
@@ -1242,6 +1275,7 @@ class VelocytoLoom:
         waited = 0.0               # seconds this thread waits for a worker
         N = embedding.shape[0]
         dev = torch.device(self.device)
+        mesh = getattr(self, "mesh", None)
         p_samp = np.linspace(sampling_probs[0], sampling_probs[1], nn_k)
         p_samp = p_samp / p_samp.sum()
         n_samp = int(sampled_fraction * nn_k)
@@ -1297,20 +1331,22 @@ class VelocytoLoom:
                                                psc, transform)
                 d_main = d_of(self._get_dev("delta_S"))
             _dists, idx = kd.knn_search_dev(embedding, min(nn_k + 1, N),
-                                            device=dev)
+                                            device=dev, mesh=mesh)
             # the kernel takes each chunk's cells in embedding-locality
             # order, so the rows it gathers for neighbouring cells are
             # served by L2
             order = locality_order(torch.as_tensor(embedding,
                                                    device=idx.device))
-            prep_d, run = make_partial_compact_chunked(emat, tf, psc)
-            d_rows = prep_d(d_main)
-            d_rndm_rows = delta_rndm = None
+            d_rndm = delta_rndm = None
             if control is not None:
                 t = time.perf_counter()
                 delta_rndm = control.join()
                 waited += time.perf_counter() - t
-                d_rndm_rows = prep_d(d_of(delta_rndm))
+                d_rndm = d_of(delta_rndm)
+            if mesh is None:
+                prep_d, run = make_partial_compact_chunked(emat, tf, psc)
+                d_rows = prep_d(d_main)
+                d_rndm_rows = None if d_rndm is None else prep_d(d_rndm)
             neigh, outs = [], []
             while True:
                 t = time.perf_counter()
@@ -1325,12 +1361,17 @@ class VelocytoLoom:
                     samp.record_stream(stream)
                 neigh.append(_sample_neighbors_dev(idx[lo:hi], samp,
                                                    row_offset=lo))
-                outs.append(run(d_rows, lo, hi, neigh[-1], d_rndm_rows,
-                                order=chunk_order(order, lo, hi)))
+                if mesh is None:
+                    outs.append(run(d_rows, lo, hi, neigh[-1], d_rndm_rows,
+                                    order=chunk_order(order, lo, hi)))
             t = time.perf_counter()
             sampling_ixs, _draws, mt_state = sampler.join()
             waited += time.perf_counter() - t
-            if d_rndm_rows is None:
+            if mesh is not None:
+                outs.append(col_delta_cor_partial_sharded_dev(
+                    mesh, emat, d_main, torch.cat(neigh), tf, psc, d_rndm,
+                    order=order))
+            if d_rndm is None:
                 corr_m, corr_r = torch.cat(outs), None
             else:
                 corr_m = torch.cat([o[0] for o in outs])
@@ -1384,8 +1425,9 @@ class VelocytoLoom:
         N = embedding.shape[0]
         # embedding neighbors: device f32 candidate pass + f64 re-score
         # (sklearn's exact ordering and tie-breaks)
+        mesh = getattr(self, "mesh", None)
         _dists, idx = kd.knn_search_dev(embedding, min(nn_k + 1, N),
-                                        device=self.device)
+                                        device=self.device, mesh=mesh)
         rows = torch.arange(N, device=idx.device)
         is_self = idx == rows[:, None]
         first_self = torch.where(is_self.any(1),
@@ -1399,7 +1441,9 @@ class VelocytoLoom:
              np.arange(0, N * nn_k + 1, nn_k)), shape=(N, N))
 
         # the main field and the randomized control in one kernel launch
-        corr = col_delta_cor(emat, d_main, tf, psc, dmat_random=d_rndm)
+        # (one a shard with a mesh)
+        corr = col_delta_cor(emat, d_main, tf, psc, dmat_random=d_rndm,
+                             mesh=mesh)
         corr, corr_r = corr if d_rndm is not None else (corr, None)
         corr.fill_diagonal_(0.0)
         self._set_dev("corrcoef", corr)
@@ -1569,8 +1613,14 @@ class VelocytoLoom:
 
         emb = torch.as_tensor(np.asarray(self.embedding, np.float32),
                               device=self.device)
-        self.delta_embedding = _embedding_shift_blocked(
-            emb, tp, K, K_rowsum).cpu().numpy().astype(np.float64)
+        mesh = getattr(self, "mesh", None)
+
+        def _shift(P):
+            if mesh is not None:
+                return _embedding_shift_sharded(mesh, emb, P, K, K_rowsum)
+            return _embedding_shift_blocked(emb, P, K, K_rowsum)
+
+        self.delta_embedding = _shift(tp).cpu().numpy().astype(np.float64)
 
         if expression_scaling:
             hi_dim = self._get_dev(self.which_hidim, _F64)
@@ -1588,8 +1638,8 @@ class VelocytoLoom:
                 self.scaling[:, None]
 
         if have_rndm:
-            self.delta_embedding_random = _embedding_shift_blocked(
-                emb, tp_r, K, K_rowsum).cpu().numpy().astype(np.float64)
+            self.delta_embedding_random = _shift(tp_r).cpu().numpy().astype(
+                np.float64)
             if expression_scaling:
                 self.scaling_rndm = _scaling(tp_r, "delta_S_rndm")
                 self.delta_embedding_random = \
@@ -1625,12 +1675,24 @@ class VelocytoLoom:
 
         emb = torch.as_tensor(np.asarray(self.embedding, np.float32),
                               device=self.device)
-        self.delta_embedding = _embedding_shift_compact(
-            emb, ixs, p_main).cpu().numpy().astype(np.float64)
+        mesh = getattr(self, "mesh", None)
+
+        def _shift(P):
+            if mesh is not None:
+                return map_rows(mesh, _embedding_shift_compact_rows, [emb],
+                                [emb, ixs, P])
+            return _embedding_shift_compact(emb, ixs, P)
+
+        self.delta_embedding = _shift(p_main).cpu().numpy().astype(
+            np.float64)
 
         def _scaling(P, d_name):
-            num, den = _expr_scaling_compact(
-                hi_rows, self._get_dev(d_name).T.contiguous(), ixs, P)
+            d_rows = self._get_dev(d_name).T.contiguous()
+            if mesh is not None:
+                num, den = map_rows(mesh, _expr_scaling_compact, [hi_rows],
+                                    [d_rows, ixs, P])
+            else:
+                num, den = _expr_scaling_compact(hi_rows, d_rows, ixs, P)
             return np.clip((num / den).cpu().numpy() / scaling_penalty, 0, 1)
 
         if expression_scaling:
@@ -1640,8 +1702,8 @@ class VelocytoLoom:
                 self.delta_embedding * self.scaling[:, None]
 
         if have_rndm:
-            self.delta_embedding_random = _embedding_shift_compact(
-                emb, ixs, p_rndm).cpu().numpy().astype(np.float64)
+            self.delta_embedding_random = _shift(p_rndm).cpu().numpy() \
+                .astype(np.float64)
             if expression_scaling:
                 self.scaling_rndm = _scaling(p_rndm, "delta_S_rndm")
                 self.delta_embedding_random = \
@@ -2032,20 +2094,62 @@ def _embedding_shift_compact(emb: torch.Tensor, ixs: torch.Tensor,
                              P: torch.Tensor) -> torch.Tensor:
     """Compact embedding shift: per row i the kNN mask is the sampled
     candidate set, so delta_i = sum_k P_ik unit(x_{ixs_ik} - x_i) -
-    mean_k unit(x_{ixs_ik} - x_i), in O(N * nn * D).  Blocked over rows,
-    with the (B, nn, D) gather near 32 MB."""
+    mean_k unit(x_{ixs_ik} - x_i), in O(N * nn * D); row i of ixs and P
+    is cell i of emb."""
+    return _embedding_shift_compact_rows(emb, emb[:ixs.shape[0]], ixs, P)
+
+
+def _unit_sums(diff: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sum_l w[f, b, l] * unit(diff[:, b, l]) for f = 0, 1: diff (D, B, L)
+    from each row b to its L candidates, w (2, B, L) -> (2, D, B).
+
+    A row's result does not depend on the rows beside it in the call, as
+    long as B is the same: every operation is elementwise but the one
+    sum, which runs over an axis zero-padded to a multiple of 4 entries,
+    so every row's reduction has the same length and alignment."""
+    d, b, n = diff.shape
+    sq = diff[0] * diff[0]
+    for j in range(1, d):
+        sq = sq + diff[j] * diff[j]
+    nrm = torch.sqrt(sq)
+    unit = torch.where(nrm > 0, diff / torch.where(nrm == 0, 1.0, nrm), 0.0)
+    terms = diff.new_zeros((2, d, b, -(-n // 4) * 4))
+    terms[..., :n] = w[:, None] * unit[None]
+    return terms.sum(-1)
+
+
+def _row_blocks(m: int, block: int):
+    """(i0, b) of the blocks of `block` rows covering m rows; the last
+    block's b < block rows are padded to block by the callers, so every
+    block is the same shape."""
+    return [(i0, min(block, m - i0)) for i0 in range(0, m, block)]
+
+
+def _embedding_shift_compact_rows(emb: torch.Tensor, rows: torch.Tensor,
+                                  ixs: torch.Tensor, P: torch.Tensor
+                                  ) -> torch.Tensor:
+    """_embedding_shift_compact for the cells at `rows` (M, D) with
+    neighbours ixs (M, nn) in emb (N, D) and weights P (M, nn): the part
+    of the rows one shard of a mesh holds.  Rows go in zero-filled blocks
+    of a fixed size through _unit_sums, so each output row is the same
+    whatever rows share the call; the (2, D, B, nn) terms stay near
+    32 MB."""
     m, k = ixs.shape
     d = emb.shape[1]
-    block = max(1, (1 << 23) // (k * d))
+    block = max(1, (1 << 22) // (-(-k // 4) * 4 * d))
+    emb_t = emb.to(_F32).T.contiguous()                       # (D, N)
+    rows_t = rows.to(_F32).T                                  # (D, M)
     out = torch.empty((m, d), dtype=_F32, device=emb.device)
-    with full_f32():
-        for i0 in range(0, m, block):
-            diff = emb[ixs[i0:i0 + block]] - emb[i0:i0 + block, None, :]
-            nrm = torch.linalg.norm(diff, dim=-1, keepdim=True)
-            unit = torch.where(nrm > 0,
-                               diff / torch.where(nrm == 0, 1.0, nrm), 0.0)
-            out[i0:i0 + block] = torch.einsum(
-                "bk,bkd->bd", P[i0:i0 + block], unit) - unit.mean(dim=1)
+    for i0, b in _row_blocks(m, block):
+        ix = torch.zeros((block, k), dtype=torch.int64, device=emb.device)
+        ix[:b] = ixs[i0:i0 + b]
+        ctr = torch.zeros((d, block, 1), dtype=_F32, device=emb.device)
+        ctr[:, :b, 0] = rows_t[:, i0:i0 + b]
+        w = torch.zeros((2, block, k), dtype=_F32, device=emb.device)
+        w[0, :b] = P[i0:i0 + b]
+        w[1] = 1.0
+        sums = _unit_sums(emb_t[:, ix] - ctr, w)              # (2, D, B)
+        out[i0:i0 + b] = (sums[0] - sums[1] / k).T[:b]
     return out
 
 
@@ -2095,27 +2199,44 @@ def _dense_from_csr(m, device) -> torch.Tensor:
 
 
 def _embedding_shift_blocked(emb: torch.Tensor, P: torch.Tensor,
-                             K: torch.Tensor, K_rowsum: torch.Tensor
+                             K: torch.Tensor, K_rowsum: torch.Tensor,
+                             rows: Optional[torch.Tensor] = None
                              ) -> torch.Tensor:
     """delta_i = sum_j P_ij unit(x_j - x_i) - sum_j K_ij unit(..) / sum_j K_ij
 
-    emb: (N, D); P/K: (N, N).  Blocked over i, so the reference's dense
-    (D, N, N) unitary-vector tensor (analysis.py:1704-1712) never
-    exists."""
-    n, d = emb.shape
-    block = 128
-    out = torch.empty((n, d), dtype=_F32, device=emb.device)
-    with full_f32():
-        for i0 in range(0, n, block):
-            diff = emb[None, :, :] - emb[i0:i0 + block, None, :]  # (B, N, D)
-            nrm = torch.linalg.norm(diff, dim=-1, keepdim=True)
-            unit = torch.where(nrm > 0,
-                               diff / torch.where(nrm == 0, 1.0, nrm), 0.0)
-            de = torch.einsum("bn,bnd->bd", P[i0:i0 + block], unit)
-            out[i0:i0 + block] = de - torch.einsum(
-                "bn,bnd->bd", K[i0:i0 + block], unit) / \
-                K_rowsum[i0:i0 + block, None]
+    emb: (N, D); P/K: (M, N) rows of the cells at `rows` (M, D) (default:
+    all of emb).  Blocked over i, so the reference's dense (D, N, N)
+    unitary-vector tensor (analysis.py:1704-1712) never exists; the blocks
+    have a fixed size (zero-filled) and go through _unit_sums, so each
+    row is the same whatever rows share the call (a mesh's shards)."""
+    rows = emb if rows is None else rows
+    m, d = rows.shape
+    n = emb.shape[0]
+    block = max(1, (1 << 22) // (-(-n // 4) * 4 * d))
+    emb_t = emb.to(_F32).T.contiguous()                       # (D, N)
+    rows_t = rows.to(_F32).T                                  # (D, M)
+    out = torch.empty((m, d), dtype=_F32, device=emb.device)
+    for i0, b in _row_blocks(m, block):
+        ctr = torch.zeros((d, block, 1), dtype=_F32, device=emb.device)
+        ctr[:, :b, 0] = rows_t[:, i0:i0 + b]
+        w = torch.zeros((2, block, n), dtype=_F32, device=emb.device)
+        w[0, :b] = P[i0:i0 + b]
+        w[1, :b] = K[i0:i0 + b]
+        sums = _unit_sums(emb_t[:, None, :] - ctr, w)         # (2, D, B)
+        out[i0:i0 + b] = (sums[0, :, :b] - sums[1, :, :b] /
+                          K_rowsum[None, i0:i0 + b]).T
     return out
+
+
+def _embedding_shift_sharded(mesh, emb: torch.Tensor, P: torch.Tensor,
+                             K: torch.Tensor, K_rowsum: torch.Tensor
+                             ) -> torch.Tensor:
+    """The dense embedding shift with its center rows split over the
+    mesh's cells shards, embedding replicated (port of the JAX package's
+    _embedding_shift_sharded)."""
+    def rows_fn(e, rows, p, k, ks):
+        return _embedding_shift_blocked(e, p, k, ks, rows)
+    return map_rows(mesh, rows_fn, [emb], [emb, P, K, K_rowsum])
 
 
 def knn_query(data: np.ndarray, query: np.ndarray, k: int, device):

@@ -69,14 +69,19 @@ def synth(rng, n, g):
     return S, U
 
 
-def run_once(S, U, device="cuda", knn_random=True):
+def run_once(S, U, device="cuda", knn_random=True, mesh=None):
     """One pass of the pipeline on `device` through the VelocytoLoom entry
     points.  Returns (total seconds, {stage: seconds}, the VelocytoLoom).
-    knn_random=False runs the transition stage in full mode."""
+    knn_random=False runs the transition stage in full mode.  mesh: a
+    parallel.Mesh the loom splits its cells over (its first device then
+    stands for `device`)."""
     stages = {}
     t_all = time.perf_counter()
     v = VelocytoLoom.__new__(VelocytoLoom)
+    if mesh is not None:
+        device = mesh.first_device
     v.device = torch.device(device)
+    v.mesh = mesh
 
     def stage(name, fn):
         t0 = time.perf_counter()

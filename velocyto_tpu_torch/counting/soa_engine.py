@@ -222,9 +222,9 @@ def run_owner_pool(counter, bamfiles: List[str], multimap: bool,
     marked-up) counter -- annotation parsing and the intron-validation
     BAM pass happen exactly once, in the caller.
 
-    Used by ExInCounter.pcount (stable-hash owners, single host) and, in
-    the JAX package, by parallel.feeders.count_distributed (barcode-range
-    owners, the multi-host layout; not ported yet).  Workers are SPAWNED (fork is unsafe in a
+    Used by ExInCounter.pcount (stable-hash owners, single host) and by
+    parallel.feeders.count_distributed (barcode-range owners, the
+    multi-host layout).  Workers are SPAWNED (fork is unsafe in a
     torch-threaded parent); in_process=True runs them sequentially here
     (dryruns / tests).
     """

@@ -23,6 +23,8 @@ import numpy as np
 import torch
 import torch.distributed.checkpoint as dcp
 
+from ..parallel.mesh import place
+
 _META_KEY = "velocyto_tpu_meta"
 # numpy dtypes that go into the checkpoint as tensors (and come back as
 # the same numpy dtype); arrays of any other dtype go into the side-car
@@ -56,24 +58,36 @@ def save_state(path: str, state: Dict[str, Any], force: bool = True) -> None:
             {"meta": meta, "numpy": numpy_keys})))
 
 
-def load_state(path: str, device="cuda") -> Dict[str, Any]:
+def load_state(path: str, device="cuda",
+               shardings: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """Restore a save_state checkpoint: tensors on `device` (the card
     unless the caller asks for another), numpy arrays as numpy arrays,
     other values as they were saved.
 
+    shardings: optional {name: parallel.cells_sharding(mesh, ...) or
+    parallel.replicated(mesh)}; each such array (tensor or numpy) comes
+    back as a list of tensors, one per cells shard of the mesh on the
+    shard's device: its piece along the cell axis (their concatenation is
+    the unsharded load) or the whole array.
+
     DCP loads in place, so the tensors are allocated first from the
     shapes and dtypes in the checkpoint's metadata."""
     path = os.path.abspath(path)
+    shardings = shardings or {}
     with open(os.path.join(path, _META_KEY), "rb") as f:
         side = pickle.loads(zlib.decompress(f.read()))
     numpy_keys = set(side["numpy"])
     entries = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    host = numpy_keys | set(shardings)
     out = {key: torch.empty(md.size, dtype=md.properties.dtype,
-                            device="cpu" if key in numpy_keys else device)
+                            device="cpu" if key in host else device)
            for key, md in entries.items()}
     dcp.load(out, checkpoint_id=path, no_dist=True)
-    for key in numpy_keys:
+    for key in numpy_keys - set(shardings):
         out[key] = out[key].numpy()
+    for key, sharding in shardings.items():
+        if key in out:
+            out[key] = place(sharding, out[key])
     out.update(side["meta"])
     return out
 

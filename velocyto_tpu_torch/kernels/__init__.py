@@ -11,6 +11,7 @@ module that calls it and serves CPU tensors there:
 
   coldeltacor_dense    ops/coldeltacor.py::_col_delta_cor_dense_plain
   coldeltacor_partial  ops/coldeltacor.py::_col_delta_cor_partial_plain
+  coldeltacor_flat     ops/coldeltacor.py::_col_delta_cor_flat_plain
   fma_probe            bench.py::_fma_plain
   svr_smo              ops/svr.py::_smo_plain
   tsne_grad            ops/tsne.py::_tsne_grad_plain
@@ -18,7 +19,8 @@ module that calls it and serves CPU tensors there:
                        and its decode, together)
   balance_decode       ops/knn_device.py::_balance_decode_plain
 
-``dense_launches``, ``partial_launches``, ``fma_launches``,
+``dense_launches``, ``partial_launches``, ``flat_launches``,
+``fma_launches``,
 ``svr_launches``, ``tsne_launches``, ``balance_launches`` (the balance
 walk) and ``balance_decode_launches`` count each kernel's launches (a
 ``tsne_grad`` call, one gradient, adds two: the pair pass and the
@@ -47,6 +49,7 @@ HEADERS = sorted(_HERE.glob("*.cuh"))
 
 dense_launches = 0      # launches of the dense colDeltaCor kernel
 partial_launches = 0    # launches of the sampled colDeltaCor kernel
+flat_launches = 0       # launches of its flat block-table form (the ring)
 fma_launches = 0        # launches of the FMA-chain probe
 svr_launches = 0        # launches of the SVR solver (one per fit)
 svr_shared_launches = 0     # of them, with the state in shared memory
@@ -61,10 +64,13 @@ _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
 # name -> (source stem, exported C function, its argtypes)
 _SIGNATURES = {
     "coldeltacor_dense": ("coldeltacor_dense", "vtt_coldeltacor_dense",
-                          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+                          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                           _P]),
     "coldeltacor_partial": ("coldeltacor_partial", "vtt_coldeltacor_partial",
                             [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _F, _P]),
+    "coldeltacor_flat": ("coldeltacor_partial", "vtt_coldeltacor_flat",
+                         [_P] * 8 + [_I] * 6 + [_F, _P]),
     "fma_probe": ("fma_probe", "vtt_fma_probe",
                   [_P, _P, ctypes.c_int64, _P]),
     "svr_smo": ("svr_smo", "vtt_svr_smo",
@@ -178,12 +184,16 @@ def _launch(name: str, device: torch.device, *args) -> None:
 def coldeltacor_dense(emat: torch.Tensor, dmat: torch.Tensor,
                       transform: int, psc: float,
                       partial_semantics: bool = False,
-                      dmat2: Optional[torch.Tensor] = None
+                      dmat2: Optional[torch.Tensor] = None,
+                      c0: int = 0, m: Optional[int] = None
                       ) -> Union[torch.Tensor,
                                  Tuple[torch.Tensor, torch.Tensor]]:
     """Dense colDeltaCor on the card: (G, N) f32 CUDA tensors -> (N, N).
     With dmat2 (G, N), returns the pair of outputs for dmat and dmat2 from
-    one pass, each bitwise equal to a single call.
+    one pass, each bitwise equal to a single call.  c0, m: the center
+    range [c0, c0 + m) (default every center), an (m, N) output whose
+    rows are bitwise the same rows of the whole launch; 0 <= c0 and
+    1 <= m <= N - c0, else ValueError.
 
     transform: 0 linear, 1 sqrt, 2 log10 (ops.coldeltacor._TRANSFORMS).
     Launches on the current stream and does not synchronise."""
@@ -198,16 +208,21 @@ def coldeltacor_dense(emat: torch.Tensor, dmat: torch.Tensor,
                              f"{name} {tuple(t.shape)}")
     _check_same_device(**mats)
     g, n = emat.shape
-    if g < 1 or n < 1 or n > 65535 * _TILE_C:    # gridDim.y <= 65535
+    if g < 1 or n < 1 or n >= 2 ** 31:
         raise ValueError(f"unsupported shape {tuple(emat.shape)}")
+    m = n - c0 if m is None else m
+    if not (isinstance(c0, int) and isinstance(m, int)) or c0 < 0 or \
+            m < 1 or c0 + m > n or m > 65535 * _TILE_C:  # gridDim.y <= 65535
+        raise ValueError(f"center range c0={c0}, m={m} outside the {n} "
+                         f"centers")
     if transform not in (0, 1, 2):
         raise ValueError(f"unknown transform code {transform}")
-    out = torch.empty((n, n), dtype=torch.float32, device=emat.device)
+    out = torch.empty((m, n), dtype=torch.float32, device=emat.device)
     out2 = torch.empty_like(out) if dmat2 is not None else None
     _launch("coldeltacor_dense", emat.device, emat.data_ptr(),
             dmat.data_ptr(), None if dmat2 is None else dmat2.data_ptr(),
             out.data_ptr(), None if out2 is None else out2.data_ptr(), g, n,
-            transform, int(bool(partial_semantics)), float(psc))
+            c0, m, transform, int(bool(partial_semantics)), float(psc))
     dense_launches += 1
     return out if out2 is None else (out, out2)
 
@@ -271,6 +286,60 @@ def coldeltacor_partial(e_full: torch.Tensor, e_ctr: torch.Tensor,
             None if out2 is None else out2.data_ptr(), n, m, g, nn,
             transform, float(psc))
     partial_launches += 1
+    return out if out2 is None else (out, out2)
+
+
+def coldeltacor_flat(e_visit: torch.Tensor, e_ctr: torch.Tensor,
+                     d_ctr: torch.Tensor, qloc: torch.Tensor,
+                     qrow: torch.Tensor, transform: int, psc: float,
+                     d_ctr2: Optional[torch.Tensor] = None
+                     ) -> Union[torch.Tensor,
+                                Tuple[torch.Tensor, torch.Tensor]]:
+    """The flat block-table colDeltaCor on the card (one step of the ring
+    schedule), partial semantics: e_visit (C, G) the gather source, e_ctr
+    / d_ctr (M, G) f32 center rows, qloc (F, q) int32 rows of e_visit and
+    qrow (F,) int32 rows of e_ctr, CUDA tensors on one device -> (F, q)
+    f32, entry [f, k] the correlation of e_visit[qloc[f, k]] - e_ctr[qrow
+    [f]] with d_ctr[qrow[f]].  With d_ctr2 (M, G), the pair for d_ctr and
+    d_ctr2 from one pass, each bitwise equal to a single call.  A qloc
+    outside [0, C) or a qrow outside [0, M) gives NaN there.  Each entry
+    is bitwise the sampled kernel's for the same pair (same G, aligned
+    sources).  transform: 0 linear, 1 sqrt, 2 log10.  Launches on the
+    current stream and does not synchronise."""
+    global flat_launches
+    rows = dict(e_visit=e_visit, e_ctr=e_ctr, d_ctr=d_ctr)
+    if d_ctr2 is not None:
+        rows["d_ctr2"] = d_ctr2
+    for name, t in rows.items():
+        _check(name, t)
+    _check("qloc", qloc, (torch.int32,))
+    _check("qrow", qrow, (torch.int32,), dim=1)
+    _check_same_device(qloc=qloc, qrow=qrow, **rows)
+    c, g = e_visit.shape
+    m = e_ctr.shape[0]
+    f, q = qloc.shape
+    for name in ("e_ctr", "d_ctr", "d_ctr2"):
+        if name in rows and rows[name].shape != (m, g):
+            raise ValueError(f"{name} must be ({m}, {g}), got "
+                             f"{tuple(rows[name].shape)}")
+    if qrow.shape != (f,):
+        raise ValueError(f"qrow must be ({f},), got {tuple(qrow.shape)}")
+    n_rows = 3 if d_ctr2 is not None else 2
+    if c < 1 or m < 1 or f < 1 or q < 1 or c >= 2 ** 31 - 1 or \
+            f >= 2 ** 31 - 1 or 2 * n_rows * g * 4 > _MAX_SMEM:
+        raise ValueError(f"unsupported shape: C={c}, G={g}, M={m}, F={f}, "
+                         f"q={q}")
+    if transform not in (0, 1, 2):
+        raise ValueError(f"unknown transform code {transform}")
+    out = torch.empty((f, q), dtype=torch.float32, device=e_visit.device)
+    out2 = torch.empty_like(out) if d_ctr2 is not None else None
+    _launch("coldeltacor_flat", e_visit.device, e_visit.data_ptr(),
+            e_ctr.data_ptr(), d_ctr.data_ptr(),
+            None if d_ctr2 is None else d_ctr2.data_ptr(), qloc.data_ptr(),
+            qrow.data_ptr(), out.data_ptr(),
+            None if out2 is None else out2.data_ptr(), c, m, g, f, q,
+            transform, float(psc))
+    flat_launches += 1
     return out if out2 is None else (out, out2)
 
 
@@ -733,9 +802,9 @@ def balance_probe(n: int, reps: int, route: str = "shared",
 
 def reset_counts() -> None:
     """Set every launch count to 0."""
-    global dense_launches, partial_launches, fma_launches, svr_launches, \
-        svr_shared_launches, svr_global_launches, tsne_launches, \
-        balance_launches, balance_decode_launches
-    dense_launches = partial_launches = fma_launches = svr_launches = \
-        svr_shared_launches = svr_global_launches = tsne_launches = \
-        balance_launches = balance_decode_launches = 0
+    global dense_launches, partial_launches, flat_launches, fma_launches, \
+        svr_launches, svr_shared_launches, svr_global_launches, \
+        tsne_launches, balance_launches, balance_decode_launches
+    dense_launches = partial_launches = flat_launches = fma_launches = \
+        svr_launches = svr_shared_launches = svr_global_launches = \
+        tsne_launches = balance_launches = balance_decode_launches = 0

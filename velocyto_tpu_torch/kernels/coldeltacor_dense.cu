@@ -9,6 +9,11 @@
 // The dual form takes a second displacement matrix d2 (the randomized
 // control) and returns its correlations from the same pass: a, S1 and S2
 // are shared and only S3 (and Sb, Sb2) are taken for both fields.
+// A center range [c0, c0 + M) writes only those rows, an (M, N) output:
+// what one shard of a mesh runs when the centers are split over the
+// shards (make_dense_sharded in the JAX package).  A center's moments do
+// not depend on the tile it falls in, so each row of a ranged launch is
+// bitwise equal to the same row of the whole (c0 = 0, M = N) launch.
 //
 // What bounds it: instruction issue and the SFU, not bytes.  At G = 2000,
 // N = 20000 one call does 8.0e11 (pair, gene) steps; at 8 flop each that is
@@ -69,9 +74,10 @@ struct Args {
   const float* e;     // (G, N)
   const float* d;     // (G, N)
   const float* d2;    // (G, N) or null
-  float* out;         // (N, N)
-  float* out2;        // (N, N) or null
+  float* out;         // (M, N)
+  float* out2;        // (M, N) or null
   int G, N;
+  int c0, M;          // the centers [c0, c0 + M): rows of out
   float psc;
   bool vec;           // 16-byte copies and stores are aligned
 };
@@ -146,7 +152,7 @@ coldeltacor_dense_kernel(Args p) {
   const int lane = threadIdx.x % 32;   // candidates i0 + 4 lane + q
   const int warp = threadIdx.x / 32;   // centers    c0 + kRT warp + r
   const int i0 = blockIdx.x * kTI;
-  const int c0 = blockIdx.y * kTC;
+  const int c0 = p.c0 + blockIdx.y * kTC;
   const int sb_c = threadIdx.x % kTC;  // this thread's share of Sb, Sb2:
   const int sb_g = kSbGenes * (threadIdx.x / kTC);   // genes of a chunk
 
@@ -231,7 +237,7 @@ coldeltacor_dense_kernel(Args p) {
   for (int r = 0; r < kRT; ++r) {
     const int cl = kRT * warp + r;
     const int c = c0 + cl;
-    if (c >= p.N || i >= p.N) continue;
+    if (c >= p.c0 + p.M || i >= p.N) continue;
     float m[4];
 #pragma unroll
     for (int f = 0; f < (DUAL ? 2 : 1); ++f) {
@@ -247,7 +253,7 @@ coldeltacor_dense_kernel(Args p) {
         m[q] = vtt::corr_from_moments(s1[r][q], s2[r][q],
                                       f == 0 ? s3[r][q] : s4[r][DUAL ? q : 0],
                                       t1, t2, gf);
-      float* row = dst + (size_t)c * N + i;
+      float* row = dst + (size_t)(c - p.c0) * N + i;
       if (p.vec) {
         *reinterpret_cast<float4*>(row) = make_float4(m[0], m[1], m[2], m[3]);
       } else {
@@ -261,7 +267,7 @@ coldeltacor_dense_kernel(Args p) {
 
 template <int TF, bool PARTIAL>
 cudaError_t launch(const Args& p, cudaStream_t stream) {
-  const dim3 grid((p.N + kTI - 1) / kTI, (p.N + kTC - 1) / kTC);
+  const dim3 grid((p.N + kTI - 1) / kTI, (p.M + kTC - 1) / kTC);
   if (p.d2 != nullptr)
     coldeltacor_dense_kernel<TF, PARTIAL, true><<<grid, kThreads, 0, stream>>>(p);
   else
@@ -273,9 +279,11 @@ cudaError_t launch(const Args& p, cudaStream_t stream) {
 
 extern "C" int vtt_coldeltacor_dense(const void* e, const void* d,
                                      const void* d2, void* out, void* out2,
-                                     int G, int N, int transform, int partial,
-                                     float psc, void* stream) {
-  if (G < 1 || N < 1 || (d2 == nullptr) != (out2 == nullptr))
+                                     int G, int N, int c0, int M,
+                                     int transform, int partial, float psc,
+                                     void* stream) {
+  if (G < 1 || N < 1 || c0 < 0 || M < 1 || M > N - c0 ||
+      (d2 == nullptr) != (out2 == nullptr))
     return (int)cudaErrorInvalidValue;
   Args p;
   p.e = static_cast<const float*>(e);
@@ -285,13 +293,16 @@ extern "C" int vtt_coldeltacor_dense(const void* e, const void* d,
   p.out2 = static_cast<float*>(out2);
   p.G = G;
   p.N = N;
+  p.c0 = c0;
+  p.M = M;
   p.psc = psc;
   const uintptr_t bases = reinterpret_cast<uintptr_t>(e) |
                           reinterpret_cast<uintptr_t>(d) |
                           reinterpret_cast<uintptr_t>(d2) |
                           reinterpret_cast<uintptr_t>(out) |
                           reinterpret_cast<uintptr_t>(out2);
-  p.vec = N % 4 == 0 && bases % 16 == 0;
+  // the centers' 16-byte copies start at column c0
+  p.vec = N % 4 == 0 && c0 % 4 == 0 && bases % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (transform * 2 + (partial ? 1 : 0)) {

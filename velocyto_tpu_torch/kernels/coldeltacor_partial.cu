@@ -47,8 +47,19 @@
 //   log10: delta == 0 takes the positive branch (`delta >= 0` test)
 // An index outside [0, N) is not dereferenced; its output is NaN.
 //
-// C interface (bound with ctypes): vtt_coldeltacor_partial returns the
-// cudaError_t of the launch as an int; 0 means the kernel was queued.
+// The flat block-table kernel beside it replaces the jitted XLA program
+// velocyto_tpu/ops/coldeltacor.py::_partial_flat_impl, the step of the ring
+// schedule (ops/coldeltacor.py::make_partial_ring): expression is split
+// over the mesh's shards too, and at each step a shard correlates its own
+// centers with the chunk of cells visiting it, through a table whose row f
+// holds one center (qrow[f]) and q rows of the chunk (qloc[f, :]).  It
+// shares the center staging and the per-pair loop with the sampled kernel
+// (stage_center, quad_corr), so a pair's correlation is bitwise the one
+// the sampled kernel gives it.  Its table rows carry no locality order.
+//
+// C interface (bound with ctypes): vtt_coldeltacor_partial and
+// vtt_coldeltacor_flat return the cudaError_t of the launch as an int; 0
+// means the kernel was queued.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -87,34 +98,46 @@ struct Args {
   float psc;
 };
 
-template <int TF, bool DUAL, bool VEC>
-__global__ void __launch_bounds__(kThreads, 2)
-coldeltacor_partial_kernel(Args p) {
-  extern __shared__ float4 smem4[];
-  float* ec = reinterpret_cast<float*>(smem4);   // [G] center row
-  float* b = ec + p.G;                           // [G] displacement row
-  float* b2 = b + p.G;                           // [G] second one (DUAL)
-  __shared__ float red[kWarps][4];
+constexpr int kFlatRows = 2;                        // table rows a block
+constexpr int kWarpsPerRow = kWarps / kFlatRows;    // warps a table row
 
-  const int G = p.G;
-  const int pos = blockIdx.x / p.n_chunks;
-  const int chunk = blockIdx.x - pos * p.n_chunks;
-  const int m = p.order != nullptr ? p.order[pos] : pos;
-  if (m < 0 || m >= p.M) return;               // not a permutation entry
+struct FlatArgs {
+  const float* e_visit;  // (C, G) gather source: the chunk visiting
+  const float* e_ctr;    // (M, G) center rows of this shard
+  const float* d_ctr;    // (M, G) displacement rows
+  const float* d_ctr2;   // (M, G) second displacement rows, or null
+  const int* qloc;       // (F, q) rows of e_visit
+  const int* qrow;       // (F,) center row of each table row
+  float* out;            // (F, q)
+  float* out2;           // (F, q), or null
+  int C, M, G, F, q;
+  float psc;
+};
+
+struct CenterSums {
+  float sb1, sb2, sc1, sc2;   // Sb, Sb2 of d_ctr (and Sc, Sc2 of d_ctr2)
+};
+
+// Stage one center row and its displacement row(s) in shared memory and
+// reduce Sb, Sb2 (Sc, Sc2) over them with all kThreads threads: each
+// thread sums every kThreads-th gene, then the warps and the block in a
+// fixed order.  red: [kWarps][4] shared scratch of this center.  Ends
+// with a barrier, so every thread sees the staged rows.
+template <bool DUAL>
+__device__ __forceinline__ CenterSums stage_center(
+    const float* e_row, const float* d_row, const float* d2_row, int G,
+    float* ec, float* b, float* b2, float (*red)[4]) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const size_t crow = (size_t)m * (size_t)G;
-
-  // stage the center rows and reduce Sb, Sb2 over them
   float sb1 = 0.0f, sb2 = 0.0f, sc1 = 0.0f, sc2 = 0.0f;
   for (int g = threadIdx.x; g < G; g += kThreads) {
-    ec[g] = p.e_ctr[crow + g];
-    const float bv = p.d_ctr[crow + g];
+    ec[g] = e_row[g];
+    const float bv = d_row[g];
     b[g] = bv;
     sb1 += bv;
     sb2 += bv * bv;
     if (DUAL) {
-      const float bv2 = p.d_ctr2[crow + g];
+      const float bv2 = d2_row[g];
       b2[g] = bv2;
       sc1 += bv2;
       sc2 += bv2 * bv2;
@@ -133,17 +156,108 @@ coldeltacor_partial_kernel(Args p) {
     red[warp][3] = sc2;
   }
   __syncthreads();
-  sb1 = sb2 = sc1 = sc2 = 0.0f;
+  CenterSums cs = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) {
-    sb1 += red[w][0];
-    sb2 += red[w][1];
-    sc1 += red[w][2];
-    sc2 += red[w][3];
+    cs.sb1 += red[w][0];
+    cs.sb2 += red[w][1];
+    cs.sc1 += red[w][2];
+    cs.sc2 += red[w][3];
   }
+  return cs;
+}
 
+// One warp: the correlations of kQuad gathered rows against the staged
+// center, each lane taking every 32nd gene (or float4 of genes), the
+// moments then summed over the warp.  Every lane ends with the results;
+// a slot with ok[u] false gives NaN.  Both kernels below call this, so a
+// pair's moments accumulate in the same order in either.
+template <int TF, bool DUAL, bool VEC>
+__device__ __forceinline__ void quad_corr(const float* const row[kQuad],
+                                          const bool ok[kQuad],
+                                          const float* ec, const float* b,
+                                          const float* b2, int G, float psc,
+                                          const CenterSums& cs,
+                                          float c1[kQuad], float c2[kQuad]) {
+  const int lane = threadIdx.x % 32;
+  float s1[kQuad], s2[kQuad], s3[kQuad], s4[kQuad];
+#pragma unroll
+  for (int u = 0; u < kQuad; ++u) s1[u] = s2[u] = s3[u] = s4[u] = 0.0f;
+  if (VEC) {
+    const float4* ec4 = reinterpret_cast<const float4*>(ec);
+    const float4* b4 = reinterpret_cast<const float4*>(b);
+    const float4* b24 = reinterpret_cast<const float4*>(b2);
+    const int g4n = G / 4;
+#pragma unroll 2
+    for (int g4 = lane; g4 < g4n; g4 += 32) {
+      float4 v[kQuad];
+#pragma unroll
+      for (int u = 0; u < kQuad; ++u)
+        v[u] = __ldg(reinterpret_cast<const float4*>(row[u]) + g4);
+      const float4 c = ec4[g4];
+      const float4 bb = b4[g4];
+      const float4 bb2 = DUAL ? b24[g4] : bb;
+#pragma unroll
+      for (int u = 0; u < kQuad; ++u) {
+        vtt::moment_step<TF, true, DUAL>(v[u].x, c.x, bb.x, bb2.x, psc,
+                                         s1[u], s2[u], s3[u], s4[u]);
+        vtt::moment_step<TF, true, DUAL>(v[u].y, c.y, bb.y, bb2.y, psc,
+                                         s1[u], s2[u], s3[u], s4[u]);
+        vtt::moment_step<TF, true, DUAL>(v[u].z, c.z, bb.z, bb2.z, psc,
+                                         s1[u], s2[u], s3[u], s4[u]);
+        vtt::moment_step<TF, true, DUAL>(v[u].w, c.w, bb.w, bb2.w, psc,
+                                         s1[u], s2[u], s3[u], s4[u]);
+      }
+    }
+  } else {
+#pragma unroll 2
+    for (int g = lane; g < G; g += 32) {
+      const float c = ec[g], bb = b[g], bb2 = DUAL ? b2[g] : 0.0f;
+#pragma unroll
+      for (int u = 0; u < kQuad; ++u)
+        vtt::moment_step<TF, true, DUAL>(__ldg(row[u] + g), c, bb, bb2,
+                                         psc, s1[u], s2[u], s3[u], s4[u]);
+    }
+  }
   const float gf = (float)G;
-  const float psc = p.psc;
+  const float nan = __int_as_float(0x7fc00000);
+#pragma unroll
+  for (int u = 0; u < kQuad; ++u) {
+    s1[u] = warp_sum(s1[u]);
+    s2[u] = warp_sum(s2[u]);
+    s3[u] = warp_sum(s3[u]);
+    if (DUAL) s4[u] = warp_sum(s4[u]);
+    c1[u] = ok[u] ? vtt::corr_from_moments(s1[u], s2[u], s3[u], cs.sb1,
+                                           cs.sb2, gf)
+                  : nan;
+    if (DUAL)
+      c2[u] = ok[u] ? vtt::corr_from_moments(s1[u], s2[u], s4[u], cs.sc1,
+                                             cs.sc2, gf)
+                    : nan;
+  }
+}
+
+template <int TF, bool DUAL, bool VEC>
+__global__ void __launch_bounds__(kThreads, 2)
+coldeltacor_partial_kernel(Args p) {
+  extern __shared__ float4 smem4[];
+  float* ec = reinterpret_cast<float*>(smem4);   // [G] center row
+  float* b = ec + p.G;                           // [G] displacement row
+  float* b2 = b + p.G;                           // [G] second one (DUAL)
+  __shared__ float red[kWarps][4];
+
+  const int G = p.G;
+  const int pos = blockIdx.x / p.n_chunks;
+  const int chunk = blockIdx.x - pos * p.n_chunks;
+  const int m = p.order != nullptr ? p.order[pos] : pos;
+  if (m < 0 || m >= p.M) return;               // not a permutation entry
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const size_t crow = (size_t)m * (size_t)G;
+  const CenterSums cs = stage_center<DUAL>(
+      p.e_ctr + crow, p.d_ctr + crow, DUAL ? p.d_ctr2 + crow : nullptr, G,
+      ec, b, b2, red);
+
   const int* ixs = p.ixs + (size_t)m * (size_t)p.nn;
   const int k_end = min(p.nn, (chunk + 1) * kChunk);
   for (int k0 = chunk * kChunk + kQuad * warp; k0 < k_end;
@@ -158,65 +272,80 @@ coldeltacor_partial_kernel(Args p) {
       ok[u] = j >= 0 && j < p.N;
       row[u] = p.e_full + (size_t)(ok[u] ? j : 0) * (size_t)G;
     }
-    float s1[kQuad], s2[kQuad], s3[kQuad], s4[kQuad];
-#pragma unroll
-    for (int u = 0; u < kQuad; ++u) s1[u] = s2[u] = s3[u] = s4[u] = 0.0f;
-    if (VEC) {
-      const float4* ec4 = reinterpret_cast<const float4*>(ec);
-      const float4* b4 = reinterpret_cast<const float4*>(b);
-      const float4* b24 = reinterpret_cast<const float4*>(b2);
-      const int g4n = G / 4;
-#pragma unroll 2
-      for (int g4 = lane; g4 < g4n; g4 += 32) {
-        float4 v[kQuad];
-#pragma unroll
-        for (int u = 0; u < kQuad; ++u)
-          v[u] = __ldg(reinterpret_cast<const float4*>(row[u]) + g4);
-        const float4 c = ec4[g4];
-        const float4 bb = b4[g4];
-        const float4 bb2 = DUAL ? b24[g4] : bb;
-#pragma unroll
-        for (int u = 0; u < kQuad; ++u) {
-          vtt::moment_step<TF, true, DUAL>(v[u].x, c.x, bb.x, bb2.x, psc,
-                                           s1[u], s2[u], s3[u], s4[u]);
-          vtt::moment_step<TF, true, DUAL>(v[u].y, c.y, bb.y, bb2.y, psc,
-                                           s1[u], s2[u], s3[u], s4[u]);
-          vtt::moment_step<TF, true, DUAL>(v[u].z, c.z, bb.z, bb2.z, psc,
-                                           s1[u], s2[u], s3[u], s4[u]);
-          vtt::moment_step<TF, true, DUAL>(v[u].w, c.w, bb.w, bb2.w, psc,
-                                           s1[u], s2[u], s3[u], s4[u]);
-        }
-      }
-    } else {
-#pragma unroll 2
-      for (int g = lane; g < G; g += 32) {
-        const float c = ec[g], bb = b[g], bb2 = DUAL ? b2[g] : 0.0f;
-#pragma unroll
-        for (int u = 0; u < kQuad; ++u)
-          vtt::moment_step<TF, true, DUAL>(__ldg(row[u] + g), c, bb, bb2,
-                                           psc, s1[u], s2[u], s3[u], s4[u]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kQuad; ++u) {
-      s1[u] = warp_sum(s1[u]);
-      s2[u] = warp_sum(s2[u]);
-      s3[u] = warp_sum(s3[u]);
-      if (DUAL) s4[u] = warp_sum(s4[u]);
-    }
+    float c1[kQuad], c2[kQuad];
+    quad_corr<TF, DUAL, VEC>(row, ok, ec, b, b2, G, p.psc, cs, c1, c2);
     if (lane == 0) {
-      const float nan = __int_as_float(0x7fc00000);
 #pragma unroll
       for (int u = 0; u < kQuad; ++u) {
         if (k0 + u >= k_end) break;
         const size_t o = (size_t)m * (size_t)p.nn + k0 + u;
-        p.out[o] = ok[u] ? vtt::corr_from_moments(s1[u], s2[u], s3[u], sb1,
-                                                  sb2, gf)
-                         : nan;
-        if (DUAL)
-          p.out2[o] = ok[u] ? vtt::corr_from_moments(s1[u], s2[u], s4[u],
-                                                     sc1, sc2, gf)
-                            : nan;
+        p.out[o] = c1[u];
+        if (DUAL) p.out2[o] = c2[u];
+      }
+    }
+  }
+}
+
+// The flat block-table form (the ring schedule's step): block f of the
+// table pairs center row qrow[f] of e_ctr / d_ctr with the q rows
+// qloc[f, :] of e_visit, the chunk of cells visiting this shard.  A
+// CUDA block takes kFlatRows table rows: it stages their centers one
+// after the other (each reduced by all threads, as above), then
+// kWarps / kFlatRows warps take each row's entries kQuad at a time.
+template <int TF, bool DUAL, bool VEC>
+__global__ void __launch_bounds__(kThreads, 2)
+coldeltacor_flat_kernel(FlatArgs p) {
+  extern __shared__ float4 smem4[];
+  __shared__ float red[kFlatRows][kWarps][4];
+  const int G = p.G;
+  const int nrow = DUAL ? 3 : 2;                 // rows staged a center
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int f0 = blockIdx.x * kFlatRows;
+  CenterSums cs[kFlatRows];
+#pragma unroll
+  for (int r = 0; r < kFlatRows; ++r) {
+    cs[r] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const int f = f0 + r;
+    if (f >= p.F) break;                         // uniform over the block
+    const int m = p.qrow[f];
+    if (m < 0 || m >= p.M) continue;             // its entries give NaN
+    float* ec = smem + r * nrow * G;
+    const size_t crow = (size_t)m * (size_t)G;
+    cs[r] = stage_center<DUAL>(
+        p.e_ctr + crow, p.d_ctr + crow, DUAL ? p.d_ctr2 + crow : nullptr, G,
+        ec, ec + G, ec + 2 * G, red[r]);
+  }
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int r = warp / kWarpsPerRow;
+  const int f = f0 + r;
+  if (f >= p.F) return;                          // no barrier follows
+  const int m = p.qrow[f];
+  const bool center_ok = m >= 0 && m < p.M;
+  const float* ec = smem + r * nrow * G;
+  const CenterSums sums = r == 0 ? cs[0] : cs[kFlatRows - 1];
+  const int* loc = p.qloc + (size_t)f * (size_t)p.q;
+  for (int k0 = kQuad * (warp % kWarpsPerRow); k0 < p.q;
+       k0 += kQuad * kWarpsPerRow) {
+    const float* row[kQuad];
+    bool ok[kQuad];
+#pragma unroll
+    for (int u = 0; u < kQuad; ++u) {
+      const int j = k0 + u < p.q ? loc[k0 + u] : -1;
+      ok[u] = center_ok && j >= 0 && j < p.C;
+      row[u] = p.e_visit + (size_t)(ok[u] ? j : 0) * (size_t)G;
+    }
+    float c1[kQuad], c2[kQuad];
+    quad_corr<TF, DUAL, VEC>(row, ok, ec, ec + G, ec + 2 * G, G, p.psc,
+                             sums, c1, c2);
+    if (lane == 0) {
+#pragma unroll
+      for (int u = 0; u < kQuad; ++u) {
+        if (k0 + u >= p.q) break;
+        const size_t o = (size_t)f * (size_t)p.q + k0 + u;
+        p.out[o] = c1[u];
+        if (DUAL) p.out2[o] = c2[u];
       }
     }
   }
@@ -282,6 +411,73 @@ extern "C" int vtt_coldeltacor_partial(const void* e_full, const void* e_ctr,
     case kLinear: return (int)pick_dual<kLinear>(p, vec, s);
     case kSqrt: return (int)pick_dual<kSqrt>(p, vec, s);
     case kLog10: return (int)pick_dual<kLog10>(p, vec, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+
+namespace {
+
+template <int TF, bool DUAL, bool VEC>
+cudaError_t launch_flat(const FlatArgs& p, cudaStream_t stream) {
+  const size_t smem =
+      (size_t)kFlatRows * (DUAL ? 3 : 2) * (size_t)p.G * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        coldeltacor_flat_kernel<TF, DUAL, VEC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const unsigned blocks = (unsigned)((p.F + kFlatRows - 1) / kFlatRows);
+  coldeltacor_flat_kernel<TF, DUAL, VEC>
+      <<<blocks, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int TF>
+cudaError_t pick_flat(const FlatArgs& p, bool vec, cudaStream_t s) {
+  if (p.d_ctr2 != nullptr)
+    return vec ? launch_flat<TF, true, true>(p, s)
+               : launch_flat<TF, true, false>(p, s);
+  return vec ? launch_flat<TF, false, true>(p, s)
+             : launch_flat<TF, false, false>(p, s);
+}
+
+}  // namespace
+
+extern "C" int vtt_coldeltacor_flat(const void* e_visit, const void* e_ctr,
+                                    const void* d_ctr, const void* d_ctr2,
+                                    const void* qloc, const void* qrow,
+                                    void* out, void* out2, int C, int M,
+                                    int G, int F, int q, int transform,
+                                    float psc, void* stream) {
+  if (C < 1 || M < 1 || G < 1 || F < 1 || q < 1 ||
+      (d_ctr2 == nullptr) != (out2 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  FlatArgs p;
+  p.e_visit = static_cast<const float*>(e_visit);
+  p.e_ctr = static_cast<const float*>(e_ctr);
+  p.d_ctr = static_cast<const float*>(d_ctr);
+  p.d_ctr2 = static_cast<const float*>(d_ctr2);
+  p.qloc = static_cast<const int*>(qloc);
+  p.qrow = static_cast<const int*>(qrow);
+  p.out = static_cast<float*>(out);
+  p.out2 = static_cast<float*>(out2);
+  p.C = C;
+  p.M = M;
+  p.G = G;
+  p.F = F;
+  p.q = q;
+  p.psc = psc;
+  // the same rule as the sampled kernel: with the same G and an aligned
+  // gather source both take the same loop, so a pair's moments agree
+  const bool vec =
+      G % 4 == 0 && reinterpret_cast<uintptr_t>(e_visit) % 16 == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (transform) {
+    case kLinear: return (int)pick_flat<kLinear>(p, vec, s);
+    case kSqrt: return (int)pick_flat<kSqrt>(p, vec, s);
+    case kLog10: return (int)pick_flat<kLog10>(p, vec, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,3 +1,5 @@
-from .velocity import VelocityOutputs, example_inputs, velocity_step
+from .velocity import (VelocityOutputs, example_inputs,
+                       make_sharded_velocity_step, velocity_step)
 
-__all__ = ["VelocityOutputs", "velocity_step", "example_inputs"]
+__all__ = ["VelocityOutputs", "velocity_step", "make_sharded_velocity_step",
+           "example_inputs"]

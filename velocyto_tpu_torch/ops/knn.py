@@ -19,7 +19,7 @@ device and build scipy.sparse graphs on the host.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,6 +74,54 @@ def _knn_search_impl(data: torch.Tensor, k: int, block: int,
             x[r0:r0 + block], sq[r0:r0 + block], x, sq, k)
     dist = d2 / 2.0 if metric == "correlation" else torch.sqrt(d2)
     return dist, idx
+
+
+def make_knn_search_sharded(mesh, k: int, block: int,
+                            metric: str = "euclidean"):
+    """The kNN candidate pass with its query rows split over the mesh's
+    cells shards, data replicated: fn(data (N, D)) -> this process's
+    (d2, idx) blocks, (rows, k) each, one pair per shard on its device.
+    Each shard runs the single-device blocked distance and stable sort
+    (_candidate_block_fn) on its rows against all of data.  Port of the
+    JAX package's make_knn_search_sharded."""
+    from ..parallel.mesh import CELLS, bounds, join, on_shard, replicas
+    shards = mesh.cell_shards()
+
+    def fn(data: torch.Tensor) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        x = _normalize_for_metric(data.to(torch.float32), metric)
+        sq = (x * x).sum(dim=1)
+        spans = bounds(x.shape[0], mesh.shape[CELLS])
+        xs, sqs = replicas(shards, x), replicas(shards, sq)
+        outs = []
+        for i, s in enumerate(shards):
+            lo, hi = spans[s.index]
+            with on_shard(s, xs[i], sqs[i]):
+                d2 = torch.empty((hi - lo, k), dtype=torch.float32,
+                                 device=s.device)
+                idx = torch.empty((hi - lo, k), dtype=torch.int64,
+                                  device=s.device)
+                for r0 in range(lo, hi, block):
+                    r1 = min(hi, r0 + block)
+                    d2[r0 - lo:r1 - lo], idx[r0 - lo:r1 - lo] = \
+                        _candidate_block_fn(xs[i][r0:r1], sqs[i][r0:r1],
+                                            xs[i], sqs[i], k)
+            outs.append((d2, idx))
+        join(shards, outs)
+        return outs
+
+    return fn
+
+
+def knn_search_sharded(mesh, data: np.ndarray, k: int,
+                       metric: str = "euclidean"
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """Multi-shard kNN search: query rows split over the mesh's cells
+    shards, data replicated; the same exact f64 re-score and tie-breaks
+    as the single-device search, so the result equals it.  Returns host
+    (dist, idx) (the whole result on every process)."""
+    from .knn_device import knn_search_dev
+    dist, idx = knn_search_dev(data, k, metric=metric, mesh=mesh)
+    return dist.cpu().numpy(), idx.cpu().numpy()
 
 
 def _candidate_plan(n: int, k: int) -> Tuple[int, int]:
@@ -182,11 +230,13 @@ def knn_balance(dsi: np.ndarray, dist: Optional[np.ndarray] = None,
                             return_distance=True, constraint=cst)
 
 
-def _search_host(data, k: int, metric: str, device
+def _search_host(data, k: int, metric: str, device, mesh=None
                  ) -> Tuple[np.ndarray, np.ndarray]:
-    """knn_search_dev on `device`, returned as host (dist f64, idx int64)."""
+    """knn_search_dev on `device` (or over `mesh`), returned as host
+    (dist f64, idx int64)."""
     from .knn_device import knn_search_dev
-    dist, idx = knn_search_dev(data, k, metric=metric, device=device)
+    dist, idx = knn_search_dev(data, k, metric=metric, device=device,
+                               mesh=mesh)
     return dist.cpu().numpy(), idx.cpu().numpy()
 
 
@@ -194,13 +244,13 @@ class BalancedKNN:
     """sklearn-like estimator for the balanced kNN graph.
 
     API parity with reference velocyto/neighbors.py:186-357; the initial
-    kNN search runs on `device` (ops/knn_device.py::knn_search_dev), the
-    balance on the host."""
+    kNN search runs on `device` (ops/knn_device.py::knn_search_dev), or
+    with its query rows split over `mesh`, the balance on the host."""
 
     def __init__(self, k: int = 50, sight_k: int = 100, maxl: int = 200,
                  constraint: Optional[np.ndarray] = None,
                  mode: str = "distance", metric: str = "euclidean",
-                 n_jobs: int = 4, device="cuda") -> None:
+                 n_jobs: int = 4, device="cuda", mesh=None) -> None:
         self.k = k
         self.sight_k = sight_k
         self.maxl = maxl
@@ -208,6 +258,7 @@ class BalancedKNN:
         self.metric = metric
         self.n_jobs = n_jobs
         self.device = torch.device(device)
+        self.mesh = mesh
         self.dist_new = self.dsi_new = self.l = None
         self.bknn: Optional[sparse.csr_matrix] = None
         self.constraint = constraint
@@ -232,7 +283,7 @@ class BalancedKNN:
             self.maxl = maxl
         kk = min(self.sight_k + 1, self.fitdata.shape[0])
         self.dist, self.dsi = _search_host(self.fitdata, kk, self.metric,
-                                           self.device)
+                                           self.device, self.mesh)
         self.dist_new, self.dsi_new, self.l = knn_balance(
             self.dsi, self.dist, maxl=self.maxl, k=self.k,
             constraint=self.constraint)
@@ -292,11 +343,13 @@ class BalancedKNN:
 
 def knn_distance_matrix(data: np.ndarray, metric: Optional[str] = None,
                         k: int = 40, mode: str = "connectivity",
-                        n_jobs: int = 4, device="cuda") -> sparse.csr_matrix:
+                        n_jobs: int = 4, device="cuda",
+                        mesh=None) -> sparse.csr_matrix:
     """kNN graph of data (samples, features) *excluding* self, like
-    sklearn kneighbors_graph(X=None); the search runs on `device`."""
+    sklearn kneighbors_graph(X=None); the search runs on `device`, or
+    with its query rows split over `mesh`."""
     kk = min(k + 1, data.shape[0])
-    dist, idx = _search_host(data, kk, metric or "euclidean", device)
+    dist, idx = _search_host(data, kk, metric or "euclidean", device, mesh)
     dist, idx = dist[:, 1:], idx[:, 1:]
     n, kk = idx.shape
     data_vals = np.ones(n * kk) if mode == "connectivity" else dist.ravel()

@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .knn import _candidate_plan, _knn_search_impl, full_f32
+from .knn import (_candidate_plan, _knn_search_impl, full_f32,
+                  make_knn_search_sharded)
 
 
 class KnnGraphDev(NamedTuple):
@@ -79,22 +80,36 @@ def _reorder_truncate_impl(d2: torch.Tensor, idx: torch.Tensor, k: int
     return d2.gather(1, order), idx.gather(1, order)
 
 
-def knn_search_dev(data, k: int, metric: str = "euclidean", device="cuda"
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+def knn_search_dev(data, k: int, metric: str = "euclidean", device="cuda",
+                   mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """All-pairs kNN (self included first) on `device` (the card unless
     the caller asks for another; a tensor stays on its own device).
 
     Returns (dist (N, k) f64, idx (N, k) int64), ordered exactly like an
-    exact brute-force search (f64 re-score, (distance, index) order)."""
+    exact brute-force search (f64 re-score, (distance, index) order).
+    With `mesh`, the candidate pass runs with its query rows split over
+    the mesh's cells shards (make_knn_search_sharded) and is gathered on
+    the mesh's first device, where the re-score and the ordering run
+    unchanged; so the result equals the single-device one."""
     n = data.shape[0]
     k = min(k, n)
+    if mesh is not None:
+        device = mesh.first_device
+        if isinstance(data, torch.Tensor):
+            data = data.to(device)
     x64 = _as_tensor(data, torch.float64, device)
     if metric == "correlation":
         x64 = x64 - x64.mean(dim=1, keepdim=True)
         x64 = x64 / torch.linalg.norm(x64, dim=1, keepdim=True)
     k2, blk = _candidate_plan(n, k)
-    _dc, cand = _knn_search_impl(_as_tensor(data, torch.float32, device),
-                                 k2, blk, metric)
+    x32 = _as_tensor(data, torch.float32, device)
+    if mesh is None:
+        _dc, cand = _knn_search_impl(x32, k2, blk, metric)
+    else:
+        from ..parallel.mesh import CELLS, bounds, gather_rows
+        parts = make_knn_search_sharded(mesh, k2, blk, metric)(x32)
+        counts = [hi - lo for lo, hi in bounds(n, mesh.shape[CELLS])]
+        cand = gather_rows(mesh, [p[1] for p in parts], counts)
     # bound the (block, k2, D) f64 gather scratch to ~256 MB
     rb = max(8, min(256, (1 << 25) // max(1, k2 * x64.shape[1])))
     d2 = _rescore_f64_impl(x64, cand, rb)
@@ -258,24 +273,29 @@ def balance_knn_dev(dsi: torch.Tensor, dist: torch.Tensor, maxl: int, k: int,
 def balanced_knn_graph_dev(space, k: int, sight_k: int, maxl: int,
                            metric: str = "euclidean",
                            constraint: Optional[np.ndarray] = None,
-                           device="cuda") -> KnnGraphDev:
+                           device="cuda", mesh=None) -> KnnGraphDev:
     """Balanced kNN graph (BalancedKNN.kneighbors_graph semantics,
     reference velocyto/neighbors.py:226-322), search and balance on
-    `device`: nothing of the (N, sight) candidates leaves it."""
+    `device`: nothing of the (N, sight) candidates leaves it.  With
+    `mesh`, the candidate pass is split over its cells shards and the
+    rest runs on its first device."""
     n = space.shape[0]
     kk = min(sight_k + 1, n)
-    dist, dsi = knn_search_dev(space, kk, metric=metric, device=device)
+    dist, dsi = knn_search_dev(space, kk, metric=metric, device=device,
+                               mesh=mesh)
     dist_new, dsi_new, l = balance_knn_dev(dsi, dist, maxl=maxl, k=k,
                                            constraint=constraint)
     return KnnGraphDev(idx=dsi_new, dist=dist_new, indeg=l, n=n)
 
 
 def knn_graph_dev(space, k: int, metric: str = "euclidean",
-                  device="cuda") -> KnnGraphDev:
-    """Plain kNN graph excluding self (knn_distance_matrix semantics)."""
+                  device="cuda", mesh=None) -> KnnGraphDev:
+    """Plain kNN graph excluding self (knn_distance_matrix semantics);
+    `mesh` as in knn_search_dev."""
     n = space.shape[0]
     kk = min(k + 1, n)
-    dist, idx = knn_search_dev(space, kk, metric=metric, device=device)
+    dist, idx = knn_search_dev(space, kk, metric=metric, device=device,
+                               mesh=mesh)
     return KnnGraphDev(idx=idx[:, 1:], dist=dist[:, 1:], indeg=None, n=n)
 
 
