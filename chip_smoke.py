@@ -20,10 +20,12 @@ comes out:
     loop's, all bitwise, and no (genes, cells) tensor may be copied to
     the host in the call; the chunk launches are timed against the
     single launch, the single launch with the identity order against
-    the locality order (outputs bitwise equal), and the device
-    permutation alone; the session's device tensors, host arrays and
-    metadata are checkpointed (io.checkpoint) and reloaded on the card,
-    bitwise;
+    the locality order (outputs bitwise equal), the ring's flat kernel
+    on the same indices planned over 2 shards (table order and locality
+    order, each bitwise equal to one sampled launch), and the device
+    permutation alone; the session's device
+    tensors, host arrays and metadata are checkpointed (io.checkpoint)
+    and reloaded on the card, bitwise;
   - both pipelines again under torch.profiler (utils.profiling.trace):
     the device's idle share over the pipeline and its transition stage,
     the five device kernels that took the most time, the profiled total
@@ -82,9 +84,11 @@ dual center-range launch of the dense kernel a shard).  After the tutorial
 session, the sharded velocity_step (genes split, one all-to-all, one
 sampled launch a shard) runs on the session's state against the
 unsharded step; at the end, the dense kernel's center ranges are held
-bitwise to the whole launch, the forced ring at 20,000 cells (P x P flat
-launches) against one sampled launch, the flat kernel against its plain
-twin on every table of that ring, and bench_scaling runs the sharded and
+bitwise to the whole launch, the forced ring at 20,000 cells without and
+with a center order (2 x P x P flat launches; the first call's pieces
+split by the ring's split= argument) bitwise against one sampled
+launch, the flat kernel against its plain twin on every table of that
+ring, and bench_scaling runs the sharded and
 ring calls at 1, 2 and 4 shards.  The counting phase also runs
 count_distributed (4 feeders, merged over the mesh), bitwise the serial
 count.
@@ -921,6 +925,7 @@ def _sampled_timings(v, captured, smi):
     permutation, on the call's own inputs."""
     times = _chunk_timing(v, captured, smi)
     times.update(_order_timing(captured, smi))
+    times.update(_flat_path_timing(captured, smi, times["ordered_ms"]))
     times.update(_permutation_timing(v, smi))
     return times
 
@@ -1049,6 +1054,127 @@ def _order_timing(captured, smi, n=3):
           flush=True)
     assert same, "the center order changed the sampled kernel's output"
     return {"identity_ms": ms_i, "ordered_ms": ms_o}
+
+
+def flat_tables(e_rows, d_rows, d2_rows, ixs, p, order=None):
+    """The ring plan of ixs (N, nn) over p shards (ops.coldeltacor.
+    _ring_plan, q = 16) as the flat kernel's launches, one for each (shard
+    s, visiting chunk v): its arguments on the card and its schedule in
+    table order ("table") and, with a locality order of the N cells, in
+    the locality rank of the shard's centers ("locality").  Returns (the
+    launches, inv_pos, the chunk)."""
+    from velocyto_tpu_torch import kernels
+    from velocyto_tpu_torch.ops import coldeltacor as cdc
+    n, g = e_rows.shape
+    chunk = -(-n // p)
+    qloc, qrow, inv_pos, _bmax = cdc._ring_plan(
+        ixs.cpu().numpy(), p, chunk, q=min(16, ixs.shape[1]))
+
+    def chunks(rows):
+        pad = torch.zeros((chunk * p, g), dtype=torch.float32, device=DEVICE)
+        pad[:n] = rows
+        return [pad[i * chunk:(i + 1) * chunk] for i in range(p)]
+
+    ec, dc, d2c = chunks(e_rows), chunks(d_rows), chunks(d2_rows)
+    launches = []
+    for s in range(p):
+        rank = None if order is None else cdc.shard_rank(
+            order, s * chunk, min(n, (s + 1) * chunk), chunk)
+        for v in range(p):
+            qr = torch.as_tensor(qrow[s, v], device=DEVICE)
+            launches.append({
+                "args": (ec[v], ec[s], dc[s],
+                         torch.as_tensor(qloc[s, v], device=DEVICE), qr),
+                "d2": d2c[s], "table": kernels.flat_runs(qr),
+                "locality": None if rank is None else
+                kernels.flat_runs(qr, rank)})
+    return launches, torch.as_tensor(inv_pos, device=DEVICE), chunk
+
+
+def flat_run(launches, tc, psc, schedule, flat=None):
+    """Every launch of flat_tables through `flat` (kernels.coldeltacor_flat
+    unless given) on the given schedule ("table" or "locality", unchecked
+    as the ring passes it, or None for none), both fields; the list of
+    their output pairs."""
+    from velocyto_tpu_torch import kernels
+    flat = flat or kernels.coldeltacor_flat
+    out = []
+    for t in launches:
+        sched = {} if schedule is None else dict(
+            run_start=t[schedule][0], run_order=t[schedule][1], check=False)
+        out.append(flat(*t["args"], tc, psc, d_ctr2=t["d2"], **sched))
+    return out
+
+
+def flat_compact(outs, inv_pos, chunk, n, p):
+    """The flat launches' outputs put back in the compact (N, nn) layout
+    through inv_pos, both fields."""
+    got = []
+    for k in (0, 1):
+        rows = [torch.stack([outs[s * p + v][k] for v in range(p)]).reshape(-1)
+                [inv_pos[s * chunk:(s + 1) * chunk].to(torch.int64)]
+                for s in range(p)]
+        got.append(torch.cat(rows)[:n])
+    return got
+
+
+def _flat_path_timing(captured, smi, sampled_ms, n=3):
+    """The flat kernel on the transition stage's own sampled indices (the
+    pipeline's embedding-kNN samples, both fields), planned over
+    MESH_SHARDS shards as the ring plans them: its launches on the four
+    tables in table order and in the locality rank of their centers (the
+    ring's), in turns; each run's outputs, put back through inv_pos,
+    bitwise equal to one sampled launch on the same indices.  Returns the
+    median ms of each (the four launches summed) and the gathered rows'
+    GB/s."""
+    from velocyto_tpu_torch import kernels
+    from velocyto_tpu_torch.ops.coldeltacor import _TRANSFORMS
+    e_rows, ixs, order = captured["e_rows"], captured["ixs"], \
+        captured["order"]
+    d_rows, d2_rows = captured["runs"][0][0], captured["runs"][0][4]
+    tc, psc = _TRANSFORMS[captured["tf"]], captured["psc"]
+    p = MESH_SHARDS
+    t0 = time.perf_counter()
+    launches, inv_pos, chunk = flat_tables(e_rows, d_rows, d2_rows, ixs, p,
+                                           order)
+    plan_s = time.perf_counter() - t0
+    want = kernels.coldeltacor_partial(e_rows, e_rows, d_rows, ixs, tc, psc,
+                                       d_ctr2=d2_rows, order=order)
+    turns = [("table", dict(schedule="table")),
+             ("locality", dict(schedule="locality"))]
+    times = {name: [] for name, _ in turns}
+    same = {}
+    for i in range(n):
+        for name, kw in (turns if i % 2 == 0 else turns[::-1]):
+            t, outs = _time_ms(lambda: flat_run(launches, tc, psc, **kw))
+            times[name].append(t)
+            got = flat_compact(outs, inv_pos, chunk, ixs.shape[0], p)
+            same[name] = same.get(name, True) and \
+                _bitwise(got[0], want[0]) and _bitwise(got[1], want[1])
+            del outs, got
+    ms = {name: statistics.median(t) for name, t in times.items()}
+    entries = sum(t["args"][3].numel() for t in launches)
+    n_cells, nn = ixs.shape
+    g = e_rows.shape[1]
+
+    def gbps(t):
+        return entries * g * 4 / (t / 1e3) / 1e9
+
+    print(f"# time flat dual on the pipeline's own indices (N={n_cells}, "
+          f"nn={nn}, G={g}, {captured['tf']}; {p} shards, {len(launches)} "
+          f"tables, {entries} entries, plan {plan_s:.3f} s host) on {smi}: "
+          f"table order {ms['table']!r} ms, locality order "
+          f"{ms['locality']!r} ms (the {len(launches)} launches summed, "
+          f"median of {n}, in turns, CUDA events); gathered rows "
+          f"{gbps(ms['table'])!r} / {gbps(ms['locality'])!r} GB/s, the "
+          f"sampled kernel's "
+          f"{n_cells * nn * g * 4 / (sampled_ms / 1e3) / 1e9!r} GB/s "
+          f"({sampled_ms!r} ms, locality order); each bitwise equal to one "
+          f"sampled launch: {same}", flush=True)
+    assert all(same.values()), f"the flat kernel differs: {same}"
+    return {"flat_table_order_ms": ms["table"],
+            "flat_locality_ms": ms["locality"],
+            "flat_locality_gbps": gbps(ms["locality"])}
 
 
 def _check_sampled_state(v):
@@ -2550,11 +2676,15 @@ def mesh_kernels_phase(mesh, smi):
         (the 4-byte copy route) too; the first shard's range timed;
       - the forced ring at 20,000 cells (uniform indices, nn = 1750, both
         fields) through col_delta_cor_partial_sharded_dev with
-        _REPLICATION_BYTES at 1, the launch counts set to 0 just before
-        and read just after (P x P flat launches, nothing else), against
-        one sampled launch on the same indices: bitwise, or within
-        RING_RTOL / RING_ATOL; the replicated sharded call (P sampled
-        launches) bitwise against the same launch;
+        _REPLICATION_BYTES at 1 and the locality order of a random
+        embedding (timed whole), then through
+        col_delta_cor_partial_ring_dev without an order, its pieces split
+        (split=); the launch counts set to 0 just before the first and
+        read just after the second (2 x P x P flat launches, nothing
+        else); each bitwise against one sampled launch on the same
+        indices; the replicated
+        sharded call (P sampled launches) bitwise against the same
+        launch;
       - the flat kernel against its plain twin (RTOL / ATOL) on every
         table of that ring's plan, each launch timed, and the plain twin
         timed on the same tables;
@@ -2605,21 +2735,31 @@ def mesh_kernels_phase(mesh, smi):
                                       torch.int32)
     ref = _uncounted(lambda: kernels.coldeltacor_partial(
         e, e, d, ixs, 1, 1e-10, d_ctr2=d2))
+    order = cdc.locality_order(torch.tensor(
+        np.random.RandomState(7).rand(CELLS, 2), device=DEVICE))
     torch.cuda.synchronize()
     saved = cdc._REPLICATION_BYTES
     kernels.reset_counts()          # the forced ring's launches only
     cdc._REPLICATION_BYTES = 1
+    split = {}
     try:
         # one call, timed whole: its host plan (_ring_plan) takes seconds
-        ring_ms, ring = _time_ms(lambda: cdc.col_delta_cor_partial_sharded_dev(
-            mesh, e.T, d.T, ixs, "sqrt", 1e-10, dmat_random=d2.T))
+        ring_ms, ring_o = _time_ms(
+            lambda: cdc.col_delta_cor_partial_sharded_dev(
+                mesh, e.T, d.T, ixs, "sqrt", 1e-10, dmat_random=d2.T,
+                order=order))
+        ring = cdc.col_delta_cor_partial_ring_dev(
+            mesh, e.T, d.T, ixs, "sqrt", 1e-10, dmat_random=d2.T,
+            split=split)
         ring_launches = _launches()
     finally:
         cdc._REPLICATION_BYTES = saved
-    assert ring_launches == {"dense": 0, "flat": p * p, "partial": 0,
+    assert ring_launches == {"dense": 0, "flat": 2 * p * p, "partial": 0,
                              "fma": 0, "svr": 0, "tsne": 0, "balance": 0,
                              "balance_decode": 0}, ring_launches
     ring_bitwise = _bitwise(ring[0], ref[0]) and _bitwise(ring[1], ref[1])
+    order_bitwise = _bitwise(ring_o[0], ref[0]) and \
+        _bitwise(ring_o[1], ref[1])
     (err, ok), (err2, ok2) = (_ring_err(ring[k], ref[k]) for k in (0, 1))
     sharded_ms, sharded = _uncounted(lambda: _time_ms(
         lambda: cdc.col_delta_cor_partial_sharded_dev(
@@ -2631,16 +2771,20 @@ def mesh_kernels_phase(mesh, smi):
                                             d_ctr2=d2))[0]
         for _ in range(3)))
     print(f"# forced ring, {p} shards, N={CELLS} nn={NN_SAMPLED} both "
-          f"fields: {ring_launches['flat']} flat launches; against one "
-          f"sampled launch bitwise={ring_bitwise}, max_abs_err="
-          f"{max(err, err2)!r} within rtol {RING_RTOL} / atol {RING_ATOL}: "
-          f"{ok and ok2}; ring call {ring_ms!r} ms (host plan included), "
-          f"replicated sharded call "
+          f"fields: {ring_launches['flat']} flat launches in two calls; "
+          f"against one sampled launch, with a locality order "
+          f"bitwise={order_bitwise}, without bitwise={ring_bitwise}, "
+          f"max_abs_err={max(err, err2)!r} (within rtol {RING_RTOL} / atol "
+          f"{RING_ATOL}: {ok and ok2}); ring call with the order "
+          f"{ring_ms!r} ms (host plan included); the call without, split "
+          f"(s, host clock, the card synchronised between pieces): "
+          f"{split}; replicated sharded call "
           f"({p} launches, bitwise={sharded_bitwise}) {sharded_ms!r} ms, one "
           f"launch {one_ms!r} ms (CUDA events) on {smi}", flush=True)
-    assert ok and ok2, "the ring disagrees with the sampled kernel"
+    assert ring_bitwise and order_bitwise, \
+        "the ring differs from the sampled kernel"
     assert sharded_bitwise, "the sharded call differs from one launch"
-    del ring, ref, sharded
+    del ring, ring_o, ref, sharded
     torch.cuda.empty_cache()
 
     flat = _uncounted(lambda: _flat_against_plain(e, d, d2, ixs, p, smi))
@@ -2654,6 +2798,7 @@ def mesh_kernels_phase(mesh, smi):
     print(f"# mesh kernels phase: {phase_s:.1f} s on {smi}", flush=True)
     return {**flat, "center_range_ms": range_ms, "whole_dense_ms": whole_ms,
             "ring_call_ms": ring_ms, "ring_bitwise": ring_bitwise,
+            "ring_order_bitwise": order_bitwise, "ring_split_s": split,
             "ring_max_abs_err": max(err, err2),
             "sharded_call_ms": sharded_ms, "one_launch_ms": one_ms,
             "ring_launches": ring_launches["flat"],
@@ -2681,36 +2826,29 @@ def _flat_against_plain(e, d, d2, ixs, p, smi):
     from velocyto_tpu_torch import kernels
     from velocyto_tpu_torch.ops import coldeltacor as cdc
     n, g = e.shape
-    chunk = -(-n // p)
-    qloc, qrow, _inv, bmax = cdc._ring_plan(ixs.cpu().numpy(), p, chunk,
-                                            q=16)
-
-    def chunks(rows):
-        pad = torch.zeros((chunk * p, g), dtype=torch.float32, device=DEVICE)
-        pad[:n] = rows
-        return [pad[i * chunk:(i + 1) * chunk] for i in range(p)]
-
-    ec, dc, d2c = chunks(e), chunks(d), chunks(d2)
+    launches, _inv, chunk = flat_tables(e, d, d2, ixs, p)
+    bmax = launches[0]["args"][4].shape[0]
     ms = plain_ms = err = 0.0
     ok = True
     entries = 0
-    for s in range(p):
-        for v in range(p):
-            ql = torch.as_tensor(qloc[s, v], device=DEVICE)
-            qr = torch.as_tensor(qrow[s, v], device=DEVICE)
-            t, (m1, m2) = _time_ms(lambda: kernels.coldeltacor_flat(
-                ec[v], ec[s], dc[s], ql, qr, 1, 1e-10, d_ctr2=d2c[s]))
-            ms += t
-            t, (w1, w2) = _time_ms(lambda: (
-                cdc._col_delta_cor_flat_plain(ec[v], ec[s], dc[s], ql, qr,
-                                              1, 1e-10),
-                cdc._col_delta_cor_flat_plain(ec[v], ec[s], d2c[s], ql, qr,
-                                              1, 1e-10)))
-            plain_ms += t
-            for got, want in ((m1, w1), (m2, w2)):
-                e_, ok_ = _err(got, want)
-                err, ok = max(err, e_), ok and ok_
-            entries += ql.numel()
+    for t in launches:
+        ev, ec, dc, ql, qr = t["args"]
+        run_start, run_order = t["table"]
+        # the built schedule passes the wrapper's check; the timed launch
+        # takes it unchecked, as the ring does
+        kernels._check_schedule(run_start, run_order, qr, bmax)
+        ms_k, (m1, m2) = _time_ms(lambda: kernels.coldeltacor_flat(
+            ev, ec, dc, ql, qr, 1, 1e-10, d_ctr2=t["d2"],
+            run_start=run_start, run_order=run_order, check=False))
+        ms += ms_k
+        ms_p, (w1, w2) = _time_ms(lambda: tuple(
+            cdc._col_delta_cor_flat_plain(ev, ec, dd, ql, qr, 1, 1e-10)
+            for dd in (dc, t["d2"])))
+        plain_ms += ms_p
+        for got, want in ((m1, w1), (m2, w2)):
+            e_, ok_ = _err(got, want)
+            err, ok = max(err, e_), ok and ok_
+        entries += ql.numel()
     steps = entries * g
     padding = entries / (n * ixs.shape[1])
     print(f"# flat block-table kernel, {p * p} tables of Bmax={bmax} x 16 "
@@ -2725,7 +2863,7 @@ def _flat_against_plain(e, d, d2, ixs, p, smi):
     nbytes = (3 * chunk * p * g + entries + entries // 16) * 4 + \
         2 * entries * 4
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-            "padding": padding, "tables": p * p,
+            "padding": padding, "tables": p * p, "entries": entries,
             **_bound(10 * steps, nbytes)}
 
 
@@ -2896,6 +3034,7 @@ def main():
                                "sharded_velocity_step_ms": mesh_step_ms,
                                **{k: meshk[k] for k in (
                                    "ring_call_ms", "ring_bitwise",
+                                   "ring_order_bitwise", "ring_split_s",
                                    "ring_max_abs_err", "sharded_call_ms",
                                    "one_launch_ms", "whole_dense_ms",
                                    "scaling")}},
@@ -2944,7 +3083,9 @@ def main():
          "max_abs_err": meshk["max_abs_err"], "ms": meshk["ms"],
          "plain_ms": meshk["plain_ms"], "bound_ms": meshk["bound_ms"],
          "bound_by": meshk["bound_by"], "library_ms": None,
-         "tables": meshk["tables"], "padding": meshk["padding"]},
+         "tables": meshk["tables"], "padding": meshk["padding"],
+         "path_locality_ms": sampled_ms["flat_locality_ms"],
+         "path_table_order_ms": sampled_ms["flat_table_order_ms"]},
         {"name": "fma_probe", "route": "cuda",
          "source": "velocyto_tpu_torch/kernels/fma_probe.cu",
          "replaces": "bench.py:192",

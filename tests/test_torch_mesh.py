@@ -139,21 +139,29 @@ def test_ring_plan_equals_jax(rng, n, nn, shards, q):
 
 def test_sharded_routes_to_ring_over_threshold(rng, mesh, monkeypatch):
     """Above _REPLICATION_BYTES of expression the sharded call takes the
-    ring, with the same result."""
+    ring, with the same result, and hands it its center order."""
     e, d, ixs = _case(rng, 13, 40, 6)
     base = tcdc.col_delta_cor_partial_sharded(mesh, e, d, ixs, "sqrt", 1e-10)
     calls = []
     ring = tcdc.col_delta_cor_partial_ring_dev
 
     def spy(*args, **kw):
-        calls.append(args[0])
+        calls.append((args[0], kw.get("order")))
         return ring(*args, **kw)
     monkeypatch.setattr(tcdc, "col_delta_cor_partial_ring_dev", spy)
     monkeypatch.setattr(tcdc, "_REPLICATION_BYTES", 1)
     routed = tcdc.col_delta_cor_partial_sharded(mesh, e, d, ixs, "sqrt",
                                                 1e-10)
-    assert calls == [mesh]
+    assert calls == [(mesh, None)]
     np.testing.assert_allclose(routed, base, rtol=1e-4, atol=1e-5)
+    order = torch.randperm(40, generator=torch.Generator().manual_seed(1)
+                           ).to(torch.int32)
+    ordered = tcdc.col_delta_cor_partial_sharded_dev(
+        mesh, torch.from_numpy(e), torch.from_numpy(d), ixs, "sqrt", 1e-10,
+        order=order)
+    assert len(calls) == 2 and calls[1][0] is mesh and \
+        torch.equal(calls[1][1], order)
+    np.testing.assert_array_equal(ordered.numpy(), routed)
     monkeypatch.setattr(jcdc, "_REPLICATION_BYTES", 1)
     np.testing.assert_allclose(routed, jcdc.col_delta_cor_partial_sharded(
         jmake_mesh(), e, d, ixs, "sqrt", 1e-10), rtol=1e-4, atol=1e-5)
@@ -378,7 +386,7 @@ def test_flat_signature_is_bound():
     params = [p for p in sig.group(1).split(",") if p.strip()]
     stem, symbol, argtypes = kernels._SIGNATURES["coldeltacor_flat"]
     assert (stem, symbol) == ("coldeltacor_partial", "vtt_coldeltacor_flat")
-    assert len(argtypes) == len(params) == 16
+    assert len(argtypes) == len(params) == 19
     sig = re.search(r'extern "C" int vtt_coldeltacor_dense\(([^)]*)\)',
                     (kernels._HERE / "coldeltacor_dense.cu").read_text())
     params = [p for p in sig.group(1).split(",") if p.strip()]

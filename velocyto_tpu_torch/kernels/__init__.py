@@ -70,7 +70,7 @@ _SIGNATURES = {
                             [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _F, _P]),
     "coldeltacor_flat": ("coldeltacor_partial", "vtt_coldeltacor_flat",
-                         [_P] * 8 + [_I] * 6 + [_F, _P]),
+                         [_P] * 10 + [_I] * 7 + [_F, _P]),
     "fma_probe": ("fma_probe", "vtt_fma_probe",
                   [_P, _P, ctypes.c_int64, _P]),
     "svr_smo": ("svr_smo", "vtt_svr_smo",
@@ -93,6 +93,7 @@ _lib: Optional[Dict[str, Any]] = None   # ctypes functions, on first use
 _TILE_C = 64            # dense kernel: centers per block, kTC
 _CHUNK = 256            # partial kernel: neighbours per block, kChunk
 _MAX_SMEM = 232448      # bytes of shared memory a block may use (sm_90)
+_RUN_ROWS = 128         # flat kernel: table rows of one run, at most
 
 
 def _nvcc() -> str:
@@ -289,10 +290,92 @@ def coldeltacor_partial(e_full: torch.Tensor, e_ctr: torch.Tensor,
     return out if out2 is None else (out, out2)
 
 
+def flat_runs(qrow: torch.Tensor, rank: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The flat kernel's schedule over a block table with center rows
+    qrow (F,): run_start (S + 1,) int32, run r holding the table rows
+    [run_start[r], run_start[r + 1]), and run_order (S,) int32, the runs
+    in the order the kernel's blocks take them.
+
+    A run is a maximal segment of consecutive table rows with one center,
+    cut into pieces of at most _RUN_ROWS rows (the plan's dummy tail, one
+    segment of center 0, spreads over blocks), so every table row lies in
+    exactly one run and the kernel stages each center once a run.  rank:
+    an optional (M,) rank of each center row (its place in the locality
+    order, ``ops.coldeltacor.shard_rank``); the runs are then stably
+    sorted by the rank of their center, else taken in table order.  Plain
+    torch on qrow's device (one synchronisation, for the number of
+    runs)."""
+    f = qrow.shape[0]
+    dev = qrow.device
+    heads, counts = torch.unique_consecutive(qrow, return_counts=True)
+    pieces = (counts + _RUN_ROWS - 1) // _RUN_ROWS
+    seg = torch.repeat_interleave(torch.arange(heads.shape[0], device=dev),
+                                  pieces)
+    first = torch.cumsum(pieces, 0) - pieces        # each segment's first run
+    begin = torch.cumsum(counts, 0) - counts        # its first table row
+    start = begin[seg] + (torch.arange(seg.shape[0], device=dev)
+                          - first[seg]) * _RUN_ROWS
+    run_start = torch.cat([start, start.new_full((1,), f)]).to(torch.int32)
+    if rank is None:
+        run_order = torch.arange(seg.shape[0], dtype=torch.int32, device=dev)
+    else:
+        rank = rank.to(device=dev, dtype=torch.int64)
+        key = rank[heads.to(torch.int64).clamp(0, rank.shape[0] - 1)][seg]
+        run_order = torch.argsort(key, stable=True).to(torch.int32)
+    return run_start, run_order
+
+
+def _check_schedule_shape(run_start: torch.Tensor, run_order: torch.Tensor,
+                          f: int) -> None:
+    """Raise ValueError unless run_start is (S + 1,) and run_order (S,)
+    with 1 <= S <= F.  No synchronisation."""
+    s = run_start.shape[0] - 1
+    if s < 1 or s > f or tuple(run_order.shape) != (s,):
+        raise ValueError(f"run_start must be (S + 1,) and run_order (S,) "
+                         f"with 1 <= S <= F={f}, got "
+                         f"{tuple(run_start.shape)} and "
+                         f"{tuple(run_order.shape)}")
+
+
+def _check_schedule(run_start: torch.Tensor, run_order: torch.Tensor,
+                    qrow: torch.Tensor, f: int) -> None:
+    """Raise ValueError unless run_start (S + 1,) starts at 0, ends at F
+    and increases, run_order (S,) is a permutation of range(S), and every
+    run's table rows name one center (a new qrow only at a run's start).
+    One synchronisation."""
+    _check_schedule_shape(run_start, run_order, f)
+    s = run_start.shape[0] - 1
+    rs = run_start.to(torch.int64)
+    qr = qrow.to(torch.int64)
+    # S entries that hit each of the S in-range values once leave none
+    # out; out-of-range ones land in the bins at -1 and S
+    counts = torch.bincount(run_order.to(torch.int64).clamp(-1, s) + 1,
+                            minlength=s + 2)[1:s + 1]
+    starts = torch.zeros(f, dtype=torch.bool, device=rs.device)
+    starts[rs[:-1].clamp(0, f - 1)] = True
+    new_center = torch.zeros_like(starts)
+    new_center[1:] = qr[1:] != qr[:-1]
+    ends, steps, perm, one_center = torch.stack([
+        (rs[0] == 0) & (rs[-1] == f), (rs[1:] > rs[:-1]).all(),
+        counts.eq(1).all(), ~(new_center & ~starts).any()]).tolist()
+    if not ends:
+        raise ValueError(f"run_start must start at 0 and end at F={f}")
+    if not steps:
+        raise ValueError("run_start must increase")
+    if not perm:
+        raise ValueError(f"run_order is not a permutation of range({s})")
+    if not one_center:
+        raise ValueError("a run holds table rows of more than one center")
+
+
 def coldeltacor_flat(e_visit: torch.Tensor, e_ctr: torch.Tensor,
                      d_ctr: torch.Tensor, qloc: torch.Tensor,
                      qrow: torch.Tensor, transform: int, psc: float,
-                     d_ctr2: Optional[torch.Tensor] = None
+                     d_ctr2: Optional[torch.Tensor] = None,
+                     run_start: Optional[torch.Tensor] = None,
+                     run_order: Optional[torch.Tensor] = None,
+                     check: bool = True
                      ) -> Union[torch.Tensor,
                                 Tuple[torch.Tensor, torch.Tensor]]:
     """The flat block-table colDeltaCor on the card (one step of the ring
@@ -304,8 +387,19 @@ def coldeltacor_flat(e_visit: torch.Tensor, e_ctr: torch.Tensor,
     d_ctr2 from one pass, each bitwise equal to a single call.  A qloc
     outside [0, C) or a qrow outside [0, M) gives NaN there.  Each entry
     is bitwise the sampled kernel's for the same pair (same G, aligned
-    sources).  transform: 0 linear, 1 sqrt, 2 log10.  Launches on the
-    current stream and does not synchronise."""
+    sources).
+
+    run_start (S + 1,) / run_order (S,) int32: the schedule, one block a
+    run (flat_runs builds it; without run_start it is built here in table
+    order, without run_order the runs are taken in table order).  The
+    schedule never changes an output.  A schedule the caller passes is
+    checked with one synchronisation: one that does not start at 0, end
+    at F, increase, take each run once or keep one center a run raises
+    ValueError.  check=False skips that check (its shapes are still
+    checked), for a schedule flat_runs built, which is right by
+    construction: the ring's, whose launches must not wait for the card.
+    transform: 0 linear, 1 sqrt, 2 log10.  Launches on the current stream
+    and, but for that check, does not synchronise."""
     global flat_launches
     rows = dict(e_visit=e_visit, e_ctr=e_ctr, d_ctr=d_ctr)
     if d_ctr2 is not None:
@@ -314,7 +408,12 @@ def coldeltacor_flat(e_visit: torch.Tensor, e_ctr: torch.Tensor,
         _check(name, t)
     _check("qloc", qloc, (torch.int32,))
     _check("qrow", qrow, (torch.int32,), dim=1)
-    _check_same_device(qloc=qloc, qrow=qrow, **rows)
+    tables = dict(qloc=qloc, qrow=qrow)
+    for name, t in (("run_start", run_start), ("run_order", run_order)):
+        if t is not None:
+            _check(name, t, (torch.int32,), dim=1)
+            tables[name] = t
+    _check_same_device(**tables, **rows)
     c, g = e_visit.shape
     m = e_ctr.shape[0]
     f, q = qloc.shape
@@ -326,19 +425,32 @@ def coldeltacor_flat(e_visit: torch.Tensor, e_ctr: torch.Tensor,
         raise ValueError(f"qrow must be ({f},), got {tuple(qrow.shape)}")
     n_rows = 3 if d_ctr2 is not None else 2
     if c < 1 or m < 1 or f < 1 or q < 1 or c >= 2 ** 31 - 1 or \
-            f >= 2 ** 31 - 1 or 2 * n_rows * g * 4 > _MAX_SMEM:
+            f * q >= 2 ** 31 or n_rows * g * 4 > _MAX_SMEM:
         raise ValueError(f"unsupported shape: C={c}, G={g}, M={m}, F={f}, "
                          f"q={q}")
     if transform not in (0, 1, 2):
         raise ValueError(f"unknown transform code {transform}")
+    if run_start is None:
+        if run_order is not None:
+            raise ValueError("run_order needs its run_start")
+        run_start, run_order = flat_runs(qrow)
+    else:
+        if run_order is None:
+            run_order = torch.arange(max(run_start.shape[0] - 1, 0),
+                                     dtype=torch.int32,
+                                     device=run_start.device)
+        if check:
+            _check_schedule(run_start, run_order, qrow, f)
+        else:
+            _check_schedule_shape(run_start, run_order, f)
     out = torch.empty((f, q), dtype=torch.float32, device=e_visit.device)
     out2 = torch.empty_like(out) if d_ctr2 is not None else None
     _launch("coldeltacor_flat", e_visit.device, e_visit.data_ptr(),
             e_ctr.data_ptr(), d_ctr.data_ptr(),
             None if d_ctr2 is None else d_ctr2.data_ptr(), qloc.data_ptr(),
-            qrow.data_ptr(), out.data_ptr(),
-            None if out2 is None else out2.data_ptr(), c, m, g, f, q,
-            transform, float(psc))
+            qrow.data_ptr(), run_start.data_ptr(), run_order.data_ptr(),
+            out.data_ptr(), None if out2 is None else out2.data_ptr(), c, m,
+            g, f, q, run_start.shape[0] - 1, transform, float(psc))
     flat_launches += 1
     return out if out2 is None else (out, out2)
 

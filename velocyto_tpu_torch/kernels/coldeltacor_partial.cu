@@ -48,14 +48,48 @@
 // An index outside [0, N) is not dereferenced; its output is NaN.
 //
 // The flat block-table kernel beside it replaces the jitted XLA program
-// velocyto_tpu/ops/coldeltacor.py::_partial_flat_impl, the step of the ring
-// schedule (ops/coldeltacor.py::make_partial_ring): expression is split
-// over the mesh's shards too, and at each step a shard correlates its own
-// centers with the chunk of cells visiting it, through a table whose row f
-// holds one center (qrow[f]) and q rows of the chunk (qloc[f, :]).  It
-// shares the center staging and the per-pair loop with the sampled kernel
-// (stage_center, quad_corr), so a pair's correlation is bitwise the one
-// the sampled kernel gives it.  Its table rows carry no locality order.
+// velocyto_tpu/ops/coldeltacor.py::_partial_flat_impl (:589), the step of
+// the ring schedule (ops/coldeltacor.py::make_partial_ring): expression is
+// split over the mesh's shards too, and at each step a shard correlates
+// its own centers with the chunk of cells visiting it, through a table
+// whose row f holds one center (qrow[f]) and q rows of the chunk (qloc[f,
+// :]).  The plan packs each center's entries into adjacent table rows, so
+// the table is a sequence of runs: segments of rows with one center, cut
+// at 128 rows so a long one (the plan's dummy tail) spreads over blocks
+// (kernels.flat_runs builds them on the card: run_start, and run_order,
+// the runs in the locality rank of their centers).
+//
+// What bounds it: the same as the sampled kernel.  At the 20k operating
+// point over 2 shards the 4 tables gather 7.06e10 / G rows of 4G bytes
+// (~282 GB, >= 84 ms from device memory, so the L2 has to serve them) for
+// 7.06e10 (entry, gene) steps: 10.5 ms of FP32, 16.9 ms of SFU at one MUFU
+// op per step.
+//
+// What the design does about it:
+//   - one block a run, blocks in run_order: the center row and its
+//     displacement row(s) are staged and reduced once per run
+//     (stage_center), then the run's ~55 table rows (~875 entries at
+//     nn 1750, 2 shards) are walked as the sampled kernel walks a center's
+//     neighbours; in the embedding's locality order the blocks in flight
+//     gather from rows the L2 holds.  A run of one center, split, or
+//     taken in any order gives the same outputs;
+//   - warp w takes the run's quads w, w + kWarps, ..., loads each quad's
+//     rows from global memory (quad_corr: 16-byte loads where G % 4 == 0
+//     and the source is aligned, else 4-byte ones, the sampled kernel's
+//     rule) and the next quad's ids while it works, so no row address
+//     waits on them; 3 blocks an SM (24 warps; 2 for the linear dual step,
+//     which needs more than 80 registers) keep more rows in flight.  Bulk
+//     copies of the rows into a shared-memory ring (a producer warp's
+//     cp.async.bulk of 2 KB segments, on mbarriers) were measured at the
+//     20k point on the H100: 70 ms in any order, against 41 ms for these
+//     loads in locality order (PERF.md), so the kernel has no such route;
+//   - bitwise by construction: a pair's moments accumulate as in the
+//     sampled kernel (quad_corr), so each entry is bitwise the sampled
+//     kernel's for the same pair (same G, aligned sources).
+// The schedule must cover the table (kernels.coldeltacor_flat checks one
+// that a caller passes): a table row no run holds keeps its outputs
+// unwritten.  An entry of run_order out of range, or a run whose rows are
+// not in [0, F), is skipped rather than dereferenced.
 //
 // C interface (bound with ctypes): vtt_coldeltacor_partial and
 // vtt_coldeltacor_flat return the cudaError_t of the launch as an int; 0
@@ -98,9 +132,6 @@ struct Args {
   float psc;
 };
 
-constexpr int kFlatRows = 2;                        // table rows a block
-constexpr int kWarpsPerRow = kWarps / kFlatRows;    // warps a table row
-
 struct FlatArgs {
   const float* e_visit;  // (C, G) gather source: the chunk visiting
   const float* e_ctr;    // (M, G) center rows of this shard
@@ -108,9 +139,11 @@ struct FlatArgs {
   const float* d_ctr2;   // (M, G) second displacement rows, or null
   const int* qloc;       // (F, q) rows of e_visit
   const int* qrow;       // (F,) center row of each table row
+  const int* run_start;  // (S + 1,) run r: rows [start[r], start[r + 1])
+  const int* run_order;  // (S,) the run each block takes
   float* out;            // (F, q)
   float* out2;           // (F, q), or null
-  int C, M, G, F, q;
+  int C, M, G, F, q, S;
   float psc;
 };
 
@@ -286,66 +319,94 @@ coldeltacor_partial_kernel(Args p) {
   }
 }
 
-// The flat block-table form (the ring schedule's step): block f of the
-// table pairs center row qrow[f] of e_ctr / d_ctr with the q rows
-// qloc[f, :] of e_visit, the chunk of cells visiting this shard.  A
-// CUDA block takes kFlatRows table rows: it stages their centers one
-// after the other (each reduced by all threads, as above), then
-// kWarps / kFlatRows warps take each row's entries kQuad at a time.
+// The ids of quad k0..k0+kQuad-1 of a run (loc: its qloc entries, E of
+// them), -1 past E.  Each walker of the run's quads loads the next quad's
+// ids while it works on the current one, so no row address waits on them.
+__device__ __forceinline__ void quad_ids(const int* loc, int k0, int E,
+                                         int j[kQuad]) {
+#pragma unroll
+  for (int u = 0; u < kQuad; ++u) j[u] = k0 + u < E ? loc[k0 + u] : -1;
+}
+
+// The rows of a quad's ids: a slot past E or with a row outside [0, C) is
+// not ok and points at row 0, which is never written out.
+__device__ __forceinline__ void quad_rows(const FlatArgs& p,
+                                          const int j[kQuad],
+                                          const float* row[kQuad],
+                                          bool ok[kQuad]) {
+#pragma unroll
+  for (int u = 0; u < kQuad; ++u) {
+    ok[u] = j[u] >= 0 && j[u] < p.C;
+    row[u] = p.e_visit + (size_t)(ok[u] ? j[u] : 0) * (size_t)p.G;
+  }
+}
+
+// Move a walker to its next quad (k0 += kQuad * kWarps): its rows from the
+// ids loaded ahead, and the ids of the quad after it loaded now.
+__device__ __forceinline__ void next_quad(const FlatArgs& p, const int* loc,
+                                          int E, int& k0, int nj[kQuad],
+                                          const float* row[kQuad],
+                                          bool ok[kQuad]) {
+  k0 += kQuad * kWarps;
+  quad_rows(p, nj, row, ok);
+  quad_ids(loc, k0 + kQuad * kWarps, E, nj);
+}
+
+// The flat block-table form (the ring schedule's step): block b takes run
+// run_order[b], the table rows [run_start[r], run_start[r + 1]) of one
+// center qrow[run_start[r]], pairs that center of e_ctr / d_ctr with the
+// rows qloc[f, :] of e_visit (the chunk of cells visiting this shard) and
+// writes out[f, :].  It stages the center once; then warp w takes the
+// run's entries kQuad at a time (quads w, w + kWarps, ...).  3 blocks an
+// SM (80 registers a thread, 24 KB of center rows a block at G = 2000),
+// but 2 for the linear dual step, which would spill at 80.
 template <int TF, bool DUAL, bool VEC>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, TF == kLinear && DUAL ? 2 : 3)
 coldeltacor_flat_kernel(FlatArgs p) {
   extern __shared__ float4 smem4[];
-  __shared__ float red[kFlatRows][kWarps][4];
+  __shared__ float red[kWarps][4];
+  const int r = p.run_order[blockIdx.x];
+  if (r < 0 || r >= p.S) return;                 // not a run
+  const int f0 = p.run_start[r], f1 = p.run_start[r + 1];
+  if (f0 < 0 || f1 > p.F || f1 <= f0) return;    // not rows of the table
+  const int E = (f1 - f0) * p.q;                 // the run's entries
+  const size_t e0 = (size_t)f0 * (size_t)p.q;    // its first, in qloc / out
+  const int* loc = p.qloc + e0;
+  const int m = p.qrow[f0];                      // the run's center
   const int G = p.G;
-  const int nrow = DUAL ? 3 : 2;                 // rows staged a center
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int f0 = blockIdx.x * kFlatRows;
-  CenterSums cs[kFlatRows];
-#pragma unroll
-  for (int r = 0; r < kFlatRows; ++r) {
-    cs[r] = {0.0f, 0.0f, 0.0f, 0.0f};
-    const int f = f0 + r;
-    if (f >= p.F) break;                         // uniform over the block
-    const int m = p.qrow[f];
-    if (m < 0 || m >= p.M) continue;             // its entries give NaN
-    float* ec = smem + r * nrow * G;
-    const size_t crow = (size_t)m * (size_t)G;
-    cs[r] = stage_center<DUAL>(
-        p.e_ctr + crow, p.d_ctr + crow, DUAL ? p.d_ctr2 + crow : nullptr, G,
-        ec, ec + G, ec + 2 * G, red[r]);
+  if (m < 0 || m >= p.M) {                       // every entry gives NaN
+    const float nan = __int_as_float(0x7fc00000);
+    for (int t = threadIdx.x; t < E; t += kThreads) {
+      p.out[e0 + t] = nan;
+      if (DUAL) p.out2[e0 + t] = nan;
+    }
+    return;
   }
-
+  float* ec = reinterpret_cast<float*>(smem4);   // [G] center row
+  float* b = ec + G;                             // [G] displacement row
+  float* b2 = b + G;                             // [G] second one (DUAL)
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int r = warp / kWarpsPerRow;
-  const int f = f0 + r;
-  if (f >= p.F) return;                          // no barrier follows
-  const int m = p.qrow[f];
-  const bool center_ok = m >= 0 && m < p.M;
-  const float* ec = smem + r * nrow * G;
-  const CenterSums sums = r == 0 ? cs[0] : cs[kFlatRows - 1];
-  const int* loc = p.qloc + (size_t)f * (size_t)p.q;
-  for (int k0 = kQuad * (warp % kWarpsPerRow); k0 < p.q;
-       k0 += kQuad * kWarpsPerRow) {
-    const float* row[kQuad];
-    bool ok[kQuad];
-#pragma unroll
-    for (int u = 0; u < kQuad; ++u) {
-      const int j = k0 + u < p.q ? loc[k0 + u] : -1;
-      ok[u] = center_ok && j >= 0 && j < p.C;
-      row[u] = p.e_visit + (size_t)(ok[u] ? j : 0) * (size_t)G;
-    }
+  const size_t crow = (size_t)m * (size_t)G;
+  const CenterSums cs = stage_center<DUAL>(
+      p.e_ctr + crow, p.d_ctr + crow, DUAL ? p.d_ctr2 + crow : nullptr, G,
+      ec, b, b2, red);
+
+  const float* row[kQuad];
+  bool ok[kQuad];
+  int nj[kQuad];
+  int k0 = kQuad * (warp - kWarps);
+  quad_ids(loc, k0 + kQuad * kWarps, E, nj);
+  for (next_quad(p, loc, E, k0, nj, row, ok); k0 < E;
+       next_quad(p, loc, E, k0, nj, row, ok)) {
     float c1[kQuad], c2[kQuad];
-    quad_corr<TF, DUAL, VEC>(row, ok, ec, ec + G, ec + 2 * G, G, p.psc,
-                             sums, c1, c2);
+    quad_corr<TF, DUAL, VEC>(row, ok, ec, b, b2, G, p.psc, cs, c1, c2);
     if (lane == 0) {
 #pragma unroll
       for (int u = 0; u < kQuad; ++u) {
-        if (k0 + u >= p.q) break;
-        const size_t o = (size_t)f * (size_t)p.q + k0 + u;
-        p.out[o] = c1[u];
-        if (DUAL) p.out2[o] = c2[u];
+        if (k0 + u >= E) break;
+        p.out[e0 + k0 + u] = c1[u];
+        if (DUAL) p.out2[e0 + k0 + u] = c2[u];
       }
     }
   }
@@ -420,17 +481,15 @@ namespace {
 
 template <int TF, bool DUAL, bool VEC>
 cudaError_t launch_flat(const FlatArgs& p, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)kFlatRows * (DUAL ? 3 : 2) * (size_t)p.G * sizeof(float);
+  const size_t smem = (size_t)(DUAL ? 3 : 2) * (size_t)p.G * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         coldeltacor_flat_kernel<TF, DUAL, VEC>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const unsigned blocks = (unsigned)((p.F + kFlatRows - 1) / kFlatRows);
   coldeltacor_flat_kernel<TF, DUAL, VEC>
-      <<<blocks, kThreads, smem, stream>>>(p);
+      <<<(unsigned)p.S, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -448,11 +507,14 @@ cudaError_t pick_flat(const FlatArgs& p, bool vec, cudaStream_t s) {
 extern "C" int vtt_coldeltacor_flat(const void* e_visit, const void* e_ctr,
                                     const void* d_ctr, const void* d_ctr2,
                                     const void* qloc, const void* qrow,
-                                    void* out, void* out2, int C, int M,
-                                    int G, int F, int q, int transform,
-                                    float psc, void* stream) {
-  if (C < 1 || M < 1 || G < 1 || F < 1 || q < 1 ||
-      (d_ctr2 == nullptr) != (out2 == nullptr))
+                                    const void* run_start,
+                                    const void* run_order, void* out,
+                                    void* out2, int C, int M, int G, int F,
+                                    int q, int S, int transform, float psc,
+                                    void* stream) {
+  if (C < 1 || M < 1 || G < 1 || F < 1 || q < 1 || S < 1 || S > F ||
+      (long long)F * q > 0x7fffffffLL || run_start == nullptr ||
+      run_order == nullptr || (d_ctr2 == nullptr) != (out2 == nullptr))
     return (int)cudaErrorInvalidValue;
   FlatArgs p;
   p.e_visit = static_cast<const float*>(e_visit);
@@ -461,6 +523,8 @@ extern "C" int vtt_coldeltacor_flat(const void* e_visit, const void* e_ctr,
   p.d_ctr2 = static_cast<const float*>(d_ctr2);
   p.qloc = static_cast<const int*>(qloc);
   p.qrow = static_cast<const int*>(qrow);
+  p.run_start = static_cast<const int*>(run_start);
+  p.run_order = static_cast<const int*>(run_order);
   p.out = static_cast<float*>(out);
   p.out2 = static_cast<float*>(out2);
   p.C = C;
@@ -468,6 +532,7 @@ extern "C" int vtt_coldeltacor_flat(const void* e_visit, const void* e_ctr,
   p.G = G;
   p.F = F;
   p.q = q;
+  p.S = S;
   p.psc = psc;
   // the same rule as the sampled kernel: with the same G and an aligned
   // gather source both take the same loop, so a pair's moments agree

@@ -36,7 +36,8 @@ All computation is float32.
 from __future__ import annotations
 
 import os
-from typing import List, Optional, Tuple, Union
+import time
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -506,13 +507,13 @@ def col_delta_cor_partial_sharded_dev(mesh: Mesh, emat, dmat, ixs,
     shard's device; above _REPLICATION_BYTES of expression the ring
     schedule takes over (col_delta_cor_partial_ring_dev).  emat / dmat:
     (G, N) numpy or tensors; order: an optional permutation of range(N)
-    (``locality_order``) each shard takes its centers in.  Each entry is
-    bitwise the mesh-free kernel's."""
+    (``locality_order``) each shard takes its centers in, on the ring
+    too.  Each entry is bitwise the mesh-free kernel's."""
     first = mesh.first_device
     e = _as_f32(emat, first)
     if e.numel() * 4 > _REPLICATION_BYTES:
         return col_delta_cor_partial_ring_dev(mesh, e, dmat, ixs, transform,
-                                              psc, dmat_random)
+                                              psc, dmat_random, order=order)
     e_rows = e.T.contiguous()
     d_rows = _as_f32(dmat, first).T.contiguous()
     d2_rows = None if dmat_random is None else \
@@ -607,16 +608,33 @@ def _ring_plan(ixs: np.ndarray, shards: int, chunk: int, q: int = 16):
     return qloc, qrow, inv_pos.astype(np.int32), bmax
 
 
+def shard_rank(order: torch.Tensor, lo: int, hi: int,
+               rows: int) -> torch.Tensor:
+    """The rank of each of a shard's ``rows`` local center rows (global
+    rows [lo, hi), then padding) in the locality order ``order`` (a
+    permutation of range(N)): the inverse of ``chunk_order(order, lo,
+    hi)``, the padding rows ranked after them.  (rows,) int64 on order's
+    device, for kernels.flat_runs."""
+    rank = torch.arange(rows, dtype=torch.int64, device=order.device)
+    if hi > lo:
+        mine = chunk_order(order, lo, hi).to(torch.int64)
+        rank[mine] = torch.arange(hi - lo, dtype=torch.int64,
+                                  device=order.device)
+    return rank
+
+
 def _col_delta_cor_flat_plain(e_visit: torch.Tensor, e_ctr: torch.Tensor,
                               d_ctr: torch.Tensor, qloc: torch.Tensor,
                               qrow: torch.Tensor, transform: int = _LINEAR,
-                              psc: float = 0.0) -> torch.Tensor:
+                              psc: float = 0.0, run_start=None,
+                              run_order=None) -> torch.Tensor:
     """Plain PyTorch flat block-table colDeltaCor with the partial
     transform semantics (transcribes _partial_flat_impl): e_visit (C, G)
     gather source, e_ctr / d_ctr (M, G) center rows, qloc (F, q) rows of
     e_visit, qrow (F,) rows of e_ctr -> (F, q) f32 on the inputs' device.
     Blocked over table rows so the gathered (B, q, G) tensor stays near
-    64 MB."""
+    64 MB.  The kernel's schedule (run_start, run_order) changes no
+    output, so it is taken and not used."""
     f, q = qloc.shape
     g = e_ctr.shape[1]
     block = max(1, (1 << 24) // max(1, q * g))
@@ -643,13 +661,18 @@ def _col_delta_cor_flat_plain(e_visit: torch.Tensor, e_ctr: torch.Tensor,
 
 def _flat_rows(e_visit: torch.Tensor, e_ctr: torch.Tensor,
                d_ctr: torch.Tensor, qloc: torch.Tensor, qrow: torch.Tensor,
-               tcode: int, psc: float, d_ctr2: Optional[torch.Tensor] = None):
+               tcode: int, psc: float, d_ctr2: Optional[torch.Tensor] = None,
+               run_start: Optional[torch.Tensor] = None,
+               run_order: Optional[torch.Tensor] = None):
     """One ring step of one shard: one launch of the flat kernel (both
-    fields in it) for a CUDA tensor, the plain version for a CPU tensor;
-    the pair with d_ctr2."""
+    fields in it) on the schedule (run_start, run_order; kernels.flat_runs
+    built it, so the launch does not check it) for a CUDA tensor, the
+    plain version for a CPU tensor; the pair with d_ctr2."""
     if e_visit.is_cuda:
         return kernels.coldeltacor_flat(e_visit, e_ctr, d_ctr, qloc, qrow,
-                                        tcode, psc, d_ctr2)
+                                        tcode, psc, d_ctr2,
+                                        run_start=run_start,
+                                        run_order=run_order, check=False)
     if e_visit.device.type == "cpu":
         outs = tuple(_col_delta_cor_flat_plain(e_visit, e_ctr, d, qloc,
                                                qrow, tcode, psc)
@@ -692,20 +715,39 @@ def _rotate(mesh: Mesh, shards, visit: List[torch.Tensor]
     return nxt, ready
 
 
+def _lap(shards, split: Optional[Dict[str, float]], name: str,
+         t0: float) -> float:
+    """With a split dict (the ring's ``split=``): synchronise the shards'
+    cards, add the seconds since t0 to split[name] and return the time
+    now.  Without one: nothing, t0 back."""
+    if split is None:
+        return t0
+    for dev in {s.device for s in shards if s.device.type == "cuda"}:
+        torch.cuda.synchronize(dev)
+    now = time.perf_counter()
+    split[name] = split.get(name, 0.0) + now - t0
+    return now
+
+
 def make_partial_ring(mesh: Mesh, shards: int, bmax: int, qwidth: int,
                       nn: int, transform: str = "linear", psc: float = 0.0):
     """The ring sampled colDeltaCor over the block-quantized plan.
 
     Returns fn(e_parts, d_parts, qloc_parts, qrow_parts, inv_parts,
-    d2_parts=None) -> this process's (C, nn) blocks (pairs with
-    d2_parts); each argument holds one tensor per local cells shard on
-    its device: its chunk of expression and displacement rows (C, G), its
-    tables qloc (P, Bmax, q), qrow (P, Bmax) and its rows of inv_pos (C,
-    nn).  At step s shard p runs the flat kernel on the chunk it holds,
-    (p + s) % P, after issuing that chunk's hand-over to shard p - 1 (so
-    the copy overlaps the launch); P launches a shard, both fields in
-    each.  The final gather through inv_pos is plain torch.  Port of the
-    JAX package's make_partial_ring."""
+    d2_parts=None, order=None, split=None) -> this process's (C, nn)
+    blocks (pairs with d2_parts); each argument holds one tensor per local
+    cells shard on its device: its chunk of expression and displacement
+    rows (C, G), its tables qloc (P, Bmax, q), qrow (P, Bmax) and its rows
+    of inv_pos (C, nn).  Each table's schedule (kernels.flat_runs) is
+    built first: its runs in the locality rank of their centers under
+    ``order`` (a permutation of range(N), ``locality_order``;
+    shard_rank), in table order without it; the order changes no output.
+    split: as in col_delta_cor_partial_ring_dev.  At step s shard p runs the flat
+    kernel on the chunk it holds, (p + s) % P, after issuing that chunk's
+    hand-over to shard p - 1 (so the copy overlaps the launch); P launches
+    a shard, both fields in each.  The final gather through inv_pos is
+    plain torch.  Port of the JAX package's make_partial_ring (which has
+    no order)."""
     tcode = _TRANSFORMS[transform]
     local = mesh.cell_shards()
     if mesh.shape[CELLS] != shards:
@@ -713,7 +755,20 @@ def make_partial_ring(mesh: Mesh, shards: int, bmax: int, qwidth: int,
                          f"{mesh.shape[CELLS]}")
 
     def fn(e_parts, d_parts, qloc_parts, qrow_parts, inv_parts,
-           d2_parts=None):
+           d2_parts=None, order=None, split=None):
+        t = time.perf_counter()
+        scheds = []
+        for i, s in enumerate(local):
+            with on_shard(s, qrow_parts[i]):
+                rank = None
+                if order is not None:
+                    rows = e_parts[i].shape[0]
+                    lo = s.index * rows
+                    rank = shard_rank(order.to(s.device), lo,
+                                      min(order.shape[0], lo + rows), rows)
+                scheds.append([kernels.flat_runs(qrow_parts[i][v], rank)
+                               for v in range(shards)])
+        t = _lap(local, split, "schedule", t)
         dual = d2_parts is not None
         outs = [[torch.empty((shards, bmax, qwidth), dtype=torch.float32,
                              device=s.device) for _ in range(1 + dual)]
@@ -730,7 +785,8 @@ def make_partial_ring(mesh: Mesh, shards: int, bmax: int, qwidth: int,
                     part = _flat_rows(visit[i], e_parts[i], d_parts[i],
                                       qloc_parts[i][v], qrow_parts[i][v],
                                       tcode, psc,
-                                      d2_parts[i] if dual else None)
+                                      d2_parts[i] if dual else None,
+                                      *scheds[i][v])
                     for o, pt in zip(outs[i], part if dual else (part,)):
                         o[v].copy_(pt)
             if step + 1 < shards:
@@ -739,6 +795,7 @@ def make_partial_ring(mesh: Mesh, shards: int, bmax: int, qwidth: int,
                         s.stream.wait_event(ready[i])
                         nxt[i].record_stream(s.stream)
                 visit = nxt
+        t = _lap(local, split, "launches", t)
         res = []
         for i, s in enumerate(local):
             with on_shard(s, inv_parts[i]):
@@ -746,6 +803,7 @@ def make_partial_ring(mesh: Mesh, shards: int, bmax: int, qwidth: int,
                 got = tuple(o.reshape(-1)[idx] for o in outs[i])
             res.append(got if dual else got[0])
         join(local, res)
+        _lap(local, split, "gather", t)
         return res
 
     return fn
@@ -753,12 +811,24 @@ def make_partial_ring(mesh: Mesh, shards: int, bmax: int, qwidth: int,
 
 def col_delta_cor_partial_ring_dev(mesh: Mesh, emat, dmat, ixs,
                                    transform: str = "linear",
-                                   psc: float = 0.0, dmat_random=None):
+                                   psc: float = 0.0, dmat_random=None,
+                                   order: Optional[torch.Tensor] = None,
+                                   split: Optional[Dict[str, float]] = None):
     """Fully split sampled colDeltaCor (expression split over the mesh's
     cells shards, chunks handed round the ring) returning the compact (N,
     nn) correlations on the mesh's first device (the whole result on every
     process), the pair with dmat_random.  Each pair's moments accumulate
-    as in the sampled kernel."""
+    as in the sampled kernel.  order: an optional permutation of range(N)
+    (``locality_order``) the flat kernel takes each shard's centers in
+    (make_partial_ring); it changes no output.  split: an optional dict
+    that receives the host seconds of the call's pieces, the mesh's cards
+    synchronised between them (so only a measurement passes one): "upload"
+    (the inputs as f32 rows, the chunks and tables to the shards), "plan"
+    (_ring_plan, on the host), "schedule" (the ranks and
+    kernels.flat_runs), "launches" (the P steps: flat launches,
+    hand-overs, copies into the outputs) and "gather" (through inv_pos,
+    then the rows to the first device)."""
+    t = time.perf_counter()
     first = mesh.first_device
     e_rows = _as_f32(emat, first).T
     d_rows = _as_f32(dmat, first).T
@@ -769,9 +839,14 @@ def col_delta_cor_partial_ring_dev(mesh: Mesh, emat, dmat, ixs,
     nn = ixs.shape[1]
     shards = mesh.shape[CELLS]
     chunk = (n + shards - 1) // shards
+    if order is not None:
+        order = order.to(first)
+        _check_permutation(order, n)
     qwidth = min(16, nn)
-    qloc, qrow, inv_pos, bmax = _ring_plan(ixs, shards, chunk, q=qwidth)
     local = mesh.cell_shards()
+    t = _lap(local, split, "upload", t)     # the inputs as f32 rows
+    qloc, qrow, inv_pos, bmax = _ring_plan(ixs, shards, chunk, q=qwidth)
+    t = _lap(local, split, "plan", t)
 
     def chunks(rows):
         pad = torch.zeros((chunk * shards, g), dtype=torch.float32,
@@ -784,19 +859,25 @@ def col_delta_cor_partial_ring_dev(mesh: Mesh, emat, dmat, ixs,
         return [torch.as_tensor(a[s.index], device=s.device) for s in local]
 
     fn = make_partial_ring(mesh, shards, bmax, qwidth, nn, transform, psc)
-    parts = fn(chunks(e_rows), chunks(d_rows), tables(qloc), tables(qrow),
-               [torch.as_tensor(inv_pos[s.index * chunk:
-                                        (s.index + 1) * chunk],
-                                device=s.device) for s in local],
-               None if d2_rows is None else chunks(d2_rows))
+    args = (chunks(e_rows), chunks(d_rows), tables(qloc), tables(qrow),
+            [torch.as_tensor(inv_pos[s.index * chunk:
+                                     (s.index + 1) * chunk],
+                             device=s.device) for s in local],
+            None if d2_rows is None else chunks(d2_rows))
+    _lap(local, split, "upload", t)
+    parts = fn(*args, order=order, split=split)
+    t = time.perf_counter()
     counts = [max(0, min(chunk, n - p * chunk)) for p in range(shards)]
     # the last shards hold the padding rows
     rows = [counts[s.index] for s in local]
     if d2_rows is None:
-        return gather_rows(mesh, [p[:r] for p, r in zip(parts, rows)],
-                           counts)
-    return tuple(gather_rows(mesh, [p[k][:r] for p, r in zip(parts, rows)],
-                             counts) for k in (0, 1))
+        out = gather_rows(mesh, [p[:r] for p, r in zip(parts, rows)], counts)
+    else:
+        out = tuple(gather_rows(mesh, [p[k][:r] for p, r in
+                                       zip(parts, rows)], counts)
+                    for k in (0, 1))
+    _lap(local, split, "gather", t)
+    return out
 
 
 def col_delta_cor_partial_ring(mesh: Mesh, emat, dmat, ixs,
