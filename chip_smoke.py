@@ -25,7 +25,16 @@ comes out:
     order, each bitwise equal to one sampled launch), and the device
     permutation alone; the session's device
     tensors, host arrays and metadata are checkpointed (io.checkpoint)
-    and reloaded on the card, bitwise;
+    and reloaded on the card, bitwise; then the public surface on that
+    session (knn_search at k=500 on its PCA space, bitwise
+    knn_search_dev's rows and the f64 brute force on sampled rows;
+    BalancedKNN(k=500, sight_k=3000, maxl=1500) on the native loop of
+    native/balance.cpp, bitwise the numpy loop and the balance kernels
+    on the same candidates, both loops timed;
+    col_delta_cor_partial_compact_dev on the session's compact neighbour
+    ids, one single-field sampled launch, bitwise the session's
+    correlations; smooth_dev; every attribute the plot_* methods read,
+    and the plots themselves on Agg where matplotlib imports);
   - both pipelines again under torch.profiler (utils.profiling.trace):
     the device's idle share over the pipeline and its transition stage,
     the five device kernels that took the most time, the profiled total
@@ -616,8 +625,8 @@ def sampler_phase():
     n, nn_k, n_samp = 2000, 401, 200
     p = np.linspace(0.5, 0.1, nn_k)
     p /= p.sum()
-    got, draws, state = native.choice_noreplace_rows(15071990, n, nn_k,
-                                                     n_samp, p)
+    got, draws, state = native.choice_noreplace_rows_state(
+        15071990, n, nn_k, n_samp, p)
     want, want_state = native.choice_rows_plain(15071990, n, nn_k, n_samp, p)
     same = np.array_equal(got, want) and _same_state(state, want_state)
     print(f"# sampler N={n} nn_k={nn_k} n_samp={n_samp}: positions and "
@@ -628,7 +637,7 @@ def sampler_phase():
     p = np.linspace(0.5, 0.1, nn_k)
     p /= p.sum()
     t0 = time.perf_counter()
-    whole, w_draws, w_state = native.choice_noreplace_rows(
+    whole, w_draws, w_state = native.choice_noreplace_rows_state(
         15071990, CELLS, nn_k, NN_SAMPLED, p)
     whole_s = time.perf_counter() - t0
     bounds = []
@@ -2165,20 +2174,28 @@ def _balance_invariants(dsi_new, l, maxl):
 
 
 def _host_balance(dsi, dist, lsi, maxl, k, cst=None):
-    """The host greedy loop on the card's candidates: (its outputs back on
-    the card, seconds with the copies to and from the host, seconds of
-    the loop alone)."""
-    from velocyto_tpu_torch.ops.knn import balance_knn_loop
+    """The host greedy loops on the card's candidates: the numpy loop
+    (balance_knn_loop_plain, the series kept since the balance kernel
+    came) and the C++ loop (native.balance_knn_loop).  Returns (the numpy
+    loop's outputs back on the card, seconds with the copies to and from
+    the host, seconds of the numpy loop alone, the C++ loop's outputs on
+    the card, seconds of the C++ loop alone)."""
+    from velocyto_tpu_torch import native
+    from velocyto_tpu_torch.ops.knn import balance_knn_loop_plain
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     host = [t.cpu().numpy() for t in (dsi, dist, lsi)]
     c = None if cst is None else cst.cpu().numpy()
     t1 = time.perf_counter()
-    out = balance_knn_loop(*host, maxl, k, True, c)
+    out = balance_knn_loop_plain(*host, maxl, k, True, c)
     t2 = time.perf_counter()
     out = [torch.as_tensor(a, device=DEVICE) for a in out]
     torch.cuda.synchronize()
-    return out, time.perf_counter() - t0, t2 - t1
+    t3 = time.perf_counter()
+    nat = native.balance_knn_loop(*host, maxl, k, True, c)
+    t4 = time.perf_counter()
+    nat = [torch.as_tensor(a, device=DEVICE) for a in nat]
+    return out, t3 - t0, t2 - t1, nat, t4 - t3
 
 
 def _examined(dsi, dsi_new, k):
@@ -2259,8 +2276,8 @@ def _hold_balance(name, dsi, dist, lsi, cst, maxl, smi):
     decode_plain_ms, dec_want = _median_ms(lambda: kd._balance_decode_plain(
         bits, meta, dsi, dist, K), reps=2)
     forced = kernels.knn_balance(dsi, dist, lsi, cst, maxl, K, route=other)
-    same = {"plain": None, "host loop": None, f"{other} route":
-            _same_balance(got, forced)}
+    same = {"plain": None, "host loop": None, "native loop": None,
+            f"{other} route": _same_balance(got, forced)}
     if cst is not None:
         labels = "staged" if plan.labels == "shared" else "shared"
         same[f"{labels} labels"] = _same_balance(got, kernels.knn_balance(
@@ -2271,9 +2288,11 @@ def _hold_balance(name, dsi, dist, lsi, cst, maxl, smi):
     same["plain"] = _same_balance(got, want)
     err = float((got[0] - want[0]).abs().max())
     del want
-    host, host_s, loop_s = _host_balance(dsi, dist, lsi, maxl, K, cst)
+    host, host_s, loop_s, nat, native_s = _host_balance(dsi, dist, lsi,
+                                                        maxl, K, cst)
     same["host loop"] = _same_balance(got, host)
-    del host
+    same["native loop"] = _same_balance(got, nat)
+    del host, nat
     dec_same = _same_balance(dec, dec_want) and _same_balance(dec, got[:2])
     inv = _balance_invariants(got[1], got[2], maxl)
     examined = _examined(dsi, got[1], K)
@@ -2287,8 +2306,9 @@ def _hold_balance(name, dsi, dist, lsi, cst, maxl, smi):
           f"3, CUDA events) = {ms * 1e3 / n!r} us a node; walk {walk_ms!r} "
           f"ms, decode {decode_ms!r} ms (plain twin {decode_plain_ms!r} ms, "
           f"bitwise equal: {dec_same}); plain scan {plain_ms!r} ms, host "
-          f"loop {loop_s * 1e3!r} ms alone, {host_s * 1e3!r} ms with its "
-          f"copies (host clock); {past} rows examined past T = "
+          f"loop (numpy) {loop_s * 1e3!r} ms alone, {host_s * 1e3!r} ms "
+          f"with its copies, native loop {native_s * 1e3!r} ms alone (host "
+          f"clock); {past} rows examined past T = "
           f"{plan.depth}, {float(examined.double().mean())!r} positions a "
           f"row; {selffilled} rows self-filled; bitwise equal: {same}; "
           f"l <= maxl and l the in-degree of dsi_new: {inv}", flush=True)
@@ -2299,6 +2319,7 @@ def _hold_balance(name, dsi, dist, lsi, cst, maxl, smi):
             "max_abs_err": err, "decode_max_abs_err": dec_err,
             "host_loop_ms": loop_s * 1e3,
             "host_loop_with_copies_ms": host_s * 1e3,
+            "native_loop_ms": native_s * 1e3,
             "us_per_node": ms * 1e3 / n, "rows_past_T": past,
             "self_filled": selffilled, "plan": tuple(plan),
             "got": got, "bits": bits, "meta": meta}
@@ -2429,6 +2450,236 @@ def checkpoint_phase(v):
           f"({nbytes / 2**30:.2f} GiB), {len(arrays)} host arrays, "
           f"{len(meta)} metadata values; save {t1 - t0:.3f} s, load "
           f"{t2 - t1:.3f} s; all equal", flush=True)
+
+
+# the public-surface phase: rows of the f64 brute-force spot check, rows
+# of the plain sampled colDeltaCor check, the plain-loop repeats, and the
+# attributes the eight plot_* methods read (default session, Sx_sz path)
+SURFACE_SPOT_ROWS, SURFACE_PLAIN_ROWS, SURFACE_LOOP_REPS = 64, 500, 2
+PLOT_INPUTS = ("S", "A", "U", "pcs", "colorandum", "Sx_sz", "Ux_sz",
+               "Sx_sz_t", "S_sz", "gammas", "q", "flow", "flow_rndm",
+               "flow_norm", "flow_norm_rndm", "flow_norm_magnitude",
+               "flow_norm_magnitude_rndm", "total_p_mass", "flow_grid",
+               "flow_embedding", "embedding", "delta_embedding",
+               "delta_embedding_random", "ts")
+
+
+def _host_ms(fn, reps):
+    """(median ms on the host clock of reps calls, the last result)."""
+    times, out = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def _check_plot_inputs(v):
+    """Every attribute the plots read, materialised: finite, one cached
+    host copy (a second read is the same object), and, where the value
+    lives on the card, equal to its device tensor."""
+    dev_state = v.__dict__["_dev_state"]
+    on_card = []
+    for name in PLOT_INPUTS:
+        val = getattr(v, name)
+        assert isinstance(val, np.ndarray) and np.all(np.isfinite(val)), name
+        assert getattr(v, name) is val, f"{name}: not one cached copy"
+        if name in dev_state:
+            want = dev_state[name].cpu().numpy().astype(val.dtype)
+            assert np.array_equal(val, want), f"{name} != its device tensor"
+            on_card.append(name)
+    return on_card
+
+
+def _draw_plots(v, d):
+    """The eight plot_* methods, scatter_viz and score_cv_vs_mean's
+    figure on the Agg backend, each saved into d; returns the files."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    from velocyto_tpu_torch import analysis
+    genes = [str(g) for g in v.ra["Gene"][:2]]    # kept by the filters
+    draws = {
+        "fractions": lambda: v.plot_fractions(),
+        "pca": lambda: v.plot_pca(),
+        "pca_imputed": lambda: v._plot_pca_imputed(),
+        "phase_portraits": lambda: v.plot_phase_portraits(genes),
+        "grid_arrows": lambda: v.plot_grid_arrows(),
+        "arrows_embedding": lambda: v.plot_arrows_embedding(new_fig=True),
+        "cell_transitions": lambda: v.plot_cell_transitions(cell_ix=0),
+        "velocity_as_color": lambda: v.plot_velocity_as_color(
+            gene_name=genes[0]),
+        "expression_as_color": lambda: v.plot_expression_as_color(
+            gene_name=genes[0]),
+        "scatter_viz": lambda: analysis.scatter_viz(
+            v.ts[:, 0], v.ts[:, 1], c=v.colorandum),
+        "cv_vs_mean": lambda: v.score_cv_vs_mean(
+            N=500, max_expr_avg=1e9, plot=True)}
+    files = []
+    for name, draw in draws.items():
+        plt.figure()
+        draw()
+        files.append(os.path.join(d, f"{name}.png"))
+        plt.savefig(files[-1], dpi=40)
+        plt.close("all")
+    return files
+
+
+def _plots(v):
+    """The plots' inputs on the session v (a colour per cluster:
+    set_clusters without colours would need matplotlib), then the imputed
+    PCA they draw; the figures themselves where matplotlib imports.
+    Returns the number of figures drawn."""
+    n = v.S.shape[1]
+    labels = np.array([f"k{i % BALANCE_GROUPS}" for i in range(n)])
+    v.set_clusters(labels, cluster_colors_dict={
+        f"k{i}": [(i + 1) / BALANCE_GROUPS, 0.2, 0.5, 1.0]
+        for i in range(BALANCE_GROUPS)})
+    v.ca["SampleID"] = np.array(["s0", "s1"])[np.arange(n) % 2]
+    on_card = _check_plot_inputs(v)
+    v.normalize("imputed")
+    v._perform_PCA_imputed(n_components=3)
+    assert v.pcsx.shape == (n, 3) and np.all(np.isfinite(v.pcsx))
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        print(f"# plots: matplotlib absent, inputs checked "
+              f"({len(PLOT_INPUTS)} attributes, device-backed: {on_card})",
+              flush=True)
+        return 0
+    with _scratch_dir() as d:
+        files = _uncounted(lambda: _draw_plots(v, d))
+        assert all(os.path.getsize(f) > 0 for f in files)
+    print(f"# plots: {len(files)} figures drawn on Agg from "
+          f"{len(PLOT_INPUTS)} checked attributes (device-backed: "
+          f"{on_card})", flush=True)
+    return len(files)
+
+
+def surface_phase(v, smi):
+    """The public names that complete the JAX package's surface, on the
+    default session at the operating point: knn_search on the pipeline's
+    PCA space, BalancedKNN with the native loop (native/balance.cpp),
+    col_delta_cor_partial_compact_dev on the session's compact neighbour
+    ids, smooth_dev, and the inputs of the plots (drawn where matplotlib
+    imports).  The launch counts are set to 0 just before these entry
+    points run and read just after: one sampled launch and no other;
+    the comparisons after them are left out of the counts.  Returns the
+    counts and the phase's times."""
+    from velocyto_tpu_torch import kernels, native
+    from velocyto_tpu_torch.analysis import _corr_transform_dev, _fix_nans
+    from velocyto_tpu_torch.ops import knn as tknn
+    from velocyto_tpu_torch.ops import knn_device as kd
+    from velocyto_tpu_torch.ops.coldeltacor import (
+        _col_delta_cor_partial_plain, _TRANSFORMS,
+        col_delta_cor_partial_compact, col_delta_cor_partial_compact_dev)
+    phase(f"public surface on the default session, {CELLS} cells x "
+          f"{GENES} genes")
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    native.build_balance()
+    build_s = time.perf_counter() - t0
+    space = np.ascontiguousarray(v.pcs)
+    hi = v._get_dev("Sx_sz")
+    psc, ixs = 1e-10, v._compact_ixs_dev
+    d_main = _corr_transform_dev(hi, v._get_dev("delta_S"), v.used_delta_t,
+                                 psc, "sqrt")
+    nbr_idx, nbr_w = kd.compact_weights_dev(v._knn_graph_dev)
+    S_sz = v._get_dev("S_sz")
+    torch.cuda.synchronize()
+
+    times = {}
+    kernels.reset_counts()              # count this path's launches only
+    times["knn_search_ms"], (dist, idx) = _host_ms(
+        lambda: tknn.knn_search(space, K, device=DEVICE), 1)
+    bk = tknn.BalancedKNN(k=K, sight_k=B_SIGHT, maxl=B_MAXL, device=DEVICE)
+    t0 = time.perf_counter()
+    got = bk.fit(space).kneighbors()
+    times["balanced_knn_s"] = time.perf_counter() - t0
+    times["partial_compact_dev_ms"], corr = _time_ms(
+        lambda: col_delta_cor_partial_compact_dev(hi, d_main, ixs, "sqrt",
+                                                  psc, device=DEVICE))
+    times["smooth_dev_ms"], smooth = _time_ms(
+        lambda: kd.smooth_dev(S_sz, nbr_idx, nbr_w))
+    torch.cuda.synchronize()
+    launches = _launches()
+    assert launches == {"dense": 0, "flat": 0, "partial": 1, "fma": 0,
+                        "svr": 0, "tsne": 0, "balance": 0,
+                        "balance_decode": 0}, launches
+    assert native._balance_lib is not None, "native balance loop not loaded"
+
+    def compare():
+        # knn_search: the device search's rows bitwise, f64 brute force
+        _d, want_idx = kd.knn_search_dev(space, K, device=DEVICE)
+        knn_same = np.array_equal(idx, want_idx.cpu().numpy()) and \
+            np.array_equal(dist, _d.cpu().numpy())
+        rows = np.random.RandomState(2).choice(CELLS, SURFACE_SPOT_ROWS,
+                                               replace=False)
+        brute = _brute_knn(space.astype(np.float64), rows, K)
+        knn_bad = int(np.sum(np.any(idx[rows] != brute, axis=1)))
+        # the native loop against the numpy loop and KB, same candidates
+        lsi = np.argsort(np.bincount(bk.dsi.ravel(), minlength=CELLS),
+                         kind="mergesort")[::-1]
+        times["native_loop_ms"], nat = _host_ms(
+            lambda: native.balance_knn_loop(bk.dsi, bk.dist, lsi, B_MAXL, K,
+                                            True), 3)
+        times["numpy_loop_ms"], plain = _host_ms(
+            lambda: tknn.balance_knn_loop_plain(bk.dsi, bk.dist, lsi,
+                                                B_MAXL, K, True),
+            SURFACE_LOOP_REPS)
+        kb = kd.balance_knn_dev(torch.as_tensor(bk.dsi, device=DEVICE),
+                                torch.as_tensor(bk.dist, device=DEVICE),
+                                B_MAXL, K)
+        out = [torch.as_tensor(a, device=DEVICE) for a in got]
+        bal = {"native is BalancedKNN": _same_balance(out, nat),
+               "numpy loop": _same_balance(out, plain),
+               "KB": _same_balance(kb, got)}
+        # the sampled call: the path's correlations (the session's dual
+        # chunked launches), the single-field compact call, the plain
+        # version on SURFACE_PLAIN_ROWS rows
+        single = col_delta_cor_partial_compact(hi, d_main, ixs, "sqrt", psc)
+        e_rows = hi.T.contiguous()
+        d_rows = d_main.T.contiguous()
+        r = torch.as_tensor(np.sort(np.random.RandomState(3).choice(
+            CELLS, SURFACE_PLAIN_ROWS, replace=False)), device=DEVICE)
+        plain_corr = _col_delta_cor_partial_plain(
+            e_rows, e_rows[r], d_rows[r], ixs[r], _TRANSFORMS["sqrt"], psc)
+        err, close = _err(corr[r], plain_corr)
+        corr_same = {"compact single field": _bitwise(corr, single),
+                     "the session's _corr_dev":
+                         _bitwise(_fix_nans(corr)[0], v._corr_dev)}
+        # smooth_dev: smooth_dev_multi on the one matrix
+        smooth_same = _bitwise(smooth, kd.smooth_dev_multi(
+            (S_sz,), nbr_idx, nbr_w)[0])
+        return (knn_same, knn_bad, bal, err, close, corr_same, smooth_same)
+
+    knn_same, knn_bad, bal, err, close, corr_same, smooth_same = \
+        _uncounted(compare)
+    print(f"# public surface on {smi}: native balance library built in "
+          f"{build_s:.3f} s; knn_search k={K} {times['knn_search_ms']!r} ms "
+          f"(host clock, host arrays out), rows bitwise knn_search_dev's: "
+          f"{knn_same}, {knn_bad} of {SURFACE_SPOT_ROWS} rows differ from "
+          f"the f64 brute force; BalancedKNN(k={K}, sight_k={B_SIGHT}, "
+          f"maxl={B_MAXL}) {times['balanced_knn_s']!r} s; balance loop "
+          f"native {times['native_loop_ms']!r} ms (median of 3), numpy "
+          f"{times['numpy_loop_ms']!r} ms (median of {SURFACE_LOOP_REPS}), "
+          f"host clock; bitwise equal: {bal}; "
+          f"col_delta_cor_partial_compact_dev {times['partial_compact_dev_ms']!r} "
+          f"ms (CUDA events; identity order, one field): 1 sampled launch, bitwise "
+          f"equal: {corr_same}, max |err| {err!r} against the plain version "
+          f"on {SURFACE_PLAIN_ROWS} rows (rtol {RTOL}, atol {ATOL}: "
+          f"{close}); smooth_dev {times['smooth_dev_ms']!r} ms, bitwise "
+          f"smooth_dev_multi: {smooth_same}",
+          flush=True)
+    assert knn_same and knn_bad == 0, (knn_same, knn_bad)
+    assert all(bal.values()), bal
+    assert all(corr_same.values()) and close, (corr_same, err)
+    assert smooth_same and smooth.shape == S_sz.shape
+
+    _plots(v)
+    times["phase_s"] = time.perf_counter() - t_phase
+    print(f"# public surface phase: {times['phase_s']:.3f} s", flush=True)
+    return launches, {**times, "max_abs_err": err}
 
 
 # the counting phase: the tracked fixture's valid barcodes and cell batch
@@ -2951,6 +3202,7 @@ def main():
     sampler_s = {k: sampler[k] for k in ("whole_s", "chunked_s", "plain_s")}
     del sampler
     checkpoint_phase(v)
+    launches_surface, surface = surface_phase(v, smi)
     S, U = v.S, v.U                     # the raw counts, for the profile
     pcs = np.ascontiguousarray(v.pcs)   # the pipeline's kNN space
     del v
@@ -3025,6 +3277,7 @@ def main():
                       "profile": profile,
                       "attribution": attr,
                       "counting": counting,
+                      "public_surface": surface,
                       "mesh": {"shards": _shards(mesh),
                                "sm_clock_mhz": mesh_mhz,
                                "cards": torch.cuda.device_count(),
@@ -3067,7 +3320,8 @@ def main():
          "launches": launches_samp["partial"] + launches_tut["partial"]
          + launches_heur["partial"] + launches_prof["partial"]
          + launches_pipe_bench["partial"] + launches_attr["partial"]
-         + launches_mesh_default["partial"] + launches_mesh_step["partial"],
+         + launches_mesh_default["partial"] + launches_mesh_step["partial"]
+         + launches_surface["partial"],
          "max_abs_err": sampled["max_abs_err"], "ms": sampled["ms"],
          "plain_ms": sampled["plain_ms"], "bound_ms": sampled["bound_ms"],
          "bound_by": sampled["bound_by"], "library_ms": None,
@@ -3133,6 +3387,9 @@ def main():
          "rings_ms": b20["rings_ms"],
          "host_loop_ms": b20["host_loop_ms"],
          "host_loop_with_copies_ms": b20["host_loop_with_copies_ms"],
+         "native_loop_ms": b20["native_loop_ms"],
+         "surface_native_loop_ms": surface["native_loop_ms"],
+         "surface_numpy_loop_ms": surface["numpy_loop_ms"],
          "ms_50k": b50["ms"], "plain_ms_50k": b50["plain_ms"],
          "bound_ms_50k": b50["bound_ms"], "walk_ms_50k": b50["walk_ms"],
          "us_per_node_50k": b50["us_per_node"],
@@ -3142,6 +3399,7 @@ def main():
          "rings_ms_50k": b50["rings_ms"],
          "host_loop_ms_50k": b50["host_loop_ms"],
          "host_loop_with_copies_ms_50k": b50["host_loop_with_copies_ms"],
+         "native_loop_ms_50k": b50["native_loop_ms"],
          **{f"{key}_{field}": balance[name][field]
             for key, name in (("constrained", "constrained"),
                               ("raw_labels", "raw labels"),

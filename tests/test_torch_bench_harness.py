@@ -164,12 +164,12 @@ def test_attr_knn20k_times_the_host_loop_beside_the_scan(monkeypatch,
     the host loop's graph equal to the scan's."""
     monkeypatch.chdir(tmp_path)
     graphs = []
-    loop = bench_knn50k.balance_knn_loop
+    loop = bench_knn50k.balance_knn_loop_plain
 
     def recorded(*args):
         graphs.append(loop(*args))
         return graphs[-1]
-    monkeypatch.setattr(bench_knn50k, "balance_knn_loop", recorded)
+    monkeypatch.setattr(bench_knn50k, "balance_knn_loop_plain", recorded)
     table = bench_attr.attr_knn20k(n=400, d=10, k=10, sight=30, maxl=15,
                                    device="cpu")
     assert list(table) == KNN_STAGES + ["balance_loop(host)", "probe_ms",

@@ -42,7 +42,8 @@ PAIRS = [("linear", 0.0), ("sqrt", 0.0), ("sqrt", 1e-10), ("log10", 1.0),
 def test_sampler_matches_numpy_loop_and_jax_native(n, nn_k, n_samp):
     p = np.linspace(0.5, 0.1, nn_k)
     p = p / p.sum()
-    got, draws, state = native.choice_noreplace_rows(SEED, n, nn_k, n_samp, p)
+    got, draws, state = native.choice_noreplace_rows_state(SEED, n, nn_k,
+                                                         n_samp, p)
     want, want_state = native.choice_rows_plain(SEED, n, nn_k, n_samp, p)
     np.testing.assert_array_equal(got, want)
     assert state[0] == want_state[0] and state[2:] == want_state[2:]

@@ -55,8 +55,8 @@ def test_chunked_replay_matches_jax_and_whole_replay(n_chunks):
     j_rows, j_draws, j_state = jnative.choice_noreplace_rows_chunked(
         SEED, n, nn_k, n_samp, p, n_chunks=chunks,
         on_chunk=lambda lo, hi, r: jax_calls.append((lo, hi)))
-    w_rows, w_draws, w_state = native.choice_noreplace_rows(SEED, n, nn_k,
-                                                            n_samp, p)
+    w_rows, w_draws, w_state = native.choice_noreplace_rows_state(
+        SEED, n, nn_k, n_samp, p)
     for other, other_draws, other_state in ((j_rows, j_draws, j_state),
                                             (w_rows, w_draws, w_state)):
         np.testing.assert_array_equal(rows, other)

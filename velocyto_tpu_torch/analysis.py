@@ -28,9 +28,10 @@ itself), the neighbour-sampling replay and the grid field) stay
 numpy/scipy/C++, as in the JAX package.  The two SVR noise models
 (score_cv_vs_mean, adjust_totS_totU) and perform_TSNE run on the
 object's device through the port's own ops/svr.py and ops/tsne.py (hand
-CUDA kernels for the SMO loop and the t-SNE gradient), without sklearn;
-set_clusters without colours imports matplotlib, as the JAX package
-does.
+CUDA kernels for the SMO loop and the t-SNE gradient), without sklearn.
+The plots (plot_*, scatter_viz, score_cv_vs_mean(plot=True)) are the
+JAX package's; they and set_clusters without colours import matplotlib
+when they run, never at import.
 """
 from __future__ import annotations
 
@@ -366,9 +367,9 @@ class VelocytoLoom:
         """CV-vs-mean SVR noise model ranking (reference :213-342).
 
         The moments are host numpy; the SVR (ops/svr.py, libsvm's solver)
-        fits on self.device.  plot=True is not ported (plotting is not)."""
-        if plot:
-            raise NotImplementedError("plotting is not ported")
+        fits on self.device.  plot=True draws the JAX package's figure
+        (needs matplotlib): both gene sets and the fitted curve, from
+        the fitted model's predict."""
         M = self.S if which == "S" else self.U
         if winsorize:
             if min_expr_cells <= ((100 - winsor_perc[1]) * M.shape[1] * 0.01):
@@ -402,6 +403,17 @@ class VelocytoLoom:
             score = -score
         nth_score = np.sort(score)[::-1][N] if N < len(score) \
             else np.min(score) - 1e-16
+        if plot:
+            plt = _plt()
+            scatter_viz(log_m[score > nth_score], log_cv[score > nth_score],
+                        s=3, alpha=0.4, c="tab:red")
+            scatter_viz(log_m[score <= nth_score], log_cv[score <= nth_score],
+                        s=3, alpha=0.4, c="tab:blue")
+            mu_linspace = np.linspace(np.min(log_m), np.max(log_m))
+            plt.plot(mu_linspace,
+                     clf.predict(mu_linspace[:, None]).cpu().numpy(), c="k")
+            plt.xlabel(f"log2 mean {which}")
+            plt.ylabel(f"log2 CV {which}")
         full_score = np.zeros(detected_bool.shape)
         full_score[~detected_bool] = np.min(score) - 1e-16
         full_score[detected_bool] = score
@@ -776,6 +788,11 @@ class VelocytoLoom:
             self.pcs = self.pca.fit_transform(X.T / X.std(0))
         else:
             self.pcs = self.pca.fit_transform(X.T)
+
+    def _perform_PCA_imputed(self, n_components: Optional[int] = None) -> None:
+        """PCA of the smoothed Sx_norm (host, ops/pca.py): pcax / pcsx."""
+        self.pcax = PCA(n_components=n_components)
+        self.pcsx = self.pcax.fit_transform(self.Sx_norm.T)
 
     def knn_imputation(self, k: Optional[int] = None, pca_space: bool = True,
                        metric: str = "euclidean", diag: float = 1,
@@ -1891,6 +1908,301 @@ class VelocytoLoom:
                             b_maxl=int(min(k * 4, self.S.shape[1] - 1)))
         self.normalize_median()
 
+    # ------------------------------------------------------------------
+    # plotting (host-side matplotlib; reference :96-135, :1966-2312).
+    # Copied from velocyto_tpu/analysis.py:1917-2202: the same artists
+    # from the same data in the same order.  Device-backed attributes
+    # (Sx_sz, Ux_sz, Sx_sz_t, ...) are read through __getattr__, one
+    # cached host copy each.
+    # ------------------------------------------------------------------
+
+    def plot_fractions(self, save2file: Optional[str] = None) -> None:
+        """Per-sample barplot of the spliced/ambiguous/unspliced molecule
+        fractions (same figure contract as reference plot_fractions
+        :96-135: grouped bars per sample with std error bars)."""
+        plt = _plt()
+        if "SampleID" in self.ca:
+            labels = np.asarray(self.ca["SampleID"])
+        else:
+            # sample prefix of the "sample:barcode" CellID convention
+            labels = np.array([c.split(":")[0] for c in self.ca["CellID"]])
+        samples, sample_ix = np.unique(labels, return_inverse=True)
+        per_cell = np.stack([m.sum(0) for m in (self.S, self.A, self.U)])
+        frac = per_cell / per_cell.sum(0, keepdims=True)     # (3, N)
+
+        plt.figure(figsize=(3.2, 5))
+        ax = plt.gca()
+        xs = np.arange(3)
+        offsets = np.linspace(-0.2, 0.2, len(samples))
+        width = 0.5 / (len(samples) * 1.05)
+        for i, name in enumerate(samples):
+            sel = frac[:, sample_ix == i]
+            ax.bar(xs + offsets[i], sel.mean(1), width, label=name)
+            ax.errorbar(xs + offsets[i], sel.mean(1), sel.std(1), c="k",
+                        fmt="none", lw=1, capsize=2)
+        ax.set_ylabel("Fraction")
+        ax.set_xticks(xs)
+        ax.set_xticklabels(["spliced", "ambiguous", "unspliced"])
+        for side in ("right", "top"):
+            ax.spines[side].set_visible(False)
+        ax.yaxis.set_ticks_position("left")
+        ax.xaxis.set_ticks_position("bottom")
+        ax.spines["left"].set_bounds(0, 0.8)
+        ax.legend()
+        plt.tight_layout()
+        if save2file:
+            plt.savefig(save2file, bbox_inches="tight")
+
+    def plot_pca(self, dim: List[int] = [0, 1, 2], elev: float = 60,
+                 azim: float = -140) -> None:
+        """3D PCA scatter (reference :906-915)."""
+        plt = _plt()
+        fig = plt.figure(figsize=(8, 6))
+        ax = fig.add_subplot(111, projection="3d")
+        ax.scatter(self.pcs[:, dim[0]], self.pcs[:, dim[1]],
+                   self.pcs[:, dim[2]], c=self.colorandum)
+        ax.view_init(elev=elev, azim=azim)
+
+    def _plot_pca_imputed(self, dim: List[int] = [0, 1, 2], elev: float = 60,
+                          azim: float = -140) -> None:
+        """3D PCA scatter of the smoothed data (reference :922-931)."""
+        plt = _plt()
+        fig = plt.figure(figsize=(8, 6))
+        ax = fig.add_subplot(111, projection="3d")
+        ax.scatter(self.pcsx[:, dim[0]], self.pcsx[:, dim[1]],
+                   self.pcsx[:, dim[2]], c=self.colorandum)
+        ax.view_init(elev=elev, azim=azim)
+
+    def _plot_phase_portrait(self, gene: Optional[str], gs_i: Any = None) -> None:
+        plt = _plt()
+        if gene is None:
+            plt.subplot(111)
+        else:
+            plt.subplot(gs_i)
+        ix = np.where(self.ra["Gene"] == gene)[0][0]
+        scatter_viz(self.Sx_sz[ix, :], self.Ux_sz[ix, :], c=self.colorandum,
+                    s=5, alpha=0.4)
+        plt.title(gene)
+        xnew = np.linspace(0, self.Sx_sz[ix, :].max())
+        plt.plot(xnew, self.gammas[ix] * xnew + self.q[ix], c="k")
+
+    def plot_phase_portraits(self, genes: List[str]) -> None:
+        """Phase portrait grid (reference :1979-1991)."""
+        plt = _plt()
+        n = len(genes)
+        sqrtn = int(np.ceil(np.sqrt(n)))
+        gs = plt.GridSpec(sqrtn, int(np.ceil(n / sqrtn)))
+        for i, gn in enumerate(genes):
+            self._plot_phase_portrait(gn, gs[i])
+
+    def plot_grid_arrows(self, quiver_scale: Union[str, float] = "auto",
+                         scale_type: str = "relative", min_mass: float = 1,
+                         min_magnitude: Optional[float] = None,
+                         scatter_kwargs_dict: Optional[Dict] = None,
+                         plot_dots: bool = False, plot_random: bool = False,
+                         **quiver_kwargs: Any) -> None:
+        """Grid vector-field plot (reference :1993-2093).
+
+        Hidden grid points are either dropped or zeroed (plot_dots):
+        below-min_mass points always, below-min_magnitude points when a
+        magnitude floor is given (then the normalized field is drawn).
+        The quiver scale is calibrated against the randomized control's
+        90th-percentile arrow length, like the reference.
+        """
+        plt = _plt()
+        arrow_style = dict({"angles": "xy", "scale_units": "xy",
+                            "minlength": 1.5}, **quiver_kwargs)
+        dot_style = dict({"s": 20, "zorder": -1, "alpha": 0.2, "lw": 0,
+                          "c": self.colorandum},
+                         **(scatter_kwargs_dict or {}))
+
+        if scale_type == "relative":
+            if not hasattr(self, "flow_rndm"):
+                raise ValueError(
+                    "`scale_type` was set to 'relative' but the randomized "
+                    "control was not computed when running "
+                    "estimate_transition_prob")
+            span = np.linalg.norm(np.ptp(self.flow_grid, 0), 2)
+            typical = np.percentile(np.linalg.norm(
+                self.flow_rndm[self.total_p_mass >= min_mass, :], 2, 1), 90)
+            base = typical / (span * 0.0025)
+            quiver_scale = base if quiver_scale == "auto" \
+                else quiver_scale * base
+
+        hidden = self.total_p_mass < min_mass
+
+        def field(which):
+            if min_magnitude is None:
+                vec, hide = getattr(self, which), hidden
+            else:
+                vec = getattr(self, which.replace("flow", "flow_norm"))
+                mag = self.flow_norm_magnitude if which == "flow" \
+                    else self.flow_norm_magnitude_rndm
+                hide = hidden | (mag < min_magnitude)
+            pts, vec = np.copy(self.flow_grid), np.copy(vec)
+            if plot_dots:
+                vec[hide, :] = 0
+            else:
+                pts, vec = pts[~hide, :], vec[~hide, :]
+            return pts, vec
+
+        def panel(which):
+            pts, vec = field(which)
+            plt.scatter(self.flow_embedding[:, 0],
+                        self.flow_embedding[:, 1], **dot_style)
+            plt.quiver(pts[:, 0], pts[:, 1], vec[:, 0], vec[:, 1],
+                       scale=quiver_scale, zorder=20000, **arrow_style)
+            plt.axis("off")
+
+        if plot_random:
+            plt.subplot(122)
+            plt.title("Randomized")
+            panel("flow_rndm")
+            plt.subplot(121)
+            plt.title("Data")
+        panel("flow")
+
+    def plot_arrows_embedding(self, choice: Union[str, int] = "auto",
+                              quiver_scale: Union[str, float] = "auto",
+                              scale_type: str = "relative",
+                              plot_scatter: bool = False,
+                              scatter_kwargs: Dict = {},
+                              color_arrow: str = "cluster",
+                              new_fig: bool = False,
+                              plot_random: bool = True,
+                              **quiver_kwargs: Any) -> None:
+        """Cell-wise arrow plot (reference :2095-2190): a random subset
+        of cells gets an arrow for its embedding shift, optionally next
+        to the randomized-control panel; the quiver scale is calibrated
+        against the control's 80th-percentile arrow length."""
+        plt = _plt()
+        if choice == "auto":
+            choice = int(self.S.shape[1] / 3)
+        have_rndm = hasattr(self, "delta_embedding_random")
+        dot_style = dict(dict(c="0.8", alpha=0.4, s=10,
+                              edgecolor=(0, 0, 0, 1), lw=0.3),
+                         **scatter_kwargs)
+        if new_fig:
+            plt.figure(figsize=(22, 12) if plot_random and have_rndm
+                       else (14, 14))
+        subset = np.random.choice(self.embedding.shape[0], size=choice,
+                                  replace=False)
+        if scale_type == "relative":
+            if not have_rndm:
+                raise ValueError(
+                    "`scale_type` was set to 'relative' but the randomized "
+                    "control was not computed when running "
+                    "estimate_transition_prob")
+            span = np.linalg.norm(np.ptp(self.flow_grid, 0), 2)
+            typical = np.percentile(np.linalg.norm(
+                self.delta_embedding_random, 2, 1), 80)
+            base = typical / (span * 0.005)
+            quiver_scale = base if quiver_scale == "auto" \
+                else quiver_scale * base
+        arrow_style = dict({"angles": "xy", "scale_units": "xy",
+                            "minlength": 1.5,
+                            "color": (self.colorandum[subset, :]
+                                      if color_arrow == "cluster"
+                                      else color_arrow)},
+                           **quiver_kwargs)
+
+        def panel(shift):
+            if plot_scatter:
+                plt.scatter(self.embedding[:, 0], self.embedding[:, 1],
+                            **dot_style)
+            plt.quiver(self.embedding[subset, 0], self.embedding[subset, 1],
+                       shift[subset, 0], shift[subset, 1],
+                       scale=quiver_scale, **arrow_style)
+            plt.axis("off")
+
+        if plot_random and have_rndm:
+            plt.subplot(122)
+            plt.title("Randomized")
+            panel(self.delta_embedding_random)
+            plt.subplot(121)
+            plt.title("Data")
+        panel(self.delta_embedding)
+
+    def plot_cell_transitions(self, cell_ix: int = 0, alpha: float = 0.1,
+                              alpha_neigh: float = 0.2,
+                              cmap_name: str = "RdBu_r",
+                              plot_arrow: bool = True,
+                              mark_cell: bool = True,
+                              head_width: int = 3) -> None:
+        """Transition probabilities from one cell (reference :2192-2212)."""
+        plt = _plt()
+        colorandum = np.ones((self.embedding.shape[0], 4))
+        colorandum *= 0.3
+        colorandum[:, -1] = alpha
+        plt.scatter(self.embedding[:, 0], self.embedding[:, 1],
+                    c=colorandum, s=50, edgecolor="none")
+        if mark_cell:
+            plt.scatter(self.embedding[cell_ix, 0], self.embedding[cell_ix, 1],
+                        facecolor="none", s=100, edgecolor="k")
+        if plot_arrow:
+            plt.arrow(self.embedding[cell_ix, 0], self.embedding[cell_ix, 1],
+                      self.delta_embedding[cell_ix, 0],
+                      self.delta_embedding[cell_ix, 1],
+                      head_width=head_width, length_includes_head=True)
+
+    def _embedding_gene_scatter(self, unit_values: np.ndarray, cmap: Any,
+                                gs: Any, which_tsne: str, title: str,
+                                **kwargs: Any) -> None:
+        """One styled embedding scatter colored by per-cell values in
+        [0, 1] (shared body of the *_as_color plots)."""
+        plt = _plt()
+        opts = {"alpha": 0.5, "s": 8, "edgecolor": "0.8", "lw": 0.15}
+        opts.update(kwargs)
+        if gs is None:
+            plt.figure(figsize=(10, 10))
+            plt.subplot(111)
+        else:
+            plt.subplot(gs)
+        emb = getattr(self, which_tsne)
+        scatter_viz(emb[:, 0], emb[:, 1], c=cmap(unit_values), **opts)
+        plt.axis("off")
+        plt.title(title)
+
+    def plot_velocity_as_color(self, gene_name: Optional[str] = None,
+                               cmap: Any = None, gs: Any = None,
+                               which_tsne: str = "ts", **kwargs: Any) -> None:
+        """One gene's extrapolated shift on the embedding, as a
+        diverging color map centered on zero and clipped at the 1/99th
+        percentiles (same figure contract as reference :2214-2262,
+        including the flat-velocity early-out)."""
+        plt = _plt()
+        ix = np.where(self.ra["Gene"] == gene_name)[0][0]
+        if self.which_S_for_pred == "Sx_sz":
+            shift = self.Sx_sz_t[ix, :] - self.Sx_sz[ix, :]
+        else:
+            shift = self.Sx_t[ix, :] - self.Sx[ix, :]
+        if (np.abs(shift) > 5e-5).sum() < 10:
+            print("S vs U scatterplot it is flat")
+            return
+        limit = np.max(np.abs(np.percentile(shift, [1, 99])))
+        vals = np.clip((shift + limit) / (2 * limit), 0, 1)
+        self._embedding_gene_scatter(vals, cmap or plt.cm.RdBu_r, gs,
+                                     which_tsne, f"{gene_name}", **kwargs)
+
+    def plot_expression_as_color(self, gene_name: Optional[str] = None,
+                                 imputed: bool = True, cmap: Any = None,
+                                 gs: Any = None, which_tsne: str = "ts",
+                                 **kwargs: Any) -> None:
+        """One gene's (smoothed or raw size-normalized) expression on
+        the embedding, as a sequential map normalized to its 99th
+        percentile (same figure contract as reference :2264-2312)."""
+        plt = _plt()
+        ix = np.where(self.ra["Gene"] == gene_name)[0][0]
+        if not imputed:
+            expr = self.S_sz[ix, :]
+        elif self.which_S_for_pred == "Sx_sz":
+            expr = self.Sx_sz[ix, :]
+        else:
+            expr = self.Sx[ix, :]
+        vals = np.clip(expr / np.percentile(expr, 99), 0, 1)
+        self._embedding_gene_scatter(vals, cmap or plt.cm.Greens, gs,
+                                     which_tsne, f"{gene_name}", **kwargs)
+
     def reload_raw(self, substitute: bool = False) -> None:
         """Reload pristine matrices from the loom (reference :2314-2342):
         into S/U/A when substitute, else as raw_* copies."""
@@ -2249,8 +2561,46 @@ def knn_query(data: np.ndarray, query: np.ndarray, k: int, device):
 # module-level helpers (reference :2345-2470), host numpy
 # ---------------------------------------------------------------------------
 
-def _colors20():
+def _plt():
+    """matplotlib.pyplot, imported on first use: importing the port
+    never loads matplotlib."""
     import matplotlib.pyplot as plt
+    return plt
+
+
+# Copied from velocyto_tpu/analysis.py:2620-2647.
+def scatter_viz(x: np.ndarray, y: np.ndarray, *args: Any, **kwargs: Any) -> Any:
+    """Scatter ordered so every point stays visible (reference :2345-2376)."""
+    plt = _plt()
+    ix_x_sort = np.argsort(x, kind="mergesort")
+    ix_yx_sort = np.argsort(y[ix_x_sort], kind="mergesort")
+    args_new = []
+    kwargs_new = {}
+    for arg in args:
+        if type(arg) is np.ndarray:
+            args_new.append(arg[ix_x_sort][ix_yx_sort])
+        else:
+            args_new.append(arg)
+    for karg, varg in kwargs.items():
+        if type(varg) is np.ndarray:
+            kwargs_new[karg] = varg[ix_x_sort][ix_yx_sort]
+        else:
+            kwargs_new[karg] = varg
+    return plt.scatter(x[ix_x_sort][ix_yx_sort], y[ix_x_sort][ix_yx_sort],
+                       *args_new, **kwargs_new)
+
+
+def ixs_thatsort_a2b(a: np.ndarray, b: np.ndarray,
+                     check_content: bool = True) -> np.ndarray:
+    """Indexes that reorder array a to match array b (reference :2379-2383)."""
+    if check_content:
+        assert len(np.intersect1d(a, b)) == len(a), \
+            "The two arrays are not matching"
+    return np.argsort(a)[np.argsort(np.argsort(b))]
+
+
+def _colors20():
+    plt = _plt()
     return np.vstack((plt.cm.tab20b(np.linspace(0., 1, 20))[::2],
                       plt.cm.tab20c(np.linspace(0, 1, 20))[1::2]))
 

@@ -21,7 +21,7 @@ Port of the JAX package's bench_attr.py.  Splits
     chunk, so the whole is less than the sum);
   - the 50k balanced kNN into bench_knn50k's stages;
   - the same stages at the pipeline's operating point (20,000 x 50 PCs,
-    sight 3000, k=500, maxl 1500), with the host greedy loop timed
+    sight 3000, k=500, maxl 1500), with the numpy host greedy loop timed
     beside them on the same candidates, copies included
     ("balance_loop(host)", left out of the sum): the kNN stage of one
     session with the balance on the card and with it on the host,
@@ -103,8 +103,9 @@ def attr_transition(n=20000, g=2000, nn=3500, frac=0.5, device="cuda"):
     p = np.linspace(0.5, 0.1, nn_k)
     p = p / p.sum()
     n_samp = int(frac * nn_k)
-    samp = timed("rng_sampling(native)", lambda: native.choice_noreplace_rows(
-        15071990, n, nn_k, n_samp, p)[0], out, device)
+    samp = timed("rng_sampling(native)",
+                 lambda: native.choice_noreplace_rows_state(
+                     15071990, n, nn_k, n_samp, p)[0], out, device)
     neigh = timed("sample_gather(fused)", lambda: _sample_neighbors_dev(
         idx_dev, torch.as_tensor(samp, device=device)), out, device)
 

@@ -10,8 +10,8 @@ balanced kNN runs them (ops/knn_device.py::balanced_knn_graph_dev), all
 on the card: the f32 candidate pass and its row sort, the f64 re-score,
 the (distance, index) reorder, the hub order and the greedy balance scan
 (the hand kernel kernels/knn_balance.cu).  run_once can also time the
-host loop (ops/knn.py::balance_knn_loop, the candidates copied to the
-host) on the same candidates, beside the path.  The statistics are
+numpy host loop (ops/knn.py::balance_knn_loop_plain, the candidates
+copied to the host) on the same candidates, beside the path.  The statistics are
 bench_pipeline's: run 0 a warm-up, the headline the true median of the
 clean measured runs with min/max beside it.
 
@@ -29,7 +29,8 @@ import torch
 from .bench_common import (DEVICE_PROBE_MS, card, device_probe, require_card,
                            summarize, sync)
 from .ops import knn_device as kd
-from .ops.knn import _candidate_plan, _knn_search_impl, balance_knn_loop
+from .ops.knn import (_candidate_plan, _knn_search_impl,
+                      balance_knn_loop_plain)
 
 N = 50000
 D, K, SIGHT, MAXL = 50, 500, 3000, 1500
@@ -48,7 +49,7 @@ def run_once(x, x64, device="cuda", k=K, sight=SIGHT, maxl=MAXL,
     """One balanced kNN of x (host float32) / x64 (float64 tensor on
     `device`), stage by stage; returns (total seconds, {stage: seconds},
     the balanced (dist, idx, in-degree) tensors).  With host_loop, the
-    host greedy loop then balances the same candidates again, copies to
+    numpy host greedy loop then balances the same candidates again, copies to
     and from the host included, timed as "balance_loop(host)" beside the
     path and outside its total."""
     stages = {}
@@ -77,7 +78,7 @@ def run_once(x, x64, device="cuda", k=K, sight=SIGHT, maxl=MAXL,
     total = time.perf_counter() - t_all
     if host_loop:
         def _host():
-            dn, di, l = balance_knn_loop(
+            dn, di, l = balance_knn_loop_plain(
                 ii.cpu().numpy(), dist.cpu().numpy(), lsi.cpu().numpy(),
                 maxl, k, True)
             return [torch.as_tensor(a, device=device) for a in (dn, di, l)]

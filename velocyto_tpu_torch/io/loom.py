@@ -1,7 +1,7 @@
 """Loom (HDF5) file I/O.
 
-Copied from velocyto_tpu/io/loom.py (the reader and ``create``, the
-writer); the JAX package cannot be imported here, because its package
+Copied from velocyto_tpu/io/loom.py (the reader, lines 32-114, and
+``create``, the writer); the JAX package cannot be imported here, because its package
 import loads jax.  h5py is imported when a file is opened or written, so
 the port imports on machines that lack it.
 
@@ -33,12 +33,18 @@ def _encodable(arr: np.ndarray) -> np.ndarray:
 
 
 class LoomConnection:
-    """Read-mode view of a loom file: layers, row and column attributes."""
+    """Read-mode view of a loom file with loompy-like accessors: shape,
+    layer / layers, row_attrs / ra, col_attrs / ca, attrs, and use in a
+    ``with`` block."""
 
     def __init__(self, path: str) -> None:
         import h5py
         self._f = h5py.File(path, "r")
         self.filename = path
+
+    @property
+    def shape(self):
+        return self._f["matrix"].shape
 
     class _LayerView:
         def __init__(self, f):
@@ -46,12 +52,21 @@ class LoomConnection:
 
         def __getitem__(self, name):
             if name == "" or name is None:
-                return self._f["matrix"]
-            return self._f["layers"][name]
+                return _Layer(self._f["matrix"])
+            return _Layer(self._f["layers"][name])
+
+        def keys(self):
+            out = [""]
+            if "layers" in self._f:
+                out += list(self._f["layers"].keys())
+            return out
 
     @property
     def layer(self):
         return LoomConnection._LayerView(self._f)
+
+    # loompy 2 naming
+    layers = layer
 
     @property
     def row_attrs(self) -> Dict[str, np.ndarray]:
@@ -63,8 +78,48 @@ class LoomConnection:
         grp = self._f.get("col_attrs", {})
         return {k: _decode(grp[k][...]) for k in grp}
 
+    @property
+    def ra(self):
+        return self.row_attrs
+
+    @property
+    def ca(self):
+        return self.col_attrs
+
+    @property
+    def attrs(self) -> Dict[str, Any]:
+        out = dict(self._f.attrs)
+        if "attrs" in self._f:  # loom v3 stores file attrs as scalar datasets
+            for k in self._f["attrs"]:
+                out[k] = self._f["attrs"][k][()]
+        return out
+
     def close(self) -> None:
         self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class _Layer:
+    """One layer (or the main matrix): slicing reads it, as h5py does."""
+
+    def __init__(self, ds) -> None:
+        self._ds = ds
+
+    def __getitem__(self, key):
+        return self._ds[key]
+
+    @property
+    def shape(self):
+        return self._ds.shape
+
+    @property
+    def dtype(self):
+        return self._ds.dtype
 
 
 def connect(path: str) -> LoomConnection:

@@ -1,5 +1,6 @@
 from .velocity import (VelocityOutputs, example_inputs,
-                       make_sharded_velocity_step, velocity_step)
+                       make_sharded_velocity_step, velocity_step,
+                       velocity_step_jit)
 
-__all__ = ["VelocityOutputs", "velocity_step", "make_sharded_velocity_step",
-           "example_inputs"]
+__all__ = ["VelocityOutputs", "velocity_step", "velocity_step_jit",
+           "make_sharded_velocity_step", "example_inputs"]

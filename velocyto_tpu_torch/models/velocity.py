@@ -157,6 +157,11 @@ def _all_to_all(mesh: Mesh, shards, blocks, shape_of):
     return got
 
 
+# the JAX package's jitted alias (velocyto_tpu/models/velocity.py:112);
+# the port has no tracing step, so it is the same callable
+velocity_step_jit = velocity_step
+
+
 def make_sharded_velocity_step(mesh: Mesh):
     """velocity_step over a mesh, with velocity_step's signature and
     outputs (gathered on the mesh's first device; the whole result on

@@ -6,6 +6,12 @@ the rows come out in chunks (``choice_noreplace_rows_chunked``).
 ``choice_rows_plain`` is the numpy loop it replaces: the tests and
 ``chip_smoke.py`` hold the two to bit equality.
 
+``balance.cpp`` is the greedy balanced-kNN loop of ``BalancedKNN``,
+``knn_balance`` and ``ops.knn.balance_knn_loop`` (the balance half of
+the JAX package's ``vtpu.cpp``); ``balance_knn_loop`` below binds it with
+the JAX package's signature, and the numpy loop of ``ops/knn.py`` stays
+as its plain version, held to it bitwise by the tests.
+
 ``bam.cpp`` is the counting engine's BGZF/BAM decoder, its exact hash
 factorize and its external sorter by cell tag (the counting half of the
 JAX package's ``velocyto_tpu/native/vtpu.cpp``).  The wrappers below
@@ -15,7 +21,7 @@ package's (``velocyto_tpu/native/__init__.py``).  As there, counting
 falls back to its Python and numpy paths when the library cannot be
 built; ``available()`` then logs the compiler's error once.
 
-Both are compiled on first use (never at import) with the host C++
+All three are compiled on first use (never at import) with the host C++
 compiler into ``_build/``, named by the hash of their source, so an
 edited source is rebuilt.
 """
@@ -37,8 +43,10 @@ _HERE = Path(__file__).resolve().parent
 _BUILD = _HERE / "_build"
 SOURCE = _HERE / "sampler.cpp"
 BAM_SOURCE = _HERE / "bam.cpp"
+BALANCE_SOURCE = _HERE / "balance.cpp"
 
 _lib = None
+_balance_lib = None
 _bam_lib = None
 _bam_error: Optional[str] = None     # the compiler's error, once logged
 
@@ -83,6 +91,12 @@ def build_bam() -> Path:
     return _compile(BAM_SOURCE, "vtt_bam", ["-pthread"], ["-lz"])
 
 
+def build_balance() -> Path:
+    """Compile balance.cpp unless a library built from the same source
+    exists; returns the library's path.  Raises on any compiler error."""
+    return _compile(BALANCE_SOURCE, "vtt_balance", [], [])
+
+
 def _load_sampler():
     global _lib
     if _lib is None:
@@ -98,14 +112,24 @@ def _load_sampler():
 
 
 def choice_noreplace_rows(seed: int, n_rows: int, pop: int, size: int,
-                          p: np.ndarray) -> Tuple[np.ndarray, int, tuple]:
+                          p: np.ndarray) -> Tuple[np.ndarray, int]:
     """``np.random.seed(seed)`` then, per row,
     ``np.random.choice(pop, size, replace=False, p=p)``, replayed in C++.
 
-    Returns (positions (n_rows, size) int64, doubles drawn, numpy's final
-    state as an ``np.random.set_state`` tuple).  numpy's own global
-    stream is not touched.  Releases the GIL while it samples.  The
-    whole replay in one chunk of ``choice_noreplace_rows_chunked``."""
+    Returns (positions (n_rows, size) int64, doubles drawn), the JAX
+    package's contract (``velocyto_tpu/native/__init__.py::
+    choice_noreplace_rows``); ``choice_noreplace_rows_state`` also gives
+    numpy's final state.  numpy's own global stream is not touched."""
+    return choice_noreplace_rows_state(seed, n_rows, pop, size, p)[:2]
+
+
+def choice_noreplace_rows_state(seed: int, n_rows: int, pop: int, size: int,
+                                p: np.ndarray
+                                ) -> Tuple[np.ndarray, int, tuple]:
+    """``choice_noreplace_rows`` and numpy's final state as an
+    ``np.random.set_state`` tuple, so the caller can position the global
+    stream directly.  Releases the GIL while it samples.  The whole
+    replay in one chunk of ``choice_noreplace_rows_chunked``."""
     return choice_noreplace_rows_chunked(seed, n_rows, pop, size, p,
                                          n_chunks=1)
 
@@ -114,7 +138,7 @@ def choice_noreplace_rows_chunked(seed: int, n_rows: int, pop: int,
                                   size: int, p: np.ndarray,
                                   n_chunks: int = 4, on_chunk=None
                                   ) -> Tuple[np.ndarray, int, tuple]:
-    """``choice_noreplace_rows`` produced in row chunks: after each chunk
+    """``choice_noreplace_rows_state`` produced in row chunks: after each chunk
     of rows is sampled, ``on_chunk(lo, hi, rows_view)`` fires, so the
     caller can hand the rows on while the MT19937 replay goes on with
     the next chunk.  Copy of the JAX package's
@@ -165,6 +189,67 @@ def choice_rows_plain(seed: int, n_rows: int, pop: int, size: int,
     rows = np.stack([np.random.choice(pop, size=(size,), replace=False, p=p)
                      for _ in range(n_rows)], 0)
     return rows, np.random.get_state()
+
+
+# -- the greedy kNN balance (balance.cpp) -----------------------------------
+
+def _load_balance():
+    global _balance_lib
+    if _balance_lib is None:
+        lib = ctypes.CDLL(str(build_balance()))
+        lib.vtt_balance_knn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p,    # dsi, dist (n, sight)
+            ctypes.c_void_p, ctypes.c_void_p,    # lsi (n,), constraint or NULL
+            ctypes.c_int64, ctypes.c_int64,      # n, sight
+            ctypes.c_int64, ctypes.c_int64,      # maxl, k
+            ctypes.c_int,                        # return_distance
+            ctypes.c_void_p, ctypes.c_void_p,    # out dsi_new, dist_new
+            ctypes.c_void_p]                     # out l (n,)
+        lib.vtt_balance_knn.restype = ctypes.c_int64
+        _balance_lib = lib
+    return _balance_lib
+
+
+def balance_knn_loop(dsi: np.ndarray, dist: np.ndarray, lsi: np.ndarray,
+                     maxl: int, k: int, return_distance: bool,
+                     constraint: Optional[np.ndarray] = None
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The greedy balanced-kNN loop in C++ (balance.cpp): returns
+    (dist_new (n, k+1) f64, dsi_new (n, k+1) int64, l (n,) int64),
+    bitwise equal to ``ops.knn.balance_knn_loop``'s numpy loop.  Copy of
+    the JAX package's ``velocyto_tpu/native/__init__.py::
+    balance_knn_loop``, with the inputs checked: ValueError for
+    mismatched shapes or a sight smaller than k (the numpy loop's
+    refusal) before any pointer is passed, and for an index outside
+    [0, n) in lsi or among the candidates the loop reads (balance.cpp
+    checks each before it uses it)."""
+    dsi = np.ascontiguousarray(dsi, dtype=np.int64)
+    n, sight = dsi.shape
+    dist = np.ascontiguousarray(dist, dtype=np.float64)
+    lsi = np.ascontiguousarray(lsi, dtype=np.int64)
+    if sight < k:
+        raise ValueError("sight needs to be bigger than k")
+    if dist.shape != dsi.shape or lsi.shape != (n,):
+        raise ValueError(f"dist {dist.shape} and lsi {lsi.shape} do not "
+                         f"match dsi {dsi.shape}")
+    if constraint is not None:
+        constraint = np.ascontiguousarray(constraint, dtype=np.int64)
+        if constraint.shape != (n,):
+            raise ValueError(f"constraint has shape {constraint.shape}, "
+                             f"expected ({n},)")
+    lib = _load_balance()
+    dsi_new = np.full((n, k + 1), -1, np.int64)
+    dist_new = np.zeros((n, k + 1), np.float64)
+    l = np.zeros(n, np.int64)
+    if lib.vtt_balance_knn(
+            dsi.ctypes.data, dist.ctypes.data, lsi.ctypes.data,
+            None if constraint is None else constraint.ctypes.data,
+            n, sight, int(maxl), int(k), int(bool(return_distance)),
+            dsi_new.ctypes.data, dist_new.ctypes.data, l.ctypes.data) < 0:
+        raise ValueError(f"lsi or dsi holds an index outside [0, {n})")
+    if not return_distance:
+        dist_new = np.ones_like(dsi_new, np.float64)
+    return dist_new, dsi_new, l
 
 
 # -- the counting engine's library (bam.cpp) --------------------------------

@@ -416,6 +416,23 @@ def col_delta_cor_partial_compact(
                order=order)
 
 
+def col_delta_cor_partial_compact_dev(emat, dmat, ixs,
+                                      transform: str = "linear",
+                                      psc: float = 0.0,
+                                      device="cuda") -> torch.Tensor:
+    """Sampled-neighbourhood colDeltaCor in the compact form, on
+    `device` (the card unless the caller asks for another): emat / dmat
+    (genes, cells) and ixs (cells, nn), numpy arrays or tensors, are
+    moved there; returns the (cells, nn) float32 correlations on it.  The
+    JAX package's ``velocyto_tpu/ops/coldeltacor.py:383`` contract; on a
+    card one single-field launch of the sampled kernel, on the CPU the
+    plain version (col_delta_cor_partial_compact's single field)."""
+    device = torch.device(device)
+    return col_delta_cor_partial_compact(
+        _as_f32(emat, device), _as_f32(dmat, device),
+        torch.as_tensor(ixs, device=device), transform, psc)
+
+
 def col_delta_cor_partial(emat: torch.Tensor, dmat: torch.Tensor,
                           ixs: torch.Tensor, transform: str = "linear",
                           psc: float = 0.0,

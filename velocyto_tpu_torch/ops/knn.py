@@ -8,10 +8,11 @@ ordering live in ops/knn_device.py.
 
 The balance (reference velocyto/neighbors.py:11-140) is a greedy,
 order-dependent loop over the nodes in hub order; balance_knn_loop runs
-it on the host, one numpy-vectorised step per node, for knn_balance and
-BalancedKNN (host code in the JAX package too); the balanced kNN of
-VelocytoLoom runs it on the device (ops/knn_device.py::balance_knn_dev,
-the hand kernel kernels/knn_balance.cu on the card).  BalancedKNN and
+it on the host in C++ (native/balance.cpp, as the JAX package runs its
+own) for knn_balance and BalancedKNN, balance_knn_loop_plain in numpy,
+one vectorised step per node; the balanced kNN of VelocytoLoom runs it
+on the device (ops/knn_device.py::balance_knn_dev, the hand kernel
+kernels/knn_balance.cu on the card).  BalancedKNN and
 the mutual-kNN
 utilities (reference neighbors.py:186-451) run their search on a torch
 device and build scipy.sparse graphs on the host.
@@ -24,6 +25,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 from scipy import sparse
+
+from .. import native
 
 
 @contextlib.contextmanager
@@ -76,7 +79,7 @@ def _knn_search_impl(data: torch.Tensor, k: int, block: int,
     return dist, idx
 
 
-def make_knn_search_sharded(mesh, k: int, block: int,
+def make_knn_search_sharded(mesh, k: int, block: int = 256,
                             metric: str = "euclidean"):
     """The kNN candidate pass with its query rows split over the mesh's
     cells shards, data replicated: fn(data (N, D)) -> this process's
@@ -119,9 +122,7 @@ def knn_search_sharded(mesh, data: np.ndarray, k: int,
     shards, data replicated; the same exact f64 re-score and tie-breaks
     as the single-device search, so the result equals it.  Returns host
     (dist, idx) (the whole result on every process)."""
-    from .knn_device import knn_search_dev
-    dist, idx = knn_search_dev(data, k, metric=metric, mesh=mesh)
-    return dist.cpu().numpy(), idx.cpu().numpy()
+    return knn_search(data, k, metric=metric, mesh=mesh)
 
 
 def _candidate_plan(n: int, k: int) -> Tuple[int, int]:
@@ -167,7 +168,31 @@ def balance_knn_loop(dsi: np.ndarray, dist: np.ndarray, lsi: np.ndarray,
                      maxl: int, k: int, return_distance: bool,
                      constraint: Optional[np.ndarray] = None
                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Greedy cap on in-degree of the kNN graph.
+    """Greedy cap on in-degree of the kNN graph, in C++
+    (native/balance.cpp, built on first use), as the JAX package runs
+    it (velocyto_tpu/ops/knn.py:360-361).  Returns (dist_new, dsi_new,
+    l), bitwise equal to balance_knn_loop_plain."""
+    return native.balance_knn_loop(dsi, dist, lsi, maxl, k,
+                                   return_distance, constraint)
+
+
+def balance_knn_loop_constrained(dsi: np.ndarray, dist: np.ndarray,
+                                 lsi: np.ndarray, groups: np.ndarray,
+                                 maxl: int, k: int, return_distance: bool
+                                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Reference-name alias (velocyto/neighbors.py:77-140): the constrained
+    variant is balance_knn_loop with ``constraint``.  Copy of
+    velocyto_tpu/ops/knn.py:399-406."""
+    return balance_knn_loop(dsi, dist, lsi, maxl, k, return_distance,
+                            constraint=groups)
+
+
+def balance_knn_loop_plain(dsi: np.ndarray, dist: np.ndarray,
+                           lsi: np.ndarray, maxl: int, k: int,
+                           return_distance: bool,
+                           constraint: Optional[np.ndarray] = None
+                           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The plain version of balance_knn_loop, in numpy.
 
     Same result as the reference loop (velocyto/neighbors.py:11-140, both
     the plain and the group-constrained variant): nodes are visited
@@ -230,10 +255,17 @@ def knn_balance(dsi: np.ndarray, dist: Optional[np.ndarray] = None,
                             return_distance=True, constraint=cst)
 
 
-def _search_host(data, k: int, metric: str, device, mesh=None
-                 ) -> Tuple[np.ndarray, np.ndarray]:
-    """knn_search_dev on `device` (or over `mesh`), returned as host
-    (dist f64, idx int64)."""
+def knn_search(data: np.ndarray, k: int, metric: str = "euclidean",
+               device="cuda", mesh=None
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """kNN search (self included as the first neighbor), returned on the
+    host as (dist (N, k) f64, idx (N, k) int64).
+
+    The JAX package's contract (velocyto_tpu/ops/knn.py:187): an f32
+    candidate pass on `device` (or with its query rows split over
+    `mesh`), then the exact f64 re-score and (distance, index) order, so
+    the result matches sklearn's brute force, tie-breaks included;
+    ``metric="correlation"`` gives 1 - corr = d2 / 2."""
     from .knn_device import knn_search_dev
     dist, idx = knn_search_dev(data, k, metric=metric, device=device,
                                mesh=mesh)
@@ -282,8 +314,8 @@ class BalancedKNN:
         if maxl is not None:
             self.maxl = maxl
         kk = min(self.sight_k + 1, self.fitdata.shape[0])
-        self.dist, self.dsi = _search_host(self.fitdata, kk, self.metric,
-                                           self.device, self.mesh)
+        self.dist, self.dsi = knn_search(self.fitdata, kk, self.metric,
+                                         device=self.device, mesh=self.mesh)
         self.dist_new, self.dsi_new, self.l = knn_balance(
             self.dsi, self.dist, maxl=self.maxl, k=self.k,
             constraint=self.constraint)
@@ -349,7 +381,8 @@ def knn_distance_matrix(data: np.ndarray, metric: Optional[str] = None,
     sklearn kneighbors_graph(X=None); the search runs on `device`, or
     with its query rows split over `mesh`."""
     kk = min(k + 1, data.shape[0])
-    dist, idx = _search_host(data, kk, metric or "euclidean", device, mesh)
+    dist, idx = knn_search(data, kk, metric or "euclidean", device=device,
+                           mesh=mesh)
     dist, idx = dist[:, 1:], idx[:, 1:]
     n, kk = idx.shape
     data_vals = np.ones(n * kk) if mode == "connectivity" else dist.ravel()

@@ -331,6 +331,13 @@ def compact_weights_dev(g: KnnGraphDev, diag: float = 1.0
     return _compact_weights_impl(g.idx, g.dist, diag)
 
 
+def smooth_dev(data_cols_dev: torch.Tensor, nbr_idx: torch.Tensor,
+               nbr_w: torch.Tensor) -> torch.Tensor:
+    """Smooth one (G, N) matrix over cells: returns (G, N) on its device,
+    through the same rows path as smooth_dev_multi."""
+    return smooth_dev_multi((data_cols_dev,), nbr_idx, nbr_w)[0]
+
+
 def smooth_dev_multi(data_cols_list: Sequence[torch.Tensor],
                      nbr_idx: torch.Tensor, nbr_w: torch.Tensor) -> list:
     """Smooth several (G, N) matrices over cells in one pass:

@@ -2,7 +2,7 @@
 
 Copy of velocyto_tpu/parallel/feeders.py (prepare_counter :35,
 count_distributed :99); feeder_byte_ranges lives in
-counting/soa_engine.py, whose pcount shares it.  The reference's
+counting/soa_engine.py, whose pcount shares it, and is re-exported here.  The reference's
 counting loop is single-threaded by design.  Here the valid barcode set
 is split into contiguous ranges; one FEEDER per range decodes the
 cell-sorted BAM with the native reader and counts only its own cells.
@@ -25,6 +25,8 @@ import logging
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from ..counting.soa_engine import feeder_byte_ranges  # noqa: F401
 
 
 def prepare_counter(bamfiles: Sequence[str], gtffile: str,

@@ -1,1 +1,4 @@
-"""Host utilities of the port (profiling)."""
+"""Host utilities of the port (profiling, the R data reader)."""
+from . import rds
+
+__all__ = ["rds"]
