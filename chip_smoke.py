@@ -94,8 +94,9 @@ session, the sharded velocity_step (genes split, one all-to-all, one
 sampled launch a shard) runs on the session's state against the
 unsharded step; at the end, the dense kernel's center ranges are held
 bitwise to the whole launch, the forced ring at 20,000 cells without and
-with a center order (2 x P x P flat launches; the first call's pieces
-split by the ring's split= argument) bitwise against one sampled
+with a center order (2 x P x P flat launches; the call without an
+order profiled, its pieces read from its vtt.ring.* spans) bitwise
+against one sampled
 launch, the flat kernel against its plain twin on every table of that
 ring, and bench_scaling runs the sharded and
 ring calls at 1, 2 and 4 shards.  The counting phase also runs
@@ -812,6 +813,8 @@ def pipeline_phase(knn_random, smi, sampler=None):
     VelocytoLoom).  sampler: sampler_phase's result, which the default
     mode's transition call is held to."""
     from velocyto_tpu_torch import analysis, bench_pipeline, kernels
+    from velocyto_tpu_torch.bench_common import transition_split
+    from velocyto_tpu_torch.utils.profiling import trace
     mode = "default mode (knn_random=True)" if knn_random else \
         "full mode (knn_random=False)"
     phase(f"pipeline, {mode}, {CELLS} cells x {GENES} genes")
@@ -836,14 +839,17 @@ def pipeline_phase(knn_random, smi, sampler=None):
         return prep_d, _run
 
     def _transition(self, *args, **kw):
+        # profiled, for the split its spans give (the call's time holds
+        # the profiler's cost)
         before = (kernels.dense_launches, kernels.partial_launches)
-        with _HostCopies() as copies:
-            estimate(self, *args, **kw)
+        with _HostCopies() as copies, trace() as prof:
+            with torch.profiler.record_function("transition call"):
+                estimate(self, *args, **kw)
         transition.update(
             dense=kernels.dense_launches - before[0],
             partial=kernels.partial_launches - before[1],
             rng_state=np.random.get_state(), host_copies=copies.shapes,
-            split=self.__dict__.get("_sampled_split"))
+            split=transition_split(prof, "transition call"))
 
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()              # count this path's launches only
@@ -904,12 +910,12 @@ def _check_transition_call(v, transition, sampler, smi):
     print(f"# transition call: {len(transition['host_copies'])} tensors "
           f"copied to the host, largest "
           f"{max(transition['host_copies'], key=np.prod, default=None)}; "
-          f"{split['chunks']} chunks; replay {split['replay_s']:.3f} s in "
+          f"{split['chunks']} chunks; replay {split['replay_s']!r} s in "
           f"the call against {sampler['chunked_s']:.3f} s alone (chunked) / "
           f"{sampler['whole_s']:.3f} s (whole) in sampler_phase; calling "
-          f"thread busy {split['main_busy_s']:.3f} s; tail after the replay "
-          f"{split['tail_s']:.3f} s; call {split['call_s']:.3f} s on {smi}",
-          flush=True)
+          f"thread busy {split['main_busy_s']!r} s; tail after the replay "
+          f"{split['tail_s']!r} s; call {split['call_s']!r} s (profiled, "
+          f"from its vtt.transition.* spans) on {smi}", flush=True)
     assert not big, f"(G, N) tensors copied to the host: {big}"
     assert split["chunks"] == analysis.SAMPLER_CHUNKS
     assert np.array_equal(v.sampling_ixs, sampler["rows"]), \
@@ -2929,13 +2935,12 @@ def mesh_kernels_phase(mesh, smi):
         fields) through col_delta_cor_partial_sharded_dev with
         _REPLICATION_BYTES at 1 and the locality order of a random
         embedding (timed whole), then through
-        col_delta_cor_partial_ring_dev without an order, its pieces split
-        (split=); the launch counts set to 0 just before the first and
-        read just after the second (2 x P x P flat launches, nothing
-        else); each bitwise against one sampled launch on the same
-        indices; the replicated
-        sharded call (P sampled launches) bitwise against the same
-        launch;
+        col_delta_cor_partial_ring_dev without an order, profiled, its
+        pieces read from its vtt.ring.* spans; the launch counts set to
+        0 just before the first and read just after the second (2 x P x
+        P flat launches, nothing else); each bitwise against one sampled
+        launch on the same indices; the replicated sharded call (P
+        sampled launches) bitwise against the same launch;
       - the flat kernel against its plain twin (RTOL / ATOL) on every
         table of that ring's plan, each launch timed, and the plain twin
         timed on the same tables;
@@ -2945,6 +2950,7 @@ def mesh_kernels_phase(mesh, smi):
     from velocyto_tpu_torch import bench_scaling, kernels
     from velocyto_tpu_torch.ops import coldeltacor as cdc
     from velocyto_tpu_torch.parallel.mesh import bounds
+    from velocyto_tpu_torch.utils.profiling import span_seconds, trace
     p = _shards(mesh)
     phase(f"mesh kernels: dense center range, flat block table, ring, "
           f"{p} shards")
@@ -2992,19 +2998,21 @@ def mesh_kernels_phase(mesh, smi):
     saved = cdc._REPLICATION_BYTES
     kernels.reset_counts()          # the forced ring's launches only
     cdc._REPLICATION_BYTES = 1
-    split = {}
     try:
         # one call, timed whole: its host plan (_ring_plan) takes seconds
         ring_ms, ring_o = _time_ms(
             lambda: cdc.col_delta_cor_partial_sharded_dev(
                 mesh, e.T, d.T, ixs, "sqrt", 1e-10, dmat_random=d2.T,
                 order=order))
-        ring = cdc.col_delta_cor_partial_ring_dev(
-            mesh, e.T, d.T, ixs, "sqrt", 1e-10, dmat_random=d2.T,
-            split=split)
+        with trace() as prof:
+            ring = cdc.col_delta_cor_partial_ring_dev(
+                mesh, e.T, d.T, ixs, "sqrt", 1e-10, dmat_random=d2.T)
+            torch.cuda.synchronize()
         ring_launches = _launches()
     finally:
         cdc._REPLICATION_BYTES = saved
+    split = {name[len("ring."):]: sec for name, (_n, sec)
+             in span_seconds(prof).items() if name.startswith("ring.")}
     assert ring_launches == {"dense": 0, "flat": 2 * p * p, "partial": 0,
                              "fma": 0, "svr": 0, "tsne": 0, "balance": 0,
                              "balance_decode": 0}, ring_launches
@@ -3027,8 +3035,9 @@ def mesh_kernels_phase(mesh, smi):
           f"bitwise={order_bitwise}, without bitwise={ring_bitwise}, "
           f"max_abs_err={max(err, err2)!r} (within rtol {RING_RTOL} / atol "
           f"{RING_ATOL}: {ok and ok2}); ring call with the order "
-          f"{ring_ms!r} ms (host plan included); the call without, split "
-          f"(s, host clock, the card synchronised between pieces): "
+          f"{ring_ms!r} ms (host plan included); the call without, profiled, "
+          f"its vtt.ring.* spans (s, host clock; launches and copies "
+          f"asynchronous, so the card's time falls where the host waits): "
           f"{split}; replicated sharded call "
           f"({p} launches, bitwise={sharded_bitwise}) {sharded_ms!r} ms, one "
           f"launch {one_ms!r} ms (CUDA events) on {smi}", flush=True)

@@ -20,6 +20,7 @@ from test_torch_mesh import _OnCard
 from velocyto_tpu_torch import kernels
 from velocyto_tpu_torch.ops import coldeltacor as tcdc
 from velocyto_tpu_torch.parallel import make_mesh
+from velocyto_tpu_torch.utils import profiling
 
 CPU = torch.device("cpu")
 _I32 = dict(dtype=torch.int32)
@@ -164,17 +165,22 @@ def test_ring_refuses_a_bad_order(rng):
 
 
 def test_ring_split_records_its_pieces(rng):
-    """With split= a dict, one ring call adds the seconds of each of its
-    pieces there; without, the call is the same, bitwise."""
+    """Under a profile, one ring call holds the five vtt.ring.* spans of
+    its pieces, in order; without one, the call is the same, bitwise."""
     e = rng.rand(7, 30).astype(np.float32)
     ixs = _uniform(rng, 30, 5)
     mesh = make_mesh(devices=[CPU] * 2)
-    split = {}
-    got = tcdc.col_delta_cor_partial_ring_dev(mesh, e, e, ixs, "sqrt",
-                                              1e-10, split=split)
-    assert sorted(split) == ["gather", "launches", "plan", "schedule",
-                             "upload"]
-    assert all(v >= 0.0 for v in split.values())
+    with profiling.trace() as prof:
+        got = tcdc.col_delta_cor_partial_ring_dev(mesh, e, e, ixs, "sqrt",
+                                                  1e-10)
+    ranges = profiling.span_ranges(prof)
+    assert sorted(ranges) == ["ring.gather", "ring.launches", "ring.plan",
+                              "ring.schedule", "ring.upload"]
+    first = {name: min(s for s, _ in rs) for name, rs in ranges.items()}
+    assert sorted(first, key=first.get) == [
+        "ring.upload", "ring.plan", "ring.schedule", "ring.launches",
+        "ring.gather"]
+    assert all(e >= s for rs in ranges.values() for s, e in rs)
     plain = tcdc.col_delta_cor_partial_ring_dev(mesh, e, e, ixs, "sqrt",
                                                 1e-10)
     np.testing.assert_array_equal(got.numpy(), plain.numpy())

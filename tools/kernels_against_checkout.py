@@ -25,8 +25,9 @@ checkout's in table order and in the locality rank of the embedding.
 On those indices it also times the whole ring call
 (col_delta_cor_partial_ring_dev over 2 shards of the card) of both
 checkouts in turns, each call's flat steps and final gather (the ring's
-inner function) timed apart, this checkout's with the order and its
-pieces split (split=), the outputs bitwise equal.  One JSON line.  Run
+inner function) timed apart, this checkout's with the order, then one
+more of this checkout's calls profiled for its pieces (its vtt.ring.*
+spans), the outputs bitwise equal.  One JSON line.  Run
 from the repo root, on a machine with a card and nvcc.
 """
 import importlib.util
@@ -183,43 +184,49 @@ def _timed_inner(cdc, times):
 def _ring_calls(pkg, e_rows, d_rows, d2_rows, ixs, order, tf, psc):
     """The whole ring call over SHARDS shards of the card, both fields, of
     the other checkout (pkg, no order) and of this one (the locality
-    order, pieces split), in turns (other, ours, ours, other): seconds of
-    each call and of its inner function, this checkout's split, and
-    whether all outputs are bitwise equal."""
+    order), in turns (other, ours, ours, other): seconds of each call and
+    of its inner function, the host seconds of this checkout's pieces in
+    one more call, profiled (its vtt.ring.* spans), and whether all
+    outputs are bitwise equal."""
     from velocyto_tpu_torch.ops import coldeltacor as cdc
     from velocyto_tpu_torch.parallel import make_mesh
+    from velocyto_tpu_torch.utils.profiling import span_seconds, trace
     ocdc = importlib.import_module(pkg.__name__ + ".ops.coldeltacor")
     omake = importlib.import_module(pkg.__name__ + ".parallel").make_mesh
     devices = [torch.device("cuda", 0)] * SHARDS
     calls = {
-        "other": lambda split: ocdc.col_delta_cor_partial_ring_dev(
+        "other": lambda: ocdc.col_delta_cor_partial_ring_dev(
             omake(devices=devices), e_rows.T, d_rows.T, ixs, tf, psc,
             dmat_random=d2_rows.T),
-        "ours": lambda split: cdc.col_delta_cor_partial_ring_dev(
+        "ours": lambda: cdc.col_delta_cor_partial_ring_dev(
             make_mesh(devices=devices), e_rows.T, d_rows.T, ixs, tf, psc,
-            dmat_random=d2_rows.T, order=order, split=split)}
+            dmat_random=d2_rows.T, order=order)}
     got = {k: {"call_s": [], "inner_s": []} for k in calls}
-    got["ours"]["split"] = []
     ref, same = None, True
     for key in ("other", "ours", "ours", "other"):
         mod = ocdc if key == "other" else cdc
         make = _timed_inner(mod, got[key]["inner_s"])
-        split = {} if key == "ours" else None
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = calls[key](split)
+            out = calls[key]()
             torch.cuda.synchronize()
             got[key]["call_s"].append(time.perf_counter() - t0)
         finally:
             mod.make_partial_ring = make
-        if split is not None:
-            got["ours"]["split"].append(split)
         if ref is None:
             ref = out
         else:
             same = same and _bits(out[0], ref[0]) and _bits(out[1], ref[1])
         del out
+    with trace() as prof:
+        out = calls["ours"]()
+        torch.cuda.synchronize()
+    same = same and _bits(out[0], ref[0]) and _bits(out[1], ref[1])
+    del out
+    got["ours"]["split"] = {
+        name[len("ring."):]: sec for name, (_n, sec)
+        in span_seconds(prof).items() if name.startswith("ring.")}
     got["bitwise"] = same
     return got
 

@@ -40,7 +40,6 @@ import logging
 import pickle
 import queue
 import threading
-import time
 import warnings
 from copy import deepcopy
 from typing import Any, Dict, List, Optional, Tuple, Union
@@ -69,6 +68,7 @@ from .ops.svr import SVR
 from .parallel.mesh import map_rows
 from .ops.tsne import tsne
 from .serialization import dump_hdf5, load_hdf5
+from .utils.profiling import span, spanned
 
 _F32, _F64 = torch.float32, torch.float64
 
@@ -229,8 +229,9 @@ class VelocytoLoom:
         ds = self.__dict__.get("_dev_state")
         if ds is not None and name in ds:
             return ds[name].to(dtype)
-        return torch.as_tensor(np.asarray(getattr(self, name)), dtype=dtype,
-                               device=self.device)
+        with span("upload." + name):
+            return torch.as_tensor(np.asarray(getattr(self, name)),
+                                   dtype=dtype, device=self.device)
 
     def _materialize_dev(self, name: str) -> Any:
         dev = self.__dict__["_dev_state"][name]
@@ -259,8 +260,7 @@ class VelocytoLoom:
     # runtime state, not data: the device, the mesh, the device tensors
     # and the handles to them
     _RUNTIME = ("device", "mesh", "_corr_dev", "_corr_rndm_dev", "_dev_state",
-                "_dev_host_cache", "_knn_graph_dev", "_compact_ixs_dev",
-                "_sampled_split")
+                "_dev_host_cache", "_knn_graph_dev", "_compact_ixs_dev")
 
     def to_hdf5(self, filename: str, **kwargs: Any) -> None:
         """Snapshot every attribute to hdf5 (resume with
@@ -519,6 +519,7 @@ class VelocytoLoom:
     # normalization (reference :535-904)
     # ------------------------------------------------------------------
 
+    @spanned("normalize.S")
     def _normalize_S(self, size: bool = True, log: bool = True,
                      pcount: float = 1, relative_size: Any = None,
                      target_size: Any = None) -> None:
@@ -537,6 +538,7 @@ class VelocytoLoom:
         if log:
             self.S_norm = s_norm
 
+    @spanned("normalize.U")
     def _normalize_U(self, size: bool = True, log: bool = True,
                      pcount: float = 1, use_S_size: bool = False,
                      relative_size: Any = None, target_size: Any = None) -> None:
@@ -843,10 +845,11 @@ class VelocytoLoom:
             self.__dict__.pop(stale, None)
         self._knn_graph_dev = g
         self._knn_diag = diag
-        nbr_idx, nbr_w = kd.compact_weights_dev(g, diag=diag)
-        S_src = self._get_dev("S_sz" if size_norm else "S")
-        U_src = self._get_dev("U_sz" if size_norm else "U")
-        Sx, Ux = kd.smooth_dev_multi((S_src, U_src), nbr_idx, nbr_w)
+        with span("knn.smooth"):
+            nbr_idx, nbr_w = kd.compact_weights_dev(g, diag=diag)
+            S_src = self._get_dev("S_sz" if size_norm else "S")
+            U_src = self._get_dev("U_sz" if size_norm else "U")
+            Sx, Ux = kd.smooth_dev_multi((S_src, U_src), nbr_idx, nbr_w)
         if maximum:
             Sx = torch.maximum(self._get_dev("S_sz"), Sx)
             Ux = torch.maximum(self._get_dev("U_sz"), Ux)
@@ -908,6 +911,7 @@ class VelocytoLoom:
     # gamma model (reference :1120-1260)
     # ------------------------------------------------------------------
 
+    @spanned("gammas")
     def fit_gammas(self, steady_state_bool: Optional[np.ndarray] = None,
                    use_imputed_data: bool = True, use_size_norm: bool = True,
                    fit_offset: bool = True, fixperc_q: bool = False,
@@ -1089,6 +1093,7 @@ class VelocytoLoom:
         return torch.as_tensor(np.asarray(getattr(self, name)), dtype=_F32,
                                device=self.device)
 
+    @spanned("velocity")
     def predict_U(self, which_gamma: str = "gammas", which_S: str = "Sx_sz",
                   which_offset: str = "q") -> None:
         """Upred = gamma * S (+ q) (reference :1321-1346)."""
@@ -1099,6 +1104,7 @@ class VelocytoLoom:
         self._set_dev("Upred",
                       gam[:, None] * self._get_dev(which_S) + q[:, None])
 
+    @spanned("velocity")
     def calculate_velocity(self, kind: str = "residual",
                            eps: Optional[float] = None) -> None:
         """velocity = U - Upred (reference :1348-1379)."""
@@ -1116,6 +1122,7 @@ class VelocytoLoom:
             vel = _eps_clip_dev(vel, self._get_dev("Upred"), eps)
         self._set_dev("velocity", vel)
 
+    @spanned("velocity")
     def calculate_shift(self, assumption: str = "constant_velocity",
                         delta_t: float = 1) -> None:
         """delta_S extrapolation (Model I / Model II, reference
@@ -1133,6 +1140,7 @@ class VelocytoLoom:
             raise NotImplementedError(
                 f"Assumption {assumption} is not implemented")
 
+    @spanned("velocity")
     def extrapolate_cell_at_t(self, delta_t: float = 1,
                               clip: bool = True) -> None:
         """Extrapolated expression (reference :1410-1439)."""
@@ -1283,13 +1291,11 @@ class VelocytoLoom:
         (col_delta_cor_partial_sharded_dev, one dual launch per shard)
         takes every row, as in the JAX package.
 
-        The call's split on the host clock goes to self._sampled_split:
-        call_s, replay_s (the replay and its chunk uploads, on its
-        thread), main_busy_s (this thread minus its waits for the
-        workers), tail_s (from the replay's end to the call's end) and
-        chunks."""
-        t_call = time.perf_counter()
-        waited = 0.0               # seconds this thread waits for a worker
+        Spans (utils.profiling.span): on this thread transition.inputs,
+        .embedding_knn, .locality_order, .chunk (gather and launch) and
+        its waits for the workers, transition.wait.control, .wait.chunk
+        and .wait.replay; on the workers transition.replay,
+        .replay.upload and .control.plan."""
         N = embedding.shape[0]
         dev = torch.device(self.device)
         mesh = getattr(self, "mesh", None)
@@ -1298,7 +1304,6 @@ class VelocytoLoom:
         n_samp = int(sampled_fraction * nn_k)
         samp_dt = np.uint16 if nn_k <= 65536 else np.int32
         chunks: "queue.Queue" = queue.Queue()
-        span = {}
         # a copy from pageable memory is synchronous: on the current
         # stream it would wait for this thread's queued work
         side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
@@ -1308,20 +1313,19 @@ class VelocytoLoom:
             if side is None:
                 chunks.put((lo, hi, host, None))
                 return
-            with torch.cuda.stream(side):
+            with span("transition.replay.upload"), torch.cuda.stream(side):
                 samp = host.to(dev)
                 ready = torch.cuda.Event()
                 ready.record(side)
             chunks.put((lo, hi, samp, ready))
 
         def replay():
-            span["start"] = time.perf_counter()
             try:
-                return native.choice_noreplace_rows_chunked(
-                    random_seed, N, nn_k, n_samp, p_samp,
-                    n_chunks=SAMPLER_CHUNKS, on_chunk=on_chunk)
+                with span("transition.replay"):
+                    return native.choice_noreplace_rows_chunked(
+                        random_seed, N, nn_k, n_samp, p_samp,
+                        n_chunks=SAMPLER_CHUNKS, on_chunk=on_chunk)
             finally:
-                span["end"] = time.perf_counter()
                 chunks.put(None)
 
         sampler = _Worker(replay)
@@ -1334,56 +1338,61 @@ class VelocytoLoom:
                 control = _Worker(_permute_rows_nsign_dev,
                                   self._get_dev("delta_S"),
                                   np.random.get_state())
-            if "pcs" in hidim:  # sic (reference :1531)
-                tf, emat, d_main = self._pcs_inputs(hidim, ndims, transform,
-                                                    psc)
-            else:
-                tf = _KERNEL_TRANSFORM[transform]
-                hi = self._get_dev(hidim)
-                emat = torch.log2(hi + psc) if transform == "logratio" \
-                    else hi
+            with span("transition.inputs"):
+                if "pcs" in hidim:  # sic (reference :1531)
+                    tf, emat, d_main = self._pcs_inputs(hidim, ndims,
+                                                        transform, psc)
+                else:
+                    tf = _KERNEL_TRANSFORM[transform]
+                    hi = self._get_dev(hidim)
+                    emat = torch.log2(hi + psc) if transform == "logratio" \
+                        else hi
 
-                def d_of(shift):
-                    return _corr_transform_dev(hi, shift, self.used_delta_t,
-                                               psc, transform)
-                d_main = d_of(self._get_dev("delta_S"))
-            _dists, idx = kd.knn_search_dev(embedding, min(nn_k + 1, N),
-                                            device=dev, mesh=mesh)
+                    def d_of(shift):
+                        return _corr_transform_dev(hi, shift,
+                                                   self.used_delta_t, psc,
+                                                   transform)
+                    d_main = d_of(self._get_dev("delta_S"))
+            with span("transition.embedding_knn"):
+                _dists, idx = kd.knn_search_dev(embedding, min(nn_k + 1, N),
+                                                device=dev, mesh=mesh)
             # the kernel takes each chunk's cells in embedding-locality
             # order, so the rows it gathers for neighbouring cells are
             # served by L2
-            order = locality_order(torch.as_tensor(embedding,
-                                                   device=idx.device))
+            with span("transition.locality_order"):
+                order = locality_order(torch.as_tensor(embedding,
+                                                       device=idx.device))
             d_rndm = delta_rndm = None
             if control is not None:
-                t = time.perf_counter()
-                delta_rndm = control.join()
-                waited += time.perf_counter() - t
-                d_rndm = d_of(delta_rndm)
-            if mesh is None:
-                prep_d, run = make_partial_compact_chunked(emat, tf, psc)
-                d_rows = prep_d(d_main)
-                d_rndm_rows = None if d_rndm is None else prep_d(d_rndm)
+                with span("transition.wait.control"):
+                    delta_rndm = control.join()
+            with span("transition.inputs"):
+                if delta_rndm is not None:
+                    d_rndm = d_of(delta_rndm)
+                if mesh is None:
+                    prep_d, run = make_partial_compact_chunked(emat, tf, psc)
+                    d_rows = prep_d(d_main)
+                    d_rndm_rows = None if d_rndm is None else prep_d(d_rndm)
             neigh, outs = [], []
             while True:
-                t = time.perf_counter()
-                item = chunks.get()
-                waited += time.perf_counter() - t
+                with span("transition.wait.chunk"):
+                    item = chunks.get()
                 if item is None:
                     break
-                lo, hi, samp, ready = item
-                if ready is not None:
-                    stream = torch.cuda.current_stream(dev)
-                    stream.wait_event(ready)
-                    samp.record_stream(stream)
-                neigh.append(_sample_neighbors_dev(idx[lo:hi], samp,
-                                                   row_offset=lo))
-                if mesh is None:
-                    outs.append(run(d_rows, lo, hi, neigh[-1], d_rndm_rows,
-                                    order=chunk_order(order, lo, hi)))
-            t = time.perf_counter()
-            sampling_ixs, _draws, mt_state = sampler.join()
-            waited += time.perf_counter() - t
+                with span("transition.chunk"):
+                    lo, hi, samp, ready = item
+                    if ready is not None:
+                        stream = torch.cuda.current_stream(dev)
+                        stream.wait_event(ready)
+                        samp.record_stream(stream)
+                    neigh.append(_sample_neighbors_dev(idx[lo:hi], samp,
+                                                       row_offset=lo))
+                    if mesh is None:
+                        outs.append(run(d_rows, lo, hi, neigh[-1],
+                                        d_rndm_rows,
+                                        order=chunk_order(order, lo, hi)))
+            with span("transition.wait.replay"):
+                sampling_ixs, _draws, mt_state = sampler.join()
             if mesh is not None:
                 outs.append(col_delta_cor_partial_sharded_dev(
                     mesh, emat, d_main, torch.cat(neigh), tf, psc, d_rndm,
@@ -1422,11 +1431,6 @@ class VelocytoLoom:
             self._set_dev("delta_S_rndm", delta_rndm)
             self._corr_rndm_dev = corr_r
             self._drop("_compact_corr_random", "corrcoef_random")
-        t_end = time.perf_counter()
-        self._sampled_split = dict(
-            call_s=t_end - t_call, replay_s=span["end"] - span["start"],
-            main_busy_s=t_end - t_call - waited,
-            tail_s=t_end - span["end"], chunks=len(outs))
 
     def _estimate_full(self, hidim: str, ndims: Optional[int],
                        transform: str, psc: float, calculate_randomized: bool,
@@ -1443,30 +1447,33 @@ class VelocytoLoom:
         # embedding neighbors: device f32 candidate pass + f64 re-score
         # (sklearn's exact ordering and tie-breaks)
         mesh = getattr(self, "mesh", None)
-        _dists, idx = kd.knn_search_dev(embedding, min(nn_k + 1, N),
-                                        device=self.device, mesh=mesh)
-        rows = torch.arange(N, device=idx.device)
-        is_self = idx == rows[:, None]
-        first_self = torch.where(is_self.any(1),
-                                 is_self.to(torch.uint8).argmax(1),
-                                 idx.shape[1] - 1)
-        keep = torch.ones_like(idx, dtype=torch.bool)
-        keep[rows, first_self] = False
-        neigh_full = idx[keep].reshape(N, idx.shape[1] - 1)[:, :nn_k]
-        self.embedding_knn = sparse.csr_matrix(
-            (np.ones(N * nn_k), neigh_full.cpu().numpy().ravel(),
-             np.arange(0, N * nn_k + 1, nn_k)), shape=(N, N))
+        with span("transition.embedding_knn"):
+            _dists, idx = kd.knn_search_dev(embedding, min(nn_k + 1, N),
+                                            device=self.device, mesh=mesh)
+            rows = torch.arange(N, device=idx.device)
+            is_self = idx == rows[:, None]
+            first_self = torch.where(is_self.any(1),
+                                     is_self.to(torch.uint8).argmax(1),
+                                     idx.shape[1] - 1)
+            keep = torch.ones_like(idx, dtype=torch.bool)
+            keep[rows, first_self] = False
+            neigh_full = idx[keep].reshape(N, idx.shape[1] - 1)[:, :nn_k]
+        with span("transition.knn_csr"):
+            self.embedding_knn = sparse.csr_matrix(
+                (np.ones(N * nn_k), neigh_full.cpu().numpy().ravel(),
+                 np.arange(0, N * nn_k + 1, nn_k)), shape=(N, N))
 
         # the main field and the randomized control in one kernel launch
         # (one a shard with a mesh)
-        corr = col_delta_cor(emat, d_main, tf, psc, dmat_random=d_rndm,
-                             mesh=mesh)
-        corr, corr_r = corr if d_rndm is not None else (corr, None)
-        corr.fill_diagonal_(0.0)
-        self._set_dev("corrcoef", corr)
-        if corr_r is not None:
-            corr_r.fill_diagonal_(0.0)
-            self._set_dev("corrcoef_random", corr_r)
+        with span("transition.cor"):
+            corr = col_delta_cor(emat, d_main, tf, psc, dmat_random=d_rndm,
+                                 mesh=mesh)
+            corr, corr_r = corr if d_rndm is not None else (corr, None)
+            corr.fill_diagonal_(0.0)
+            self._set_dev("corrcoef", corr)
+            if corr_r is not None:
+                corr_r.fill_diagonal_(0.0)
+                self._set_dev("corrcoef_random", corr_r)
 
     def _pcs_inputs(self, hidim: str, ndims: Optional[int], transform: str,
                     psc: float):
@@ -1490,20 +1497,24 @@ class VelocytoLoom:
         delta_S_rndm with numpy's global stream at the reference's point
         in the sequence (bit-identical to the JAX package's control)."""
         if calculate_randomized:
-            self.delta_S_rndm = np.copy(self.delta_S)
-            permute_rows_nsign(self.delta_S_rndm)
-        if "pcs" in hidim:  # sic (reference :1531)
-            tf, emat, d_main = self._pcs_inputs(hidim, ndims, transform, psc)
-            d_rndm = None
-        else:
-            dt = self.used_delta_t
-            hi = self._get_dev(hidim, _F64)
-            tf, emat, d_of = _transform_for_corr(transform, psc, hi)
-            d_main = d_of(hi + dt * self._get_dev("delta_S", _F64))
-            d_rndm = (d_of(hi + dt * self._get_dev("delta_S_rndm", _F64))
-                      if calculate_randomized else None)
-        return (tf, emat.to(_F32).contiguous(), d_main.to(_F32).contiguous(),
-                None if d_rndm is None else d_rndm.to(_F32).contiguous())
+            with span("transition.control"):
+                self.delta_S_rndm = np.copy(self.delta_S)
+                permute_rows_nsign(self.delta_S_rndm)
+        with span("transition.inputs"):
+            if "pcs" in hidim:  # sic (reference :1531)
+                tf, emat, d_main = self._pcs_inputs(hidim, ndims, transform,
+                                                    psc)
+                d_rndm = None
+            else:
+                dt = self.used_delta_t
+                hi = self._get_dev(hidim, _F64)
+                tf, emat, d_of = _transform_for_corr(transform, psc, hi)
+                d_main = d_of(hi + dt * self._get_dev("delta_S", _F64))
+                d_rndm = (d_of(hi + dt * self._get_dev("delta_S_rndm", _F64))
+                          if calculate_randomized else None)
+            return (tf, emat.to(_F32).contiguous(),
+                    d_main.to(_F32).contiguous(),
+                    None if d_rndm is None else d_rndm.to(_F32).contiguous())
 
     # ------------------------------------------------------------------
     # lazy dense views of the compact correlation state
@@ -1614,49 +1625,55 @@ class VelocytoLoom:
         if self._compact_state_valid():
             return self._calculate_embedding_shift_compact(
                 sigma_corr, expression_scaling, scaling_penalty)
-        K = _dense_from_csr(self.embedding_knn, self.device)
-        K_rowsum = K.sum(dim=1)
+        with span("shift.dense_k"):
+            K = _dense_from_csr(self.embedding_knn, self.device)
+            K_rowsum = K.sum(dim=1)
         have_rndm = self._has_rndm_state()
 
         def _softmax(name):
             tp = torch.exp(self._corr_dev_view(name) / sigma_corr) * K
             return tp / tp.sum(dim=1, keepdim=True)
 
-        tp = _softmax("corrcoef")
-        self._set_dev("transition_prob", tp)
-        if have_rndm:
-            tp_r = _softmax("corrcoef_random")
-            self._set_dev("transition_prob_random", tp_r)
+        with span("shift.softmax"):
+            tp = _softmax("corrcoef")
+            self._set_dev("transition_prob", tp)
+            if have_rndm:
+                tp_r = _softmax("corrcoef_random")
+                self._set_dev("transition_prob_random", tp_r)
 
         emb = torch.as_tensor(np.asarray(self.embedding, np.float32),
                               device=self.device)
         mesh = getattr(self, "mesh", None)
 
         def _shift(P):
-            if mesh is not None:
-                return _embedding_shift_sharded(mesh, emb, P, K, K_rowsum)
-            return _embedding_shift_blocked(emb, P, K, K_rowsum)
+            with span("shift.project"):
+                if mesh is not None:
+                    out = _embedding_shift_sharded(mesh, emb, P, K, K_rowsum)
+                else:
+                    out = _embedding_shift_blocked(emb, P, K, K_rowsum)
+                return out.cpu().numpy().astype(np.float64)
 
-        self.delta_embedding = _shift(tp).cpu().numpy().astype(np.float64)
+        self.delta_embedding = _shift(tp)
 
         if expression_scaling:
-            hi_dim = self._get_dev(self.which_hidim, _F64)
-            k_term = hi_dim @ (K / K_rowsum[:, None]).to(_F64).T
+            with span("shift.scaling"):
+                hi_dim = self._get_dev(self.which_hidim, _F64)
+                k_term = hi_dim @ (K / K_rowsum[:, None]).to(_F64).T
 
             def _scaling(P, d_name):
-                estim = hi_dim @ P.to(_F64).T - k_term
-                cos_proj = (self._get_dev(d_name, _F64) * estim).sum(0) / \
-                    torch.sqrt((estim ** 2).sum(0))
-                return np.clip(cos_proj.cpu().numpy() / scaling_penalty,
-                               0, 1)
+                with span("shift.scaling"):
+                    estim = hi_dim @ P.to(_F64).T - k_term
+                    cos_proj = (self._get_dev(d_name, _F64) * estim).sum(0) \
+                        / torch.sqrt((estim ** 2).sum(0))
+                    return np.clip(cos_proj.cpu().numpy() / scaling_penalty,
+                                   0, 1)
 
             self.scaling = _scaling(tp, "delta_S")
             self.delta_embedding = self.delta_embedding * \
                 self.scaling[:, None]
 
         if have_rndm:
-            self.delta_embedding_random = _shift(tp_r).cpu().numpy().astype(
-                np.float64)
+            self.delta_embedding_random = _shift(tp_r)
             if expression_scaling:
                 self.scaling_rndm = _scaling(tp_r, "delta_S_rndm")
                 self.delta_embedding_random = \
@@ -1676,11 +1693,13 @@ class VelocytoLoom:
         def _p_dev(which):
             # softmax over the sampled candidates; the dense
             # transition_prob stays a lazy __getattr__ view
-            dev = d.get("_corr_dev" if which == "main" else "_corr_rndm_dev")
-            if dev is None:
-                dev = torch.as_tensor(self._compact_corr_host(which),
-                                      dtype=_F32, device=self.device)
-            return _compact_softmax(dev, float(sigma_corr))
+            with span("shift.softmax"):
+                dev = d.get("_corr_dev" if which == "main"
+                            else "_corr_rndm_dev")
+                if dev is None:
+                    dev = torch.as_tensor(self._compact_corr_host(which),
+                                          dtype=_F32, device=self.device)
+                return _compact_softmax(dev, float(sigma_corr))
 
         self._drop("transition_prob")
         self._tp_sigma = float(sigma_corr)
@@ -1695,22 +1714,26 @@ class VelocytoLoom:
         mesh = getattr(self, "mesh", None)
 
         def _shift(P):
-            if mesh is not None:
-                return map_rows(mesh, _embedding_shift_compact_rows, [emb],
-                                [emb, ixs, P])
-            return _embedding_shift_compact(emb, ixs, P)
+            with span("shift.project"):
+                if mesh is not None:
+                    out = map_rows(mesh, _embedding_shift_compact_rows, [emb],
+                                   [emb, ixs, P])
+                else:
+                    out = _embedding_shift_compact(emb, ixs, P)
+                return out.cpu().numpy().astype(np.float64)
 
-        self.delta_embedding = _shift(p_main).cpu().numpy().astype(
-            np.float64)
+        self.delta_embedding = _shift(p_main)
 
         def _scaling(P, d_name):
-            d_rows = self._get_dev(d_name).T.contiguous()
-            if mesh is not None:
-                num, den = map_rows(mesh, _expr_scaling_compact, [hi_rows],
-                                    [d_rows, ixs, P])
-            else:
-                num, den = _expr_scaling_compact(hi_rows, d_rows, ixs, P)
-            return np.clip((num / den).cpu().numpy() / scaling_penalty, 0, 1)
+            with span("shift.scaling"):
+                d_rows = self._get_dev(d_name).T.contiguous()
+                if mesh is not None:
+                    num, den = map_rows(mesh, _expr_scaling_compact,
+                                        [hi_rows], [d_rows, ixs, P])
+                else:
+                    num, den = _expr_scaling_compact(hi_rows, d_rows, ixs, P)
+                return np.clip((num / den).cpu().numpy() / scaling_penalty,
+                               0, 1)
 
         if expression_scaling:
             hi_rows = self._get_dev(self.which_hidim).T.contiguous()
@@ -1719,13 +1742,13 @@ class VelocytoLoom:
                 self.delta_embedding * self.scaling[:, None]
 
         if have_rndm:
-            self.delta_embedding_random = _shift(p_rndm).cpu().numpy() \
-                .astype(np.float64)
+            self.delta_embedding_random = _shift(p_rndm)
             if expression_scaling:
                 self.scaling_rndm = _scaling(p_rndm, "delta_S_rndm")
                 self.delta_embedding_random = \
                     self.delta_embedding_random * self.scaling_rndm[:, None]
 
+    @spanned("grid")
     def calculate_grid_arrows(self, embed: str = "embedding",
                               smooth: float = 0.5,
                               steps: Tuple = (40, 40),
@@ -2696,12 +2719,13 @@ def _permute_rows_nsign_dev(delta: torch.Tensor,
     """permute_rows_nsign of the (G, N) device tensor delta, drawn from a
     RandomState set to rng_state (numpy's global stream is not touched):
     the plan on the host, its upload, the apply on the device."""
-    rng = np.random.RandomState()
-    rng.set_state(rng_state)
-    perms, sign_bits = _permute_rows_nsign_plan(*delta.shape, rng=rng)
-    return _permute_apply_dev(
-        delta, torch.from_numpy(perms).to(delta.device),
-        torch.from_numpy(sign_bits).to(delta.device))
+    with span("transition.control.plan"):
+        rng = np.random.RandomState()
+        rng.set_state(rng_state)
+        perms, sign_bits = _permute_rows_nsign_plan(*delta.shape, rng=rng)
+        return _permute_apply_dev(
+            delta, torch.from_numpy(perms).to(delta.device),
+            torch.from_numpy(sign_bits).to(delta.device))
 
 
 class _Worker:

@@ -13,12 +13,14 @@ Port of the JAX package's bench_attr.py.  Splits
     on a worker), the two displacement transforms, and the sampled
     colDeltaCor in locality order, once as a dual launch over all rows
     and once for the main field alone; then one whole
-    estimate_transition_prob call, timed, with its split (the replay's
-    own seconds in the call, on its thread; the calling thread's busy
-    seconds; the tail from the replay's end to the call's end), and once
-    more under torch.profiler for the device's idle share over it (the
-    path runs the rest beside the replay and consumes its rows chunk by
-    chunk, so the whole is less than the sum);
+    estimate_transition_prob call, timed, and once more under
+    torch.profiler (utils.profiling.trace) for the device's idle share
+    over it and its split, read from the port's spans in that profile
+    (bench_common.transition_split: the replay's own seconds in the call,
+    on its thread; the calling thread's busy seconds; the tail from the
+    replay's end to the call's end) (the path runs the rest beside the
+    replay and consumes its rows chunk by chunk, so the whole is less
+    than the sum);
   - the 50k balanced kNN into bench_knn50k's stages;
   - the same stages at the pipeline's operating point (20,000 x 50 PCs,
     sight 3000, k=500, maxl 1500), with the numpy host greedy loop timed
@@ -37,14 +39,13 @@ functions take device="cpu" for the tests (no probe, no idle share).
 """
 import json
 import sys
-import tempfile
 import time
 
 import numpy as np
 import torch
 
 from .bench_common import (device_probe, host_window, idle_share,
-                           require_card, sync)
+                           require_card, sync, transition_split)
 from .utils.profiling import trace
 
 # the JAX script's keys -> the port's, where the port's piece differs
@@ -139,19 +140,18 @@ def attr_transition(n=20000, g=2000, nn=3500, frac=0.5, device="cuda"):
             hidim="Sx_sz", embed="ts", transform="sqrt", knn_random=True,
             n_neighbors=nn, sampled_fraction=frac, calculate_randomized=True)
     timed("transition_prob(whole)", whole, out, device)
-    split = vlm._sampled_split
+    with trace() as prof:
+        t0 = time.perf_counter()
+        with torch.profiler.record_function("transition_prob(whole)"):
+            whole()
+            sync(device)
+        out["transition_prob(whole,profiled)"] = time.perf_counter() - t0
+    split = transition_split(prof, "transition_prob(whole)")
     for key, name in (("replay_s", "replay(in_call)"),
                       ("main_busy_s", "main_busy(in_call)"),
                       ("tail_s", "tail(in_call)")):
         out[name] = split[key]
-        print(f"#   {name}: {split[key]:.3f}s", flush=True)
-    with tempfile.TemporaryDirectory(prefix="vtt-attr-") as logdir:
-        with trace(logdir) as prof:
-            t0 = time.perf_counter()
-            with torch.profiler.record_function("transition_prob(whole)"):
-                whole()
-                sync(device)
-            out["transition_prob(whole,profiled)"] = time.perf_counter() - t0
+        print(f"#   {name}: {split[key]!r}s", flush=True)
     if torch.device(device).type == "cuda":
         out["idle_share(whole)"] = idle_share(
             prof, *host_window(prof, "transition_prob(whole)"))

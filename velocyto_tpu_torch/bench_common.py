@@ -5,18 +5,20 @@ Port of the JAX package's bench_common.py: the device and host
 contention probes, the device sync, and the run statistics the harnesses
 share (run 0 a warm-up, the headline the true median of the clean
 measured runs).  Adds the device's idle share over a host window, read
-from a torch.profiler profile.
+from a torch.profiler profile, and the split of a sampled transition
+call, read from the port's spans in such a profile.
 """
 import statistics
 import subprocess
 import time
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch.autograd import DeviceType
 
 from .ops.knn import full_f32
+from .utils.profiling import span_ranges
 
 
 # the clean-run thresholds of the two probes, about 2.5-3x their clean
@@ -169,3 +171,26 @@ def top_device_kernels(prof, n: int = 5) -> List[Dict]:
         t[1] += 1
     top = sorted(totals.items(), key=lambda kv: -kv[1][0])[:n]
     return [{"name": k, "ms": v[0] / 1e3, "calls": v[1]} for k, v in top]
+
+
+def transition_split(prof, call: str) -> Dict[str, Optional[float]]:
+    """The split of one sampled estimate_transition_prob call inside the
+    host range `call` of a profile taken with utils.profiling.trace,
+    read from the port's spans (seconds): call_s; replay_s
+    (transition.replay, on its worker thread; None where the profile
+    holds no other thread); main_busy_s (call_s less the calling
+    thread's transition.wait.* spans); tail_s (from the replay's end to
+    the call's end; None without the replay); chunks (the
+    transition.chunk spans)."""
+    t0, t1 = host_window(prof, call)
+    ranges = span_ranges(prof)
+    waits = sum(e - s for name, rs in ranges.items()
+                if name.startswith("transition.wait.") for s, e in rs)
+    replay = ranges.get("transition.replay")
+    return {"call_s": (t1 - t0) / 1e6,
+            "replay_s": (sum(e - s for s, e in replay) / 1e6
+                         if replay else None),
+            "main_busy_s": (t1 - t0 - waits) / 1e6,
+            "tail_s": (t1 - max(e for _, e in replay)) / 1e6
+            if replay else None,
+            "chunks": len(ranges.get("transition.chunk", ()))}

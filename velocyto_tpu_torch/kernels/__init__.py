@@ -42,6 +42,8 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from ..utils.profiling import span
+
 _HERE = Path(__file__).resolve().parent
 _BUILD = _HERE / "_build"
 SOURCES = sorted(_HERE.glob("*.cu"))
@@ -129,7 +131,10 @@ def build() -> Dict[str, Path]:
             text=True)))
     logs, failed = [], []
     for src, lib, tmp, proc in procs:
-        out, _ = proc.communicate()
+        # the nvcc runs overlap: each span is the wait for its library
+        # after the ones before it
+        with span("build." + src.stem):
+            out, _ = proc.communicate()
         logs.append(f"# nvcc {src.name} (rc {proc.returncode})\n{out}")
         if proc.returncode == 0:
             os.replace(tmp, lib)  # atomic: a concurrent build never loads half

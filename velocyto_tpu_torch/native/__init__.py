@@ -39,6 +39,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..utils.profiling import span
+
 _HERE = Path(__file__).resolve().parent
 _BUILD = _HERE / "_build"
 SOURCE = _HERE / "sampler.cpp"
@@ -69,7 +71,8 @@ def _compile(source: Path, stem: str, flags: List[str],
     # no -march=native: the library must run on any host of the arch
     cmd = [cxx, "-O3", "-std=c++17", "-shared", "-fPIC", *flags,
            "-o", str(tmp), str(source), *libs]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with span("build." + stem):
+        proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"c++ failed ({proc.returncode}):\n"
                            f"{proc.stdout}\n{proc.stderr}")

@@ -36,8 +36,7 @@ All computation is float32.
 from __future__ import annotations
 
 import os
-import time
-from typing import Dict, List, Optional, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -45,6 +44,7 @@ import torch
 from .. import kernels
 from ..parallel.mesh import (CELLS, Mesh, bounds, gather_rows, join,
                              on_shard, replicas)
+from ..utils.profiling import span
 from .knn import full_f32
 
 _LINEAR, _SQRT, _LOG10 = 0, 1, 2
@@ -732,39 +732,24 @@ def _rotate(mesh: Mesh, shards, visit: List[torch.Tensor]
     return nxt, ready
 
 
-def _lap(shards, split: Optional[Dict[str, float]], name: str,
-         t0: float) -> float:
-    """With a split dict (the ring's ``split=``): synchronise the shards'
-    cards, add the seconds since t0 to split[name] and return the time
-    now.  Without one: nothing, t0 back."""
-    if split is None:
-        return t0
-    for dev in {s.device for s in shards if s.device.type == "cuda"}:
-        torch.cuda.synchronize(dev)
-    now = time.perf_counter()
-    split[name] = split.get(name, 0.0) + now - t0
-    return now
-
-
 def make_partial_ring(mesh: Mesh, shards: int, bmax: int, qwidth: int,
                       nn: int, transform: str = "linear", psc: float = 0.0):
     """The ring sampled colDeltaCor over the block-quantized plan.
 
     Returns fn(e_parts, d_parts, qloc_parts, qrow_parts, inv_parts,
-    d2_parts=None, order=None, split=None) -> this process's (C, nn)
-    blocks (pairs with d2_parts); each argument holds one tensor per local
-    cells shard on its device: its chunk of expression and displacement
-    rows (C, G), its tables qloc (P, Bmax, q), qrow (P, Bmax) and its rows
-    of inv_pos (C, nn).  Each table's schedule (kernels.flat_runs) is
-    built first: its runs in the locality rank of their centers under
-    ``order`` (a permutation of range(N), ``locality_order``;
-    shard_rank), in table order without it; the order changes no output.
-    split: as in col_delta_cor_partial_ring_dev.  At step s shard p runs the flat
-    kernel on the chunk it holds, (p + s) % P, after issuing that chunk's
-    hand-over to shard p - 1 (so the copy overlaps the launch); P launches
-    a shard, both fields in each.  The final gather through inv_pos is
-    plain torch.  Port of the JAX package's make_partial_ring (which has
-    no order)."""
+    d2_parts=None, order=None) -> this process's (C, nn) blocks (pairs
+    with d2_parts); each argument holds one tensor per local cells shard
+    on its device: its chunk of expression and displacement rows (C, G),
+    its tables qloc (P, Bmax, q), qrow (P, Bmax) and its rows of inv_pos
+    (C, nn).  Each table's schedule (kernels.flat_runs) is built first:
+    its runs in the locality rank of their centers under ``order`` (a
+    permutation of range(N), ``locality_order``; shard_rank), in table
+    order without it; the order changes no output.  At step s shard p
+    runs the flat kernel on the chunk it holds, (p + s) % P, after issuing
+    that chunk's hand-over to shard p - 1 (so the copy overlaps the
+    launch); P launches a shard, both fields in each.  The final gather
+    through inv_pos is plain torch.  Port of the JAX package's
+    make_partial_ring (which has no order)."""
     tcode = _TRANSFORMS[transform]
     local = mesh.cell_shards()
     if mesh.shape[CELLS] != shards:
@@ -772,55 +757,56 @@ def make_partial_ring(mesh: Mesh, shards: int, bmax: int, qwidth: int,
                          f"{mesh.shape[CELLS]}")
 
     def fn(e_parts, d_parts, qloc_parts, qrow_parts, inv_parts,
-           d2_parts=None, order=None, split=None):
-        t = time.perf_counter()
-        scheds = []
-        for i, s in enumerate(local):
-            with on_shard(s, qrow_parts[i]):
-                rank = None
-                if order is not None:
-                    rows = e_parts[i].shape[0]
-                    lo = s.index * rows
-                    rank = shard_rank(order.to(s.device), lo,
-                                      min(order.shape[0], lo + rows), rows)
-                scheds.append([kernels.flat_runs(qrow_parts[i][v], rank)
-                               for v in range(shards)])
-        t = _lap(local, split, "schedule", t)
+           d2_parts=None, order=None):
+        with span("ring.schedule"):
+            scheds = []
+            for i, s in enumerate(local):
+                with on_shard(s, qrow_parts[i]):
+                    rank = None
+                    if order is not None:
+                        rows = e_parts[i].shape[0]
+                        lo = s.index * rows
+                        rank = shard_rank(order.to(s.device), lo,
+                                          min(order.shape[0], lo + rows),
+                                          rows)
+                    scheds.append([kernels.flat_runs(qrow_parts[i][v], rank)
+                                   for v in range(shards)])
         dual = d2_parts is not None
         outs = [[torch.empty((shards, bmax, qwidth), dtype=torch.float32,
                              device=s.device) for _ in range(1 + dual)]
                 for s in local]
         visit = list(e_parts)
-        for step in range(shards):
-            if step + 1 < shards:
-                nxt, ready = _rotate(mesh, local, visit)
-            for i, s in enumerate(local):
-                v = (s.index + step) % shards
-                mine = [visit[i], e_parts[i], d_parts[i], *outs[i]] + \
-                    ([d2_parts[i]] if dual else [])
-                with on_shard(s, *mine):
-                    part = _flat_rows(visit[i], e_parts[i], d_parts[i],
-                                      qloc_parts[i][v], qrow_parts[i][v],
-                                      tcode, psc,
-                                      d2_parts[i] if dual else None,
-                                      *scheds[i][v])
-                    for o, pt in zip(outs[i], part if dual else (part,)):
-                        o[v].copy_(pt)
-            if step + 1 < shards:
+        with span("ring.launches"):
+            for step in range(shards):
+                if step + 1 < shards:
+                    nxt, ready = _rotate(mesh, local, visit)
                 for i, s in enumerate(local):
-                    if ready[i] is not None:
-                        s.stream.wait_event(ready[i])
-                        nxt[i].record_stream(s.stream)
-                visit = nxt
-        t = _lap(local, split, "launches", t)
-        res = []
-        for i, s in enumerate(local):
-            with on_shard(s, inv_parts[i]):
-                idx = inv_parts[i].to(torch.int64)
-                got = tuple(o.reshape(-1)[idx] for o in outs[i])
-            res.append(got if dual else got[0])
-        join(local, res)
-        _lap(local, split, "gather", t)
+                    v = (s.index + step) % shards
+                    mine = [visit[i], e_parts[i], d_parts[i], *outs[i]] + \
+                        ([d2_parts[i]] if dual else [])
+                    with on_shard(s, *mine):
+                        part = _flat_rows(visit[i], e_parts[i], d_parts[i],
+                                          qloc_parts[i][v], qrow_parts[i][v],
+                                          tcode, psc,
+                                          d2_parts[i] if dual else None,
+                                          *scheds[i][v])
+                        for o, pt in zip(outs[i],
+                                         part if dual else (part,)):
+                            o[v].copy_(pt)
+                if step + 1 < shards:
+                    for i, s in enumerate(local):
+                        if ready[i] is not None:
+                            s.stream.wait_event(ready[i])
+                            nxt[i].record_stream(s.stream)
+                    visit = nxt
+        with span("ring.gather"):
+            res = []
+            for i, s in enumerate(local):
+                with on_shard(s, inv_parts[i]):
+                    idx = inv_parts[i].to(torch.int64)
+                    got = tuple(o.reshape(-1)[idx] for o in outs[i])
+                res.append(got if dual else got[0])
+            join(local, res)
         return res
 
     return fn
@@ -829,29 +815,27 @@ def make_partial_ring(mesh: Mesh, shards: int, bmax: int, qwidth: int,
 def col_delta_cor_partial_ring_dev(mesh: Mesh, emat, dmat, ixs,
                                    transform: str = "linear",
                                    psc: float = 0.0, dmat_random=None,
-                                   order: Optional[torch.Tensor] = None,
-                                   split: Optional[Dict[str, float]] = None):
+                                   order: Optional[torch.Tensor] = None):
     """Fully split sampled colDeltaCor (expression split over the mesh's
     cells shards, chunks handed round the ring) returning the compact (N,
     nn) correlations on the mesh's first device (the whole result on every
     process), the pair with dmat_random.  Each pair's moments accumulate
     as in the sampled kernel.  order: an optional permutation of range(N)
     (``locality_order``) the flat kernel takes each shard's centers in
-    (make_partial_ring); it changes no output.  split: an optional dict
-    that receives the host seconds of the call's pieces, the mesh's cards
-    synchronised between them (so only a measurement passes one): "upload"
-    (the inputs as f32 rows, the chunks and tables to the shards), "plan"
-    (_ring_plan, on the host), "schedule" (the ranks and
-    kernels.flat_runs), "launches" (the P steps: flat launches,
-    hand-overs, copies into the outputs) and "gather" (through inv_pos,
-    then the rows to the first device)."""
-    t = time.perf_counter()
+    (make_partial_ring); it changes no output.  Spans (utils.profiling):
+    ring.upload (the inputs as f32 rows, the chunks and tables to the
+    shards), ring.plan (_ring_plan, on the host), ring.schedule (the
+    ranks and kernels.flat_runs), ring.launches (the P steps: flat
+    launches, hand-overs, copies into the outputs) and ring.gather
+    (through inv_pos, then the rows to the first device)."""
     first = mesh.first_device
-    e_rows = _as_f32(emat, first).T
-    d_rows = _as_f32(dmat, first).T
-    d2_rows = None if dmat_random is None else \
-        _as_f32(dmat_random, first).T
-    ixs = np.asarray(ixs.cpu() if isinstance(ixs, torch.Tensor) else ixs)
+    with span("ring.upload"):
+        e_rows = _as_f32(emat, first).T
+        d_rows = _as_f32(dmat, first).T
+        d2_rows = None if dmat_random is None else \
+            _as_f32(dmat_random, first).T
+        ixs = np.asarray(ixs.cpu() if isinstance(ixs, torch.Tensor)
+                         else ixs)
     n, g = e_rows.shape
     nn = ixs.shape[1]
     shards = mesh.shape[CELLS]
@@ -861,9 +845,8 @@ def col_delta_cor_partial_ring_dev(mesh: Mesh, emat, dmat, ixs,
         _check_permutation(order, n)
     qwidth = min(16, nn)
     local = mesh.cell_shards()
-    t = _lap(local, split, "upload", t)     # the inputs as f32 rows
-    qloc, qrow, inv_pos, bmax = _ring_plan(ixs, shards, chunk, q=qwidth)
-    t = _lap(local, split, "plan", t)
+    with span("ring.plan"):
+        qloc, qrow, inv_pos, bmax = _ring_plan(ixs, shards, chunk, q=qwidth)
 
     def chunks(rows):
         pad = torch.zeros((chunk * shards, g), dtype=torch.float32,
@@ -876,24 +859,24 @@ def col_delta_cor_partial_ring_dev(mesh: Mesh, emat, dmat, ixs,
         return [torch.as_tensor(a[s.index], device=s.device) for s in local]
 
     fn = make_partial_ring(mesh, shards, bmax, qwidth, nn, transform, psc)
-    args = (chunks(e_rows), chunks(d_rows), tables(qloc), tables(qrow),
-            [torch.as_tensor(inv_pos[s.index * chunk:
-                                     (s.index + 1) * chunk],
-                             device=s.device) for s in local],
-            None if d2_rows is None else chunks(d2_rows))
-    _lap(local, split, "upload", t)
-    parts = fn(*args, order=order, split=split)
-    t = time.perf_counter()
+    with span("ring.upload"):
+        args = (chunks(e_rows), chunks(d_rows), tables(qloc), tables(qrow),
+                [torch.as_tensor(inv_pos[s.index * chunk:
+                                         (s.index + 1) * chunk],
+                                 device=s.device) for s in local],
+                None if d2_rows is None else chunks(d2_rows))
+    parts = fn(*args, order=order)
     counts = [max(0, min(chunk, n - p * chunk)) for p in range(shards)]
     # the last shards hold the padding rows
     rows = [counts[s.index] for s in local]
-    if d2_rows is None:
-        out = gather_rows(mesh, [p[:r] for p, r in zip(parts, rows)], counts)
-    else:
-        out = tuple(gather_rows(mesh, [p[k][:r] for p, r in
-                                       zip(parts, rows)], counts)
-                    for k in (0, 1))
-    _lap(local, split, "gather", t)
+    with span("ring.gather"):
+        if d2_rows is None:
+            out = gather_rows(mesh, [p[:r] for p, r in zip(parts, rows)],
+                              counts)
+        else:
+            out = tuple(gather_rows(mesh, [p[k][:r] for p, r in
+                                           zip(parts, rows)], counts)
+                        for k in (0, 1))
     return out
 
 

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..utils.profiling import span
 from .knn import (_candidate_plan, _knn_search_impl, full_f32,
                   make_knn_search_sharded)
 
@@ -97,27 +98,29 @@ def knn_search_dev(data, k: int, metric: str = "euclidean", device="cuda",
         device = mesh.first_device
         if isinstance(data, torch.Tensor):
             data = data.to(device)
-    x64 = _as_tensor(data, torch.float64, device)
-    if metric == "correlation":
-        x64 = x64 - x64.mean(dim=1, keepdim=True)
-        x64 = x64 / torch.linalg.norm(x64, dim=1, keepdim=True)
-    k2, blk = _candidate_plan(n, k)
-    x32 = _as_tensor(data, torch.float32, device)
-    if mesh is None:
-        _dc, cand = _knn_search_impl(x32, k2, blk, metric)
-    else:
-        from ..parallel.mesh import CELLS, bounds, gather_rows
-        parts = make_knn_search_sharded(mesh, k2, blk, metric)(x32)
-        counts = [hi - lo for lo, hi in bounds(n, mesh.shape[CELLS])]
-        cand = gather_rows(mesh, [p[1] for p in parts], counts)
-    # bound the (block, k2, D) f64 gather scratch to ~256 MB
-    rb = max(8, min(256, (1 << 25) // max(1, k2 * x64.shape[1])))
-    d2 = _rescore_f64_impl(x64, cand, rb)
-    d2, idx = _reorder_truncate_impl(d2, cand, k)
-    if metric == "correlation":
-        dist = d2 / 2.0
-    else:
-        dist = torch.sqrt(d2.clamp_min(0.0))
+    with span("knn.candidates"):
+        x64 = _as_tensor(data, torch.float64, device)
+        if metric == "correlation":
+            x64 = x64 - x64.mean(dim=1, keepdim=True)
+            x64 = x64 / torch.linalg.norm(x64, dim=1, keepdim=True)
+        k2, blk = _candidate_plan(n, k)
+        x32 = _as_tensor(data, torch.float32, device)
+        if mesh is None:
+            _dc, cand = _knn_search_impl(x32, k2, blk, metric)
+        else:
+            from ..parallel.mesh import CELLS, bounds, gather_rows
+            parts = make_knn_search_sharded(mesh, k2, blk, metric)(x32)
+            counts = [hi - lo for lo, hi in bounds(n, mesh.shape[CELLS])]
+            cand = gather_rows(mesh, [p[1] for p in parts], counts)
+    with span("knn.rescore"):
+        # bound the (block, k2, D) f64 gather scratch to ~256 MB
+        rb = max(8, min(256, (1 << 25) // max(1, k2 * x64.shape[1])))
+        d2 = _rescore_f64_impl(x64, cand, rb)
+        d2, idx = _reorder_truncate_impl(d2, cand, k)
+        if metric == "correlation":
+            dist = d2 / 2.0
+        else:
+            dist = torch.sqrt(d2.clamp_min(0.0))
     return dist, idx
 
 
@@ -258,16 +261,19 @@ def balance_knn_dev(dsi: torch.Tensor, dist: torch.Tensor, maxl: int, k: int,
     dtype, or a tensor), or None; only their equality matters, so they go
     to the scan as dense int32 labels (the np.unique / torch.unique
     inverse).  Returns (dist_new, dsi_new, l)."""
-    lsi = _hub_order_impl(dsi)
-    cst = None
-    if isinstance(constraint, torch.Tensor):
-        cst = torch.unique(constraint.reshape(-1), return_inverse=True)[1]
-    elif constraint is not None:
-        cst = torch.as_tensor(np.unique(np.asarray(constraint).reshape(-1),
-                                        return_inverse=True)[1])
-    if cst is not None:
-        cst = cst.to(device=dsi.device, dtype=torch.int32)
-    return _balance_scan_impl(dsi, dist, lsi, cst, int(maxl), int(k))
+    with span("knn.hub_order"):
+        lsi = _hub_order_impl(dsi)
+    with span("knn.balance"):
+        cst = None
+        if isinstance(constraint, torch.Tensor):
+            cst = torch.unique(constraint.reshape(-1),
+                               return_inverse=True)[1]
+        elif constraint is not None:
+            cst = torch.as_tensor(np.unique(
+                np.asarray(constraint).reshape(-1), return_inverse=True)[1])
+        if cst is not None:
+            cst = cst.to(device=dsi.device, dtype=torch.int32)
+        return _balance_scan_impl(dsi, dist, lsi, cst, int(maxl), int(k))
 
 
 def balanced_knn_graph_dev(space, k: int, sight_k: int, maxl: int,

@@ -23,6 +23,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ..utils.profiling import span
+
 
 def _svd_flip_vt(u: Optional[np.ndarray], vt: np.ndarray
                  ) -> Tuple[Optional[np.ndarray], np.ndarray]:
@@ -59,25 +61,27 @@ def _pca_impl(x, k: Optional[int] = None
             use_f32 = _env == "1"
         else:
             use_f32 = n * g * g >= 1e10
-        mu = np.mean(x_in, axis=0, keepdims=True, dtype=np.float64)
-        if use_f32:
-            xc = np.asarray(x_in, np.float32) - mu.astype(np.float32)
-            c = np.asarray(_blas.ssyrk(1.0, xc, trans=1), np.float64)
-        else:
-            xc = np.asarray(x_in, np.float64) - mu
-            c = _blas.dsyrk(1.0, xc, trans=1)   # upper triangle Xc'Xc
-        total_var = float(np.trace(c)) / (n - 1)
-        if k < g:
-            evals, evecs = _eigh(c, lower=False,
-                                 subset_by_index=[g - k, g - 1])
-        else:
-            evals, evecs = _eigh(c, lower=False)
-        order = np.argsort(evals)[::-1]
-        evals = np.maximum(evals[order], 0.0)
-        vt = evecs[:, order].T              # rows = components
-        _, vt = _svd_flip_vt(None, vt)
-        pcs = np.asarray(
-            xc @ (vt.T.astype(xc.dtype)), np.float64)
+        with span("pca.center"):
+            mu = np.mean(x_in, axis=0, keepdims=True, dtype=np.float64)
+            xc = (np.asarray(x_in, np.float32) - mu.astype(np.float32)
+                  if use_f32 else np.asarray(x_in, np.float64) - mu)
+        with span("pca.gram"):          # upper triangle Xc'Xc
+            c = np.asarray(_blas.ssyrk(1.0, xc, trans=1), np.float64) \
+                if use_f32 else _blas.dsyrk(1.0, xc, trans=1)
+            total_var = float(np.trace(c)) / (n - 1)
+        with span("pca.eigh"):
+            if k < g:
+                evals, evecs = _eigh(c, lower=False,
+                                     subset_by_index=[g - k, g - 1])
+            else:
+                evals, evecs = _eigh(c, lower=False)
+            order = np.argsort(evals)[::-1]
+            evals = np.maximum(evals[order], 0.0)
+            vt = evecs[:, order].T              # rows = components
+            _, vt = _svd_flip_vt(None, vt)
+        with span("pca.project"):
+            pcs = np.asarray(
+                xc @ (vt.T.astype(xc.dtype)), np.float64)
         return pcs, vt, evals / (n - 1), total_var
     x = np.asarray(x_in, dtype=np.float64)
     mu = np.mean(x, axis=0, keepdims=True)
@@ -104,7 +108,8 @@ class PCA:
         self.components_ = comps
         self.explained_variance_ = expl
         self.explained_variance_ratio_ = expl / total_var
-        self.mean_ = np.mean(X, axis=0, dtype=np.float64)
+        with span("pca.mean"):
+            self.mean_ = np.mean(X, axis=0, dtype=np.float64)
         return pcs
 
     def fit(self, X: np.ndarray) -> "PCA":
