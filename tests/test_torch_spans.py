@@ -8,7 +8,8 @@ grid, the benchmark's stages) holds each span of the catalogue that runs
 on the calling thread, inside the call that opens it, and no vtt.* name
 outside the catalogue; trace() also holds the sampled transition's
 worker spans, on their own threads; the full mode holds its host round
-trips; bench_common.transition_split reads a call's split from them; a
+trips, and its control's plan on a worker beside the embedding kNN, with
+no upload of the permuted rows; bench_common.transition_split reads a call's split from them; a
 profiled session gives the same outputs, bitwise."""
 import contextlib
 import threading
@@ -60,9 +61,9 @@ SAMPLED = {
     "embedding_shift": ["shift.softmax", "shift.project"],
     "grid_arrows": ["grid"],
 }
-FULL_TRANSITION = ["transition.control", "transition.inputs",
-                   "upload.delta_S_rndm", "transition.embedding_knn",
-                   "transition.knn_csr", "transition.cor"]
+FULL_TRANSITION = ["transition.inputs", "transition.embedding_knn",
+                   "transition.knn_csr", "transition.control",
+                   "transition.cor"]
 FULL_SHIFT = ["shift.dense_k", "shift.softmax", "shift.project"]
 
 
@@ -263,6 +264,22 @@ def test_trace_holds_the_workers_spans():
         assert {t for _, _, t in spans[name]}.isdisjoint(caller), name
 
 
+def test_trace_holds_the_full_controls_plan_beside_the_knn():
+    """The full mode's control is drawn on a worker that starts before
+    the calling thread's embedding kNN ends."""
+    v = _loom()
+    for name, run in _stages(False)[:5]:
+        run(v)
+    with profiling.trace() as prof:
+        _stages(False)[5][1](v)
+    spans = _ranges(prof, "vtt.")
+    (knn,) = spans["transition.embedding_knn"]
+    (plan,) = spans["transition.control.plan"]
+    assert plan[2] != knn[2]
+    assert plan[0] < knn[1]
+    assert {t for _, _, t in spans["transition.control"]} == {knn[2]}
+
+
 def test_transition_split_reads_the_spans():
     v = _loom()
     for name, run in _stages(True)[:5]:
@@ -288,9 +305,15 @@ def test_full_session_holds_its_host_round_trips(full):
         for name in names:
             assert name in spans, (name, sorted(spans))
             assert all(_inside(r, stages[stage]) for r in spans[name]), name
-    # the control's upload is part of the inputs, not of the control
-    assert all(_inside(r, spans["transition.inputs"])
-               for r in spans["upload.delta_S_rndm"])
+    # the control is permuted on the device: nothing uploads it
+    assert "upload.delta_S_rndm" not in spans
+    # what is left of the control on the calling thread (the join, the
+    # control's transform) is one span, with no span in it
+    (control,) = spans["transition.control"]
+    assert control[2] == stages["transition"][0][2]
+    nested = [n for n, rs in spans.items() for r in rs
+              if r != control and _inside(r, [control])]
+    assert nested == []
     outside = [n for n in spans
                if n not in CATALOGUE and not n.startswith(FAMILIES)]
     assert outside == []

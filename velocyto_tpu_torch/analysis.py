@@ -173,12 +173,18 @@ class VelocytoLoom:
     # it from the compact (cells, nn) state on first read
     _LAZY_DENSE = ("corrcoef", "corrcoef_random",
                    "transition_prob", "transition_prob_random")
+    # full mode keeps its randomized control as the plan that draws it:
+    # (the call's delta_S, the permutations, the sign bits), host arrays
+    # but for a device-backed delta_S; delta_S_rndm is built on first read
+    _RNDM_PLAN = "_rndm_plan"
 
     def __setattr__(self, name: str, value: Any) -> None:
         ds = self.__dict__.get("_dev_state")
         if ds is not None and name in ds:
             del ds[name]
             self.__dict__.get("_dev_host_cache", {}).pop(name, None)
+        if name == "delta_S_rndm":
+            self.__dict__.pop(self._RNDM_PLAN, None)
         object.__setattr__(self, name, value)
 
     def __getattr__(self, name: str):
@@ -188,6 +194,8 @@ class VelocytoLoom:
             return self._materialize_dev(name)
         if name in self._LAZY_DENSE:
             return self._materialize_dense(name)
+        if name == "delta_S_rndm" and self._RNDM_PLAN in d:
+            return self._materialize_rndm()
         if name in ("knn", "knn_smoothing_w") and \
                 d.get("_knn_graph_dev") is not None:
             g = d["_knn_graph_dev"]
@@ -211,6 +219,8 @@ class VelocytoLoom:
     def _set_dev(self, name: str, dev: torch.Tensor) -> None:
         """Store a device tensor as the authoritative value of `name`."""
         self.__dict__.pop(name, None)
+        if name == "delta_S_rndm":
+            self.__dict__.pop(self._RNDM_PLAN, None)
         self.__dict__.setdefault("_dev_state", {})[name] = dev
         self.__dict__.setdefault("_dev_host_cache", {}).pop(name, None)
 
@@ -222,6 +232,8 @@ class VelocytoLoom:
             d.pop(name, None)
             (d.get("_dev_state") or {}).pop(name, None)
             (d.get("_dev_host_cache") or {}).pop(name, None)
+            if name == "delta_S_rndm":
+                d.pop(self._RNDM_PLAN, None)
 
     def _get_dev(self, name: str, dtype: torch.dtype = _F32) -> torch.Tensor:
         """`name` as a tensor on self.device (no transfer when the
@@ -253,6 +265,20 @@ class VelocytoLoom:
             return cached
         return self.__dict__["_dev_state"][name]
 
+    def _materialize_rndm(self) -> np.ndarray:
+        """The full mode's delta_S_rndm, float64: its plan applied to the
+        call's delta_S on the host (as _permute_apply_dev on CPU tensors,
+        bitwise permute_rows_nsign), then kept as a host attribute."""
+        d = self.__dict__
+        src, perms, sign_bits = d[self._RNDM_PLAN]
+        src = src.cpu() if isinstance(src, torch.Tensor) \
+            else torch.from_numpy(src)
+        out = _permute_apply_dev(src, torch.from_numpy(perms),
+                                 torch.from_numpy(sign_bits))
+        d["delta_S_rndm"] = out.numpy().astype(np.float64)
+        del d[self._RNDM_PLAN]
+        return d["delta_S_rndm"]
+
     # ------------------------------------------------------------------
     # serialization
     # ------------------------------------------------------------------
@@ -266,13 +292,14 @@ class VelocytoLoom:
         """Snapshot every attribute to hdf5 (resume with
         load_velocyto_hdf5, in this package or the JAX package).  The
         device and the device tensors are runtime state, not data: the
-        lazy dense views (corrcoef / transition_prob), the device-backed
-        attributes and the kNN and sampled-neighbour views are
-        materialized on the host first, so the snapshot carries the
-        reference's attribute set, then the runtime state (the mesh too)
-        is left out of the dump and stays attached.  Raises TypeError,
-        writing nothing, if any other attribute holds a torch object."""
-        for name in VelocytoLoom._LAZY_DENSE:
+        lazy dense views (corrcoef / transition_prob), the full mode's
+        delta_S_rndm, the device-backed attributes and the kNN and
+        sampled-neighbour views are materialized on the host first, so
+        the snapshot carries the reference's attribute set, then the
+        runtime state (the mesh too) is left out of the dump and stays
+        attached.  Raises TypeError, writing nothing, if any other
+        attribute holds a torch object."""
+        for name in VelocytoLoom._LAZY_DENSE + ("delta_S_rndm",):
             try:
                 getattr(self, name)
             except AttributeError:
@@ -1202,9 +1229,11 @@ class VelocytoLoom:
         randomized control is permuted on the device (see
         _estimate_sampled).  A failed call raises and leaves the object
         and numpy's stream as they were.  knn_random=False: the dense
-        colDeltaCor (hand CUDA kernel on a CUDA device), the randomized
-        control permuted on the host with numpy's global stream, like the
-        JAX package."""
+        colDeltaCor (hand CUDA kernel on a CUDA device; both fields in one
+        launch), the randomized control permuted on the device from a
+        plan drawn on a worker as the sampled mode draws it, numpy's
+        stream left where the JAX package's host permutation leaves it,
+        and delta_S_rndm built on first read (see _estimate_full)."""
         rng_before = np.random.get_state()
         numba_random_seed(random_seed)
         self.which_hidim = hidim
@@ -1436,32 +1465,76 @@ class VelocytoLoom:
                        transform: str, psc: float, calculate_randomized: bool,
                        embedding: np.ndarray, nn_k: int) -> None:
         """estimate_transition_prob(knn_random=False): dense (N, N)
-        correlations against every cell, masked later by embedding_knn."""
+        correlations against every cell, masked later by embedding_knn.
+
+        With calculate_randomized the control's plan is drawn first, on a
+        worker, from a snapshot of numpy's stream (the reference's point:
+        right after numba_random_seed), and applied on the device to
+        delta_S as its authoritative value holds it (the device tensor
+        itself, or the host array in float64), as the sampled mode does.
+        Meanwhile this thread computes the transforms, the embedding kNN
+        and its csr; then it joins the worker, sets numpy's stream where
+        permute_rows_nsign leaves it, transforms the permuted rows and
+        frees them, and makes one dual colDeltaCor launch (one a shard
+        with a mesh).  The plan stays on the host with the call's delta_S,
+        and delta_S_rndm is built from them on first read.  A call that
+        fails waits for the worker and keeps nothing of the control.
+
+        Spans (utils.profiling.span): on this thread transition.inputs,
+        .embedding_knn, .knn_csr, .control (the join and the control's
+        transform) and .cor; on the worker transition.control.plan."""
         self.corr_calc = "full"
         self._drop("_corr_dev", "_corr_rndm_dev", "_compact_corr",
                    "_compact_corr_random", "_compact_ixs", "_compact_ixs_dev",
                    "_tp_sigma")
-        tf, emat, d_main, d_rndm = self._corr_inputs(
-            hidim, ndims, transform, psc, calculate_randomized)
-        N = embedding.shape[0]
-        # embedding neighbors: device f32 candidate pass + f64 re-score
-        # (sklearn's exact ordering and tie-breaks)
-        mesh = getattr(self, "mesh", None)
-        with span("transition.embedding_knn"):
-            _dists, idx = kd.knn_search_dev(embedding, min(nn_k + 1, N),
-                                            device=self.device, mesh=mesh)
-            rows = torch.arange(N, device=idx.device)
-            is_self = idx == rows[:, None]
-            first_self = torch.where(is_self.any(1),
-                                     is_self.to(torch.uint8).argmax(1),
-                                     idx.shape[1] - 1)
-            keep = torch.ones_like(idx, dtype=torch.bool)
-            keep[rows, first_self] = False
-            neigh_full = idx[keep].reshape(N, idx.shape[1] - 1)[:, :nn_k]
-        with span("transition.knn_csr"):
-            self.embedding_knn = sparse.csr_matrix(
-                (np.ones(N * nn_k), neigh_full.cpu().numpy().ravel(),
-                 np.arange(0, N * nn_k + 1, nn_k)), shape=(N, N))
+        control = delta = dev_delta = None
+        if calculate_randomized:
+            self._drop("delta_S_rndm")
+            ds = self.__dict__.get("_dev_state") or {}
+            if "delta_S" in ds:
+                delta = dev_delta = ds["delta_S"]
+            else:
+                # a private copy: the plan keeps it for delta_S_rndm
+                delta = np.array(self.delta_S, dtype=np.float64)
+                with span("upload.delta_S"):
+                    dev_delta = torch.as_tensor(delta, device=self.device)
+            # this thread draws nothing from numpy until the join
+            control = _Worker(_permute_rows_nsign_drawn, dev_delta,
+                              np.random.get_state())
+        try:
+            tf, emat, d_main, d_of = self._corr_inputs(
+                hidim, ndims, transform, psc, dev_delta)
+            del dev_delta
+            N = embedding.shape[0]
+            # embedding neighbors: device f32 candidate pass + f64 re-score
+            # (sklearn's exact ordering and tie-breaks)
+            mesh = getattr(self, "mesh", None)
+            with span("transition.embedding_knn"):
+                _dists, idx = kd.knn_search_dev(embedding, min(nn_k + 1, N),
+                                                device=self.device, mesh=mesh)
+                rows = torch.arange(N, device=idx.device)
+                is_self = idx == rows[:, None]
+                first_self = torch.where(is_self.any(1),
+                                         is_self.to(torch.uint8).argmax(1),
+                                         idx.shape[1] - 1)
+                keep = torch.ones_like(idx, dtype=torch.bool)
+                keep[rows, first_self] = False
+                neigh_full = idx[keep].reshape(N, idx.shape[1] - 1)[:, :nn_k]
+            with span("transition.knn_csr"):
+                self.embedding_knn = sparse.csr_matrix(
+                    (np.ones(N * nn_k), neigh_full.cpu().numpy().ravel(),
+                     np.arange(0, N * nn_k + 1, nn_k)), shape=(N, N))
+            d_rndm = None
+            if control is not None:
+                with span("transition.control"):
+                    rndm, perms, sign_bits, rng_state = control.join()
+                    np.random.set_state(rng_state)
+                    d_rndm = d_of(rndm)
+                    del rndm
+        except BaseException:
+            if control is not None:
+                control.wait()
+            raise
 
         # the main field and the randomized control in one kernel launch
         # (one a shard with a mesh)
@@ -1474,6 +1547,7 @@ class VelocytoLoom:
             if corr_r is not None:
                 corr_r.fill_diagonal_(0.0)
                 self._set_dev("corrcoef_random", corr_r)
+                self.__dict__[self._RNDM_PLAN] = (delta, perms, sign_bits)
 
     def _pcs_inputs(self, hidim: str, ndims: Optional[int], transform: str,
                     psc: float):
@@ -1488,33 +1562,28 @@ class VelocytoLoom:
         return tf, emat, d_of(hi_dim_t)
 
     def _corr_inputs(self, hidim: str, ndims: Optional[int], transform: str,
-                     psc: float, calculate_randomized: bool):
-        """(kernel transform name, emat, dmat, dmat_random or None) as f32
-        (G, N) tensors for the full mode's colDeltaCor call (reference
-        :1575-1601), transformed in f64.
-
-        With calculate_randomized, first permutes the host delta_S into
-        delta_S_rndm with numpy's global stream at the reference's point
-        in the sequence (bit-identical to the JAX package's control)."""
-        if calculate_randomized:
-            with span("transition.control"):
-                self.delta_S_rndm = np.copy(self.delta_S)
-                permute_rows_nsign(self.delta_S_rndm)
+                     psc: float, delta: Optional[torch.Tensor]):
+        """(kernel transform name, emat, dmat, dmat_of) for the full mode's
+        colDeltaCor call (reference :1575-1601): f32 (G, N) tensors,
+        transformed in f64.  delta: delta_S on the device (None: read it
+        through _get_dev); dmat_of(shift) makes the randomized control's
+        dmat from its permuted delta_S in the same way (None for
+        hidim="pcs", which has no control)."""
         with span("transition.inputs"):
             if "pcs" in hidim:  # sic (reference :1531)
                 tf, emat, d_main = self._pcs_inputs(hidim, ndims, transform,
                                                     psc)
-                d_rndm = None
-            else:
-                dt = self.used_delta_t
-                hi = self._get_dev(hidim, _F64)
-                tf, emat, d_of = _transform_for_corr(transform, psc, hi)
-                d_main = d_of(hi + dt * self._get_dev("delta_S", _F64))
-                d_rndm = (d_of(hi + dt * self._get_dev("delta_S_rndm", _F64))
-                          if calculate_randomized else None)
-            return (tf, emat.to(_F32).contiguous(),
-                    d_main.to(_F32).contiguous(),
-                    None if d_rndm is None else d_rndm.to(_F32).contiguous())
+                return (tf, emat.to(_F32).contiguous(),
+                        d_main.to(_F32).contiguous(), None)
+            dt = self.used_delta_t
+            hi = self._get_dev(hidim, _F64)
+            tf, emat, d_of = _transform_for_corr(transform, psc, hi)
+
+            def dmat_of(shift: torch.Tensor) -> torch.Tensor:
+                return d_of(hi + dt * shift.to(_F64)).to(_F32).contiguous()
+            if delta is None:
+                delta = self._get_dev("delta_S", _F64)
+            return tf, emat.to(_F32).contiguous(), dmat_of(delta), dmat_of
 
     # ------------------------------------------------------------------
     # lazy dense views of the compact correlation state
@@ -2719,13 +2788,22 @@ def _permute_rows_nsign_dev(delta: torch.Tensor,
     """permute_rows_nsign of the (G, N) device tensor delta, drawn from a
     RandomState set to rng_state (numpy's global stream is not touched):
     the plan on the host, its upload, the apply on the device."""
+    return _permute_rows_nsign_drawn(delta, rng_state)[0]
+
+
+def _permute_rows_nsign_drawn(delta: torch.Tensor, rng_state: tuple):
+    """_permute_rows_nsign_dev's work, and what it drew: (the permuted
+    tensor, the plan's permutations and sign bits as host arrays, the
+    RandomState's state after the draws, which is numpy's global state
+    after permute_rows_nsign from rng_state)."""
     with span("transition.control.plan"):
         rng = np.random.RandomState()
         rng.set_state(rng_state)
         perms, sign_bits = _permute_rows_nsign_plan(*delta.shape, rng=rng)
-        return _permute_apply_dev(
+        out = _permute_apply_dev(
             delta, torch.from_numpy(perms).to(delta.device),
             torch.from_numpy(sign_bits).to(delta.device))
+        return out, perms, sign_bits, rng.get_state()
 
 
 class _Worker:

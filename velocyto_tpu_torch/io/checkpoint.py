@@ -94,8 +94,11 @@ def load_state(path: str, device="cuda",
 
 def save_vlm(path: str, vlm, attributes: Optional[list] = None) -> None:
     """Checkpoint the array state of a VelocytoLoom: by default every numpy
-    attribute and every device-backed stage output (as its tensor)."""
+    attribute and every device-backed stage output (as its tensor); the
+    full mode's delta_S_rndm is built from its plan first."""
     if attributes is None:
+        if vlm._RNDM_PLAN in vlm.__dict__:
+            vlm._materialize_rndm()
         state = {k: v for k, v in vlm.__dict__.items()
                  if isinstance(v, np.ndarray)}
         state.update(vlm.__dict__.get("_dev_state") or {})
