@@ -37,7 +37,7 @@ CATALOGUE = {
     "transition.replay", "transition.replay.upload",
     "transition.control.plan", "transition.control", "transition.knn_csr",
     "transition.cor",
-    "shift.dense_k", "shift.softmax", "shift.project", "shift.scaling",
+    "shift.gather", "shift.softmax", "shift.project", "shift.scaling",
     "grid",
     "ring.upload", "ring.plan", "ring.schedule", "ring.launches",
     "ring.gather"}
@@ -64,7 +64,7 @@ SAMPLED = {
 FULL_TRANSITION = ["transition.inputs", "transition.embedding_knn",
                    "transition.knn_csr", "transition.control",
                    "transition.cor"]
-FULL_SHIFT = ["shift.dense_k", "shift.softmax", "shift.project"]
+FULL_SHIFT = ["shift.gather", "shift.softmax", "shift.project"]
 
 
 def _loom(seed=0):

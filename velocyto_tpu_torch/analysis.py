@@ -167,12 +167,22 @@ class VelocytoLoom:
     # authoritative again (the device entry is dropped).  Stage tensors
     # may alias each other (Sx_sz is Sx): nothing updates them in place.
 
-    # the (cells, cells) state.  Full mode keeps it on the device and
-    # exposes it as float32, like the JAX package's host arrays (every
-    # other device-backed attribute as float64); knn_random mode builds
-    # it from the compact (cells, nn) state on first read
+    # the (cells, cells) state.  Full mode keeps its correlations on the
+    # device and exposes them as float32, like the JAX package's host
+    # arrays (every other device-backed attribute as float64), and keeps
+    # its transition probabilities in _TP_ROWS, built on read; knn_random
+    # mode builds all four from the compact (cells, nn) state on read
     _LAZY_DENSE = ("corrcoef", "corrcoef_random",
                    "transition_prob", "transition_prob_random")
+    # an embedding shift on gathered correlations (full mode, or an edited
+    # corrcoef) keeps each transition probability as {name: (ixs, p)}:
+    # (N, nn) neighbour ids and probabilities on the device; the dense
+    # (N, N) view is a float32 device tensor built on each _get_dev, and
+    # the host attribute a float32 array built on first read
+    _TP_ROWS = "_tp_rows"
+    # full mode's (N, nn) embedding neighbour ids on the device, the rows
+    # of embedding_knn; dropped when embedding_knn is assigned
+    _KNN_IXS = "_knn_ixs_dev"
     # full mode keeps its randomized control as the plan that draws it:
     # (the call's delta_S, the permutations, the sign bits), host arrays
     # but for a device-backed delta_S; delta_S_rndm is built on first read
@@ -185,6 +195,9 @@ class VelocytoLoom:
             self.__dict__.get("_dev_host_cache", {}).pop(name, None)
         if name == "delta_S_rndm":
             self.__dict__.pop(self._RNDM_PLAN, None)
+        elif name == "embedding_knn":
+            self.__dict__.pop(self._KNN_IXS, None)
+        (self.__dict__.get(self._TP_ROWS) or {}).pop(name, None)
         object.__setattr__(self, name, value)
 
     def __getattr__(self, name: str):
@@ -232,15 +245,21 @@ class VelocytoLoom:
             d.pop(name, None)
             (d.get("_dev_state") or {}).pop(name, None)
             (d.get("_dev_host_cache") or {}).pop(name, None)
+            (d.get(self._TP_ROWS) or {}).pop(name, None)
             if name == "delta_S_rndm":
                 d.pop(self._RNDM_PLAN, None)
 
     def _get_dev(self, name: str, dtype: torch.dtype = _F32) -> torch.Tensor:
         """`name` as a tensor on self.device (no transfer when the
-        attribute is device-backed; uploaded from the host otherwise)."""
-        ds = self.__dict__.get("_dev_state")
+        attribute is device-backed, or a transition probability kept as
+        rows, which is built dense here and not kept; uploaded from the
+        host otherwise)."""
+        d = self.__dict__
+        ds = d.get("_dev_state")
         if ds is not None and name in ds:
             return ds[name].to(dtype)
+        if name not in d and name in (d.get(self._TP_ROWS) or ()):
+            return self._tp_dense(name, dtype)
         with span("upload." + name):
             return torch.as_tensor(np.asarray(getattr(self, name)),
                                    dtype=dtype, device=self.device)
@@ -286,7 +305,8 @@ class VelocytoLoom:
     # runtime state, not data: the device, the mesh, the device tensors
     # and the handles to them
     _RUNTIME = ("device", "mesh", "_corr_dev", "_corr_rndm_dev", "_dev_state",
-                "_dev_host_cache", "_knn_graph_dev", "_compact_ixs_dev")
+                "_dev_host_cache", "_knn_graph_dev", "_compact_ixs_dev",
+                _KNN_IXS, _TP_ROWS)
 
     def to_hdf5(self, filename: str, **kwargs: Any) -> None:
         """Snapshot every attribute to hdf5 (resume with
@@ -1450,7 +1470,7 @@ class VelocytoLoom:
         self.sampling_ixs = sampling_ixs
         self.corr_calc = "knn_random"
         # embedding_knn materializes lazily from the sampled indices
-        self._drop("embedding_knn", "_compact_ixs")
+        self._drop("embedding_knn", "_compact_ixs", self._KNN_IXS)
         self._compact_ixs_dev = torch.cat(neigh)
         self._corr_dev = corr_m
         # the reference overwrites corrcoef here but leaves any old
@@ -1465,7 +1485,13 @@ class VelocytoLoom:
                        transform: str, psc: float, calculate_randomized: bool,
                        embedding: np.ndarray, nn_k: int) -> None:
         """estimate_transition_prob(knn_random=False): dense (N, N)
-        correlations against every cell, masked later by embedding_knn.
+        correlations against every cell, the two fields of one dual
+        colDeltaCor launch, kept on the device (corrcoef and
+        corrcoef_random read them), and the embedding neighbours, kept
+        on the device as (N, nn_k) ids beside their csr embedding_knn:
+        calculate_embedding_shift gathers the correlations at those ids
+        and works on the compact (N, nn_k) form, with no other (N, N)
+        tensor.
 
         With calculate_randomized the control's plan is drawn first, on a
         worker, from a snapshot of numpy's stream (the reference's point:
@@ -1520,10 +1546,13 @@ class VelocytoLoom:
                 keep = torch.ones_like(idx, dtype=torch.bool)
                 keep[rows, first_self] = False
                 neigh_full = idx[keep].reshape(N, idx.shape[1] - 1)[:, :nn_k]
+                # K1's two (N, N) fields come next: free the search's rows
+                del _dists, idx, rows, is_self, first_self, keep
             with span("transition.knn_csr"):
                 self.embedding_knn = sparse.csr_matrix(
                     (np.ones(N * nn_k), neigh_full.cpu().numpy().ravel(),
                      np.arange(0, N * nn_k + 1, nn_k)), shape=(N, N))
+            self.__dict__[self._KNN_IXS] = neigh_full
             d_rndm = None
             if control is not None:
                 with span("transition.control"):
@@ -1537,7 +1566,8 @@ class VelocytoLoom:
             raise
 
         # the main field and the randomized control in one kernel launch
-        # (one a shard with a mesh)
+        # (one a shard with a mesh); d_of holds hidim in float64
+        del d_of
         with span("transition.cor"):
             corr = col_delta_cor(emat, d_main, tf, psc, dmat_random=d_rndm,
                                  mesh=mesh)
@@ -1593,7 +1623,9 @@ class VelocytoLoom:
     # (N, nn) sampled correlations, as device tensors.  The dense (N, N)
     # corrcoef / transition_prob the reference API exposes
     # (analysis.py:1604-1683) are f64 host arrays built on first read, so
-    # a pipeline that never reads them never pays for them.
+    # a pipeline that never reads them never pays for them.  The full
+    # mode's transition probabilities (_TP_ROWS) are built on read too,
+    # as float32.
 
     def _compact_corr_host(self, which: str = "main") -> np.ndarray:
         """Host f64 copy of the compact correlations, pulled from the
@@ -1613,7 +1645,19 @@ class VelocytoLoom:
             ixs = self._compact_ixs          # lazy pull + cache
         return ixs
 
+    def _tp_dense(self, name: str, dtype: torch.dtype) -> torch.Tensor:
+        """The dense (N, N) view of a transition probability kept as rows
+        (_TP_ROWS), on the device in `dtype`."""
+        ixs, p = self.__dict__[self._TP_ROWS][name]
+        n = ixs.shape[0]
+        return torch.zeros((n, n), dtype=dtype, device=p.device).scatter_(
+            1, ixs.to(torch.int64), p.to(dtype))
+
     def _materialize_dense(self, name: str) -> np.ndarray:
+        if name in (self.__dict__.get(self._TP_ROWS) or ()):
+            dense = self._tp_dense(name, _F32).cpu().numpy()
+            self.__dict__[name] = dense
+            return dense
         ixs = self._compact_ixs_or_none()
         if ixs is None:
             raise AttributeError(name)
@@ -1677,106 +1721,90 @@ class VelocytoLoom:
             return torch.as_tensor(cached, dtype=_F32, device=self.device)
         return self._get_dev(name)
 
+    def _embedding_neighbours(self) -> torch.Tensor:
+        """The (N, nn) ids of each cell's embedding neighbours, the kNN
+        mask of the embedding shift, on the device: the full mode's own,
+        else the rows of embedding_knn, which has to hold the same number
+        of unit entries in every row, as every kNN graph of this package
+        and of the reference does (ValueError otherwise)."""
+        ixs = self.__dict__.get(self._KNN_IXS)
+        if ixs is not None:
+            return ixs
+        m = sparse.csr_matrix(self.embedding_knn)
+        counts = np.diff(m.indptr)
+        if not len(counts) or np.any(counts != counts[0]) or \
+                np.any(m.data != 1):
+            raise ValueError("the embedding shift needs an embedding_knn "
+                             "with the same number of unit entries in "
+                             "every row")
+        return torch.as_tensor(
+            m.indices.astype(np.int64).reshape(len(counts), counts[0]),
+            device=self.device)
+
     def calculate_embedding_shift(self, sigma_corr: float = 0.05,
                                   expression_scaling: bool = True,
                                   scaling_penalty: float = 1.0) -> None:
         """Project velocity onto the embedding (reference :1670-1733).
 
-        knn_random mode runs on the compact (N, nn) sampled form
-        (softmax, unit-vector contraction, expression scaling); the dense
-        transition_prob is built only when read.  Full mode, and a
-        corrcoef the caller replaced or edited, take the dense form,
-        blocked over cells so the reference's (2, N, N) unitary-vector
-        tensor never exists."""
+        Both modes run on the compact (N, nn) form, each cell over its
+        embedding neighbours (the reference's kNN mask): row softmax,
+        unit-vector contraction and expression scaling, with a mesh one
+        call a cells shard.  knn_random mode takes its sampled
+        correlations as they are, and its dense transition_prob /
+        transition_prob_random are float64 host arrays built from them on
+        first read.  Full mode, and a corrcoef the caller replaced or
+        edited in either mode, gathers the correlations at the neighbour
+        ids (_embedding_neighbours) first; the probabilities are kept as
+        rows, and the dense views are built on read as float32 (N, N)
+        tensors (_get_dev) or host arrays (the attributes), so the call
+        makes no (N, N) tensor.  An embedding_knn the caller assigns has
+        to be a connectivity graph with the same number of unit entries
+        in every row, as every kNN graph of this package and of the
+        reference is (ValueError otherwise).  Expression scaling is
+        float32 on the sampled form and float64 on the gathered one, as
+        the JAX package computes each: its compact route in float32 on
+        the device, its dense route in numpy on the float64 hidim."""
         if self.corr_calc not in ("full", "knn_random"):
             raise NotImplementedError(
                 f"Weird value self.corr_calc={self.corr_calc}")
-        if self._compact_state_valid():
-            return self._calculate_embedding_shift_compact(
-                sigma_corr, expression_scaling, scaling_penalty)
-        with span("shift.dense_k"):
-            K = _dense_from_csr(self.embedding_knn, self.device)
-            K_rowsum = K.sum(dim=1)
-        have_rndm = self._has_rndm_state()
-
-        def _softmax(name):
-            tp = torch.exp(self._corr_dev_view(name) / sigma_corr) * K
-            return tp / tp.sum(dim=1, keepdim=True)
-
-        with span("shift.softmax"):
-            tp = _softmax("corrcoef")
-            self._set_dev("transition_prob", tp)
-            if have_rndm:
-                tp_r = _softmax("corrcoef_random")
-                self._set_dev("transition_prob_random", tp_r)
-
-        emb = torch.as_tensor(np.asarray(self.embedding, np.float32),
-                              device=self.device)
-        mesh = getattr(self, "mesh", None)
-
-        def _shift(P):
-            with span("shift.project"):
-                if mesh is not None:
-                    out = _embedding_shift_sharded(mesh, emb, P, K, K_rowsum)
-                else:
-                    out = _embedding_shift_blocked(emb, P, K, K_rowsum)
-                return out.cpu().numpy().astype(np.float64)
-
-        self.delta_embedding = _shift(tp)
-
-        if expression_scaling:
-            with span("shift.scaling"):
-                hi_dim = self._get_dev(self.which_hidim, _F64)
-                k_term = hi_dim @ (K / K_rowsum[:, None]).to(_F64).T
-
-            def _scaling(P, d_name):
-                with span("shift.scaling"):
-                    estim = hi_dim @ P.to(_F64).T - k_term
-                    cos_proj = (self._get_dev(d_name, _F64) * estim).sum(0) \
-                        / torch.sqrt((estim ** 2).sum(0))
-                    return np.clip(cos_proj.cpu().numpy() / scaling_penalty,
-                                   0, 1)
-
-            self.scaling = _scaling(tp, "delta_S")
-            self.delta_embedding = self.delta_embedding * \
-                self.scaling[:, None]
-
-        if have_rndm:
-            self.delta_embedding_random = _shift(tp_r)
-            if expression_scaling:
-                self.scaling_rndm = _scaling(tp_r, "delta_S_rndm")
-                self.delta_embedding_random = \
-                    self.delta_embedding_random * self.scaling_rndm[:, None]
-
-    def _calculate_embedding_shift_compact(self, sigma_corr: float,
-                                           expression_scaling: bool,
-                                           scaling_penalty: float) -> None:
-        """knn_random-mode embedding shift on the compact (N, nn) form:
-        the same math as the dense form (the kNN mask IS the sampled
-        candidate set) in O(N * nn)."""
         d = self.__dict__
-        ixs = d.get("_compact_ixs_dev")
-        if ixs is None:
-            ixs = torch.as_tensor(self._compact_ixs, device=self.device)
-
-        def _p_dev(which):
-            # softmax over the sampled candidates; the dense
-            # transition_prob stays a lazy __getattr__ view
-            with span("shift.softmax"):
-                dev = d.get("_corr_dev" if which == "main"
-                            else "_corr_rndm_dev")
-                if dev is None:
-                    dev = torch.as_tensor(self._compact_corr_host(which),
-                                          dtype=_F32, device=self.device)
-                return _compact_softmax(dev, float(sigma_corr))
-
-        self._drop("transition_prob")
-        self._tp_sigma = float(sigma_corr)
-        p_main = _p_dev("main")
         have_rndm = self._has_rndm_state()
-        if have_rndm:
-            self._drop("transition_prob_random")
-            p_rndm = _p_dev("rndm")
+        names = ("transition_prob", "transition_prob_random") if have_rndm \
+            else ("transition_prob",)
+        gathered = not self._compact_state_valid()
+        if gathered:
+            ixs = self._embedding_neighbours()
+
+            def corr_of(i):
+                name = ("corrcoef", "corrcoef_random")[i]
+                with span("shift.gather"):
+                    return torch.gather(self._corr_dev_view(name), 1,
+                                        ixs.to(torch.int64))
+        else:
+            ixs = d.get("_compact_ixs_dev")
+            if ixs is None:
+                ixs = torch.as_tensor(self._compact_ixs, device=self.device)
+
+            def corr_of(i):
+                corr = d.get(("_corr_dev", "_corr_rndm_dev")[i])
+                return corr if corr is not None else torch.as_tensor(
+                    self._compact_corr_host(("main", "rndm")[i]),
+                    dtype=_F32, device=self.device)
+        dt = _F64 if gathered else _F32
+
+        probs = []
+        for i in range(len(names)):
+            corr = corr_of(i)
+            with span("shift.softmax"):
+                probs.append(_compact_softmax(corr, float(sigma_corr)))
+            del corr
+        self._drop(*names)
+        d.pop("_tp_sigma", None)
+        if gathered:
+            d[self._TP_ROWS] = {name: (ixs, p) for name, p in zip(names,
+                                                                  probs)}
+        else:
+            self._tp_sigma = float(sigma_corr)
 
         emb = torch.as_tensor(np.asarray(self.embedding, np.float32),
                               device=self.device)
@@ -1791,11 +1819,9 @@ class VelocytoLoom:
                     out = _embedding_shift_compact(emb, ixs, P)
                 return out.cpu().numpy().astype(np.float64)
 
-        self.delta_embedding = _shift(p_main)
-
         def _scaling(P, d_name):
             with span("shift.scaling"):
-                d_rows = self._get_dev(d_name).T.contiguous()
+                d_rows = self._get_dev(d_name, dt).T.contiguous()
                 if mesh is not None:
                     num, den = map_rows(mesh, _expr_scaling_compact,
                                         [hi_rows], [d_rows, ixs, P])
@@ -1804,16 +1830,17 @@ class VelocytoLoom:
                 return np.clip((num / den).cpu().numpy() / scaling_penalty,
                                0, 1)
 
+        self.delta_embedding = _shift(probs[0])
         if expression_scaling:
-            hi_rows = self._get_dev(self.which_hidim).T.contiguous()
-            self.scaling = _scaling(p_main, "delta_S")
+            hi_rows = self._get_dev(self.which_hidim, dt).T.contiguous()
+            self.scaling = _scaling(probs[0], "delta_S")
             self.delta_embedding = \
                 self.delta_embedding * self.scaling[:, None]
 
         if have_rndm:
-            self.delta_embedding_random = _shift(p_rndm)
+            self.delta_embedding_random = _shift(probs[1])
             if expression_scaling:
-                self.scaling_rndm = _scaling(p_rndm, "delta_S_rndm")
+                self.scaling_rndm = _scaling(probs[1], "delta_S_rndm")
                 self.delta_embedding_random = \
                     self.delta_embedding_random * self.scaling_rndm[:, None]
 
@@ -1883,9 +1910,10 @@ class VelocytoLoom:
     def _transition_prob_dev(self) -> torch.Tensor:
         """transition_prob as a dense float64 (N, N) tensor on the device:
         the host value when there is one (assigned, or a lazy view handed
-        out, perhaps edited), else the full mode's device tensor, else
-        built on the device from the compact knn_random state exactly as
-        the lazy view would be (softmax over the sampled candidates,
+        out, perhaps edited), else a device-backed value (a restored
+        checkpoint's), else built on the device from the rows the full
+        mode's shift kept, else from the compact knn_random state exactly
+        as the lazy view would be (softmax over the sampled candidates,
         scattered)."""
         d = self.__dict__
         tp = d.get("transition_prob")
@@ -1893,6 +1921,8 @@ class VelocytoLoom:
             tp = self._host_view_or_dev("transition_prob")
         if tp is not None:
             return torch.as_tensor(tp, dtype=_F64, device=self.device)
+        if "transition_prob" in (d.get(self._TP_ROWS) or ()):
+            return self._tp_dense("transition_prob", _F64)
         sig = d.get("_tp_sigma")
         if sig is None or self._compact_ixs_or_none() is None:
             raise AttributeError("transition_prob")
@@ -2563,20 +2593,22 @@ def _expr_scaling_compact(hi_rows: torch.Tensor, d_rows: torch.Tensor,
     """Numerator and denominator of the expression-scaling cos-projection
     (reference analysis.py:1714-1719) on the compact form:
     estim_i = sum_k P_ik hi[ixs_ik] - mean_k hi[ixs_ik];
-    returns (<delta_S_i, estim_i>, ||estim_i||) per row, f32.
+    returns (<delta_S_i, estim_i>, ||estim_i||) per row, in the dtype of
+    hi_rows (float32 with no TF32, or float64).
 
     hi_rows / d_rows: (N, G) rows.  The neighbour axis is tiled (nt) so
-    the gathered (B, nt, G) tensor stays near 32 MB."""
+    the gathered (B, nt, G) tensor stays near 32 MB in float32."""
     m, k = ixs.shape
     g = hi_rows.shape[1]
     nt = min(nt, k)
     block = max(1, (1 << 23) // (nt * g))
-    num = torch.empty(m, dtype=_F32, device=hi_rows.device)
+    dt = hi_rows.dtype
+    num = torch.empty(m, dtype=dt, device=hi_rows.device)
     den = torch.empty_like(num)
     with full_f32():
         for i0 in range(0, m, block):
-            ix, Pb = ixs[i0:i0 + block], P[i0:i0 + block]
-            est = torch.zeros((ix.shape[0], g), dtype=_F32,
+            ix, Pb = ixs[i0:i0 + block], P[i0:i0 + block].to(dt)
+            est = torch.zeros((ix.shape[0], g), dtype=dt,
                               device=hi_rows.device)
             total = torch.zeros_like(est)
             for k0 in range(0, k, nt):
@@ -2587,60 +2619,6 @@ def _expr_scaling_compact(hi_rows: torch.Tensor, d_rows: torch.Tensor,
             num[i0:i0 + block] = (d_rows[i0:i0 + block] * est).sum(-1)
             den[i0:i0 + block] = torch.sqrt((est * est).sum(-1))
     return num, den
-
-
-def _dense_from_csr(m, device) -> torch.Tensor:
-    """m.toarray() as a float32 tensor on `device` (duplicates summed)."""
-    m = sparse.csr_matrix(m)
-    rows = np.repeat(np.arange(m.shape[0], dtype=np.int64), np.diff(m.indptr))
-    out = torch.zeros(m.shape, dtype=_F32, device=device)
-    out.index_put_((torch.as_tensor(rows, device=device),
-                    torch.as_tensor(m.indices.astype(np.int64),
-                                    device=device)),
-                   torch.as_tensor(m.data, dtype=_F32, device=device),
-                   accumulate=True)
-    return out
-
-
-def _embedding_shift_blocked(emb: torch.Tensor, P: torch.Tensor,
-                             K: torch.Tensor, K_rowsum: torch.Tensor,
-                             rows: Optional[torch.Tensor] = None
-                             ) -> torch.Tensor:
-    """delta_i = sum_j P_ij unit(x_j - x_i) - sum_j K_ij unit(..) / sum_j K_ij
-
-    emb: (N, D); P/K: (M, N) rows of the cells at `rows` (M, D) (default:
-    all of emb).  Blocked over i, so the reference's dense (D, N, N)
-    unitary-vector tensor (analysis.py:1704-1712) never exists; the blocks
-    have a fixed size (zero-filled) and go through _unit_sums, so each
-    row is the same whatever rows share the call (a mesh's shards)."""
-    rows = emb if rows is None else rows
-    m, d = rows.shape
-    n = emb.shape[0]
-    block = max(1, (1 << 22) // (-(-n // 4) * 4 * d))
-    emb_t = emb.to(_F32).T.contiguous()                       # (D, N)
-    rows_t = rows.to(_F32).T                                  # (D, M)
-    out = torch.empty((m, d), dtype=_F32, device=emb.device)
-    for i0, b in _row_blocks(m, block):
-        ctr = torch.zeros((d, block, 1), dtype=_F32, device=emb.device)
-        ctr[:, :b, 0] = rows_t[:, i0:i0 + b]
-        w = torch.zeros((2, block, n), dtype=_F32, device=emb.device)
-        w[0, :b] = P[i0:i0 + b]
-        w[1, :b] = K[i0:i0 + b]
-        sums = _unit_sums(emb_t[:, None, :] - ctr, w)         # (2, D, B)
-        out[i0:i0 + b] = (sums[0, :, :b] - sums[1, :, :b] /
-                          K_rowsum[None, i0:i0 + b]).T
-    return out
-
-
-def _embedding_shift_sharded(mesh, emb: torch.Tensor, P: torch.Tensor,
-                             K: torch.Tensor, K_rowsum: torch.Tensor
-                             ) -> torch.Tensor:
-    """The dense embedding shift with its center rows split over the
-    mesh's cells shards, embedding replicated (port of the JAX package's
-    _embedding_shift_sharded)."""
-    def rows_fn(e, rows, p, k, ks):
-        return _embedding_shift_blocked(e, p, k, ks, rows)
-    return map_rows(mesh, rows_fn, [emb], [emb, P, K, K_rowsum])
 
 
 def knn_query(data: np.ndarray, query: np.ndarray, k: int, device):
