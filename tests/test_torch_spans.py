@@ -49,8 +49,8 @@ SAMPLED = {
     "pca": ["pca.center", "pca.gram", "pca.eigh", "pca.project",
             "pca.mean"],
     "knn_imputation": ["knn.candidates", "knn.rescore", "knn.hub_order",
-                       "knn.balance", "knn.smooth", "upload.S_sz",
-                       "upload.U_sz"],
+                       "knn.balance", "knn.smooth", "upload.S",
+                       "upload.U"],
     "fit_gammas": ["gammas"],
     "velocity": ["velocity"],
     "transition": ["transition.inputs", "transition.embedding_knn",
@@ -235,6 +235,38 @@ def test_sampled_session_spans_nest_in_their_call(stage, sampled):
             assert within and all(
                 _inside(r, spans["transition.embedding_knn"])
                 for r in within)
+
+
+def test_the_device_route_opens_the_normalize_and_pca_spans():
+    """normalize and PCA on the device (no host view of normalize built,
+    one Gram by the torch route): normalize's spans open in its call and
+    again around each device copy of a view, with the upload of its raw
+    counts inside, in PCA (S_norm) and in the smoothing (S_sz, U_sz);
+    PCA's spans all open in its call; no view is uploaded."""
+    from velocyto_tpu_torch.ops import pca as opca
+    v = _loom()
+    views0, grams0 = analysis.normalize_host_views, opca.pca_torch_grams
+    with _default_profile() as prof:
+        for name, run in _stages(True)[:3]:
+            with torch.profiler.record_function("stage:" + name):
+                run(v)
+    assert (analysis.normalize_host_views - views0,
+            opca.pca_torch_grams - grams0) == (0, 1)
+    stages, spans = _ranges(prof, "stage:"), _ranges(prof, "vtt.")
+    for name in SAMPLED["normalize"] + SAMPLED["pca"]:
+        assert any(_inside(r, stages["normalize" if name.startswith(
+            "normalize.") else "pca"]) for r in spans[name]), name
+    built = {"pca": ["normalize.S"], "knn_imputation": ["normalize.S",
+                                                        "normalize.U"]}
+    for stage, names in built.items():
+        for name in names:
+            outer = [r for r in spans[name] if _inside(r, stages[stage])]
+            assert outer, (stage, name)
+            upload = "upload." + name[-1]
+            assert any(_inside(r, outer) for r in spans[upload]), \
+                (stage, upload)
+    assert not [n for n in spans if n.startswith("upload.")
+                and n not in ("upload.S", "upload.U")]
 
 
 def test_sampled_session_names_only_the_catalogue(sampled):

@@ -21,14 +21,18 @@ numpy (or csr) attributes the reference exposes are materialized lazily
 on first read.  Both colDeltaCor variants run through hand-written CUDA
 kernels on a CUDA device (ops/coldeltacor.py), and so does the balanced
 kNN's greedy balance (ops/knn_device.py), which keeps the whole kNN chain
-on the device.  Host stages (the filter/score family and the raw-count
-normalizations in float64, PCA, the gene-axis kNN balance, the
-randomized control's permutation plan (in full mode the permutation
-itself), the neighbour-sampling replay and the grid field) stay
-numpy/scipy/C++, as in the JAX package.  The two SVR noise models
-(score_cv_vs_mean, adjust_totS_totU) and perform_TSNE run on the
-object's device through the port's own ops/svr.py and ops/tsne.py (hand
-CUDA kernels for the SMO loop and the t-SNE gradient), without sklearn.
+on the device.  normalize keeps its four views as a plan (the raw
+counts, the cell factors, the pseudocount): PCA and the kNN smoothing
+build their own copies on the device from the uploaded raw counts, and
+the host views are built on first read.  Host stages (the filter/score
+family, the normalizations' cell sizes and factors, PCA's eigensolver of
+the (genes, genes) Gram matrix, the gene-axis kNN balance, the
+randomized control's permutation plan, the neighbour-sampling replay and
+the grid field) stay numpy/scipy/C++, as in the JAX package.  The two
+SVR noise models (score_cv_vs_mean, adjust_totS_totU) and perform_TSNE
+run on the object's device through the port's own ops/svr.py and
+ops/tsne.py (hand CUDA kernels for the SMO loop and the t-SNE
+gradient), without sklearn.
 The plots (plot_*, scatter_viz, score_cv_vs_mean(plot=True)) are the
 JAX package's; they and set_clusters without colours import matplotlib
 when they run, never at import.
@@ -61,7 +65,7 @@ from .ops.gamma import (clusters_stats, compute_fit_weights, fit_slope,
                         fit_slope_weighted_offset)
 from .ops.knn import (BalancedKNN, _knn_query_impl, full_f32,
                       knn_distance_matrix)
-from .ops.pca import PCA
+from .ops.pca import PCA, _as_tensor
 from .ops.smoothing import (connectivity_to_weights,
                             convolve_by_sparse_weights_dev)
 from .ops.svr import SVR
@@ -84,6 +88,8 @@ _CUDA = _Default("cuda")
 # row chunks of the neighbour-sampling replay in the sampled path (the
 # JAX package's n_chunks); one sampled colDeltaCor launch each on a card
 SAMPLER_CHUNKS = 4
+
+normalize_host_views = 0    # host views of normalize's plan built on read
 
 
 # Copied from velocyto_tpu/analysis.py::_scaled_pair (bit-exact to the
@@ -112,6 +118,14 @@ def _scaled_pair(M: np.ndarray, factor: Any, pcount: float, want_log: bool,
             np.add(sz, pcount, out=norm, casting="unsafe")
             np.log2(norm, out=norm)
     return sz, norm
+
+
+def _torch_dtype(dt: np.dtype) -> torch.dtype:
+    """The torch dtype of a numpy dtype; unsigned integers wider than a
+    byte as int64, which torch computes with on every device."""
+    if dt.kind == "u" and dt.itemsize > 1:
+        return torch.int64
+    return torch.from_numpy(np.empty(0, dt)).dtype
 
 
 class VelocytoLoom:
@@ -187,6 +201,16 @@ class VelocytoLoom:
     # (the call's delta_S, the permutations, the sign bits), host arrays
     # but for a device-backed delta_S; delta_S_rndm is built on first read
     _RNDM_PLAN = "_rndm_plan"
+    # normalize keeps S_sz, S_norm, U_sz and U_norm as the plan that builds
+    # them, {view: (source name, raw counts, factor, pcount, clean)}, one
+    # entry shared by a source's two views.  A host view is built on first
+    # read by _scaled_pair, bitwise the eager value; until then a device
+    # consumer builds its own copy on self.device from the raw counts
+    # (_norm_view_dev).  Assigning a view drops its entry; a write to the
+    # source first builds the source's views still pending.  The raw
+    # counts are held by reference: an in-place edit of S or U after
+    # normalize reaches the views still pending
+    _NORM_PLAN = "_norm_plan"
 
     def __setattr__(self, name: str, value: Any) -> None:
         ds = self.__dict__.get("_dev_state")
@@ -198,6 +222,9 @@ class VelocytoLoom:
         elif name == "embedding_knn":
             self.__dict__.pop(self._KNN_IXS, None)
         (self.__dict__.get(self._TP_ROWS) or {}).pop(name, None)
+        if self._NORM_PLAN in self.__dict__:
+            self._build_norm_views(src=name)
+            self._unplan(name)
         object.__setattr__(self, name, value)
 
     def __getattr__(self, name: str):
@@ -209,6 +236,8 @@ class VelocytoLoom:
             return self._materialize_dense(name)
         if name == "delta_S_rndm" and self._RNDM_PLAN in d:
             return self._materialize_rndm()
+        if name in (d.get(self._NORM_PLAN) or ()):
+            return self._build_norm_view(name)
         if name in ("knn", "knn_smoothing_w") and \
                 d.get("_knn_graph_dev") is not None:
             g = d["_knn_graph_dev"]
@@ -234,6 +263,7 @@ class VelocytoLoom:
         self.__dict__.pop(name, None)
         if name == "delta_S_rndm":
             self.__dict__.pop(self._RNDM_PLAN, None)
+        self._unplan(name)
         self.__dict__.setdefault("_dev_state", {})[name] = dev
         self.__dict__.setdefault("_dev_host_cache", {}).pop(name, None)
 
@@ -248,16 +278,20 @@ class VelocytoLoom:
             (d.get(self._TP_ROWS) or {}).pop(name, None)
             if name == "delta_S_rndm":
                 d.pop(self._RNDM_PLAN, None)
+        self._unplan(*names)
 
     def _get_dev(self, name: str, dtype: torch.dtype = _F32) -> torch.Tensor:
         """`name` as a tensor on self.device (no transfer when the
         attribute is device-backed, or a transition probability kept as
-        rows, which is built dense here and not kept; uploaded from the
-        host otherwise)."""
+        rows, which is built dense here and not kept; a view normalize
+        left pending is built here from the uploaded raw counts, and not
+        kept; uploaded from the host otherwise)."""
         d = self.__dict__
         ds = d.get("_dev_state")
         if ds is not None and name in ds:
             return ds[name].to(dtype)
+        if name in (d.get(self._NORM_PLAN) or ()):
+            return self._norm_view_dev(name).to(dtype)
         if name not in d and name in (d.get(self._TP_ROWS) or ()):
             return self._tp_dense(name, dtype)
         with span("upload." + name):
@@ -283,6 +317,107 @@ class VelocytoLoom:
         if cached is not None:
             return cached
         return self.__dict__["_dev_state"][name]
+
+    def _stage_input(self, name: str) -> torch.Tensor:
+        """`name` on self.device in its own dtype, as a stage reads it: a
+        view normalize left pending built there from the raw counts; a
+        device-backed attribute's tensor, or its host view once handed
+        out (it may have been edited in place); else the host value,
+        uploaded."""
+        d = self.__dict__
+        if name in (d.get(self._NORM_PLAN) or ()):
+            return self._norm_view_dev(name)
+        x = self._host_view_or_dev(name) \
+            if name in (d.get("_dev_state") or ()) else getattr(self, name)
+        if isinstance(x, torch.Tensor):
+            return x
+        with span("upload." + name):
+            return torch.as_tensor(np.asarray(x), device=self.device)
+
+    def _plan_norm(self, src: str, factor: Any, pcount: float, log: bool,
+                   clean: bool) -> None:
+        """Plan <src>_sz = factor * <src> (and, with log, <src>_norm =
+        log2(<src>_sz + pcount)) in place of building them (_NORM_PLAN);
+        factor is copied, the raw counts are not."""
+        views = (src + "_sz",) + ((src + "_norm",) if log else ())
+        self._drop(*views)
+        if isinstance(factor, np.ndarray):
+            factor = factor.copy()
+        entry = (src, getattr(self, src), factor, pcount, clean)
+        plan = self.__dict__.setdefault(self._NORM_PLAN, {})
+        for view in views:
+            plan[view] = entry
+
+    def _unplan(self, *names: str) -> None:
+        """Drop the plan's entries of `names` (the plan itself once
+        empty)."""
+        plan = self.__dict__.get(self._NORM_PLAN)
+        if plan is None:
+            return
+        for name in names:
+            plan.pop(name, None)
+        if not plan:
+            del self.__dict__[self._NORM_PLAN]
+
+    def _build_norm_view(self, name: str) -> np.ndarray:
+        """Build the pending host view `name` with _scaled_pair (with the
+        size-normalized view it passes through, where that is pending from
+        the same entry) and keep it as the attribute."""
+        global normalize_host_views
+        plan = self.__dict__[self._NORM_PLAN]
+        entry = plan[name]
+        src, M, factor, pcount, clean = entry
+        log = name.endswith("_norm")
+        sz, norm = _scaled_pair(M, factor, pcount, log,
+                                clean_nonfinite=clean)
+        built = {name: norm if log else sz}
+        if log and plan.get(src + "_sz") is entry:
+            built[src + "_sz"] = sz
+        self._unplan(*built)
+        self.__dict__.update(built)
+        normalize_host_views += len(built)
+        return built[name]
+
+    def _build_norm_views(self, src: Optional[str] = None) -> None:
+        """Build every pending view (of the source `src` alone, if
+        given), each log view before the size-normalized one it carries."""
+        plan = self.__dict__.get(self._NORM_PLAN) or {}
+        views = sorted((v for v, e in plan.items() if src in (None, e[0])),
+                       key=lambda v: not v.endswith("_norm"))
+        for view in views:
+            if view in plan:
+                self._build_norm_view(view)
+
+    def _norm_view_dev(self, name: str) -> torch.Tensor:
+        """The pending view `name` built on self.device from the uploaded
+        raw counts, in the host's order of operations and in the dtypes
+        its 1-element probes give (multiply; for U nonfinite to zero; add
+        pcount; log2): the size-normalized view is bitwise the host one,
+        the log2 view within the device log2's rounding.  One (genes,
+        cells) buffer where the dtypes agree, the upload's own; nothing is
+        kept."""
+        src, M, factor, pcount, clean = self.__dict__[self._NORM_PLAN][name]
+        f_probe = factor if np.isscalar(factor) else np.ravel(factor)[:1]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            sz_probe = f_probe * np.ravel(M)[:1]
+            add_probe = sz_probe + pcount
+            log_probe = np.log2(add_probe)
+        sz_dt, add_dt, log_dt = (_torch_dtype(p.dtype) for p in
+                                 (sz_probe, add_probe, log_probe))
+        with span("normalize." + src):
+            with span("upload." + src):
+                x = torch.empty(np.shape(M), dtype=sz_dt, device=self.device)
+                x.copy_(_as_tensor(M))
+            x.mul_(torch.as_tensor(np.asarray(factor),
+                                   device=self.device).to(sz_dt))
+            if clean and x.is_floating_point():
+                x.nan_to_num_(nan=0.0, posinf=0.0, neginf=0.0)
+            if not name.endswith("_norm"):
+                return x
+            if isinstance(pcount, np.generic):
+                pcount = pcount.item()
+            x = x.to(add_dt).add_(pcount).to(log_dt)
+            return x.log2_()
 
     def _materialize_rndm(self) -> np.ndarray:
         """The full mode's delta_S_rndm, float64: its plan applied to the
@@ -314,7 +449,8 @@ class VelocytoLoom:
         device and the device tensors are runtime state, not data: the
         lazy dense views (corrcoef / transition_prob), the full mode's
         delta_S_rndm, the device-backed attributes and the kNN and
-        sampled-neighbour views are materialized on the host first, so
+        sampled-neighbour views and normalize's pending views are
+        materialized on the host first, so
         the snapshot carries the reference's attribute set, then the
         runtime state (the mesh too) is left out of the dump and stays
         attached.  Raises TypeError, writing nothing, if any other
@@ -324,6 +460,7 @@ class VelocytoLoom:
                 getattr(self, name)
             except AttributeError:
                 pass
+        self._build_norm_views()
         for name in list(self.__dict__.get("_dev_state", ())):
             self.__dict__[name] = self._materialize_dev(name)
         if self.__dict__.get("_knn_graph_dev") is not None:
@@ -580,10 +717,7 @@ class VelocytoLoom:
             self.norm_factor = self.avg_size / self.cell_size
         else:
             self.norm_factor = 1
-        self.S_sz, s_norm = _scaled_pair(self.S, self.norm_factor,
-                                         pcount, log)
-        if log:
-            self.S_norm = s_norm
+        self._plan_norm("S", self.norm_factor, pcount, log, clean=False)
 
     @spanned("normalize.U")
     def _normalize_U(self, size: bool = True, log: bool = True,
@@ -605,10 +739,7 @@ class VelocytoLoom:
         else:
             norm_factor = 1
         self.Unorm_factor = norm_factor
-        self.U_sz, u_norm = _scaled_pair(self.U, norm_factor, pcount, log,
-                                         clean_nonfinite=True)
-        if log:
-            self.U_norm = u_norm
+        self._plan_norm("U", norm_factor, pcount, log, clean=True)
 
     # The imputed matrices live on the device, so their normalizations run
     # there, in float64 like the JAX package's host arithmetic on them;
@@ -830,18 +961,21 @@ class VelocytoLoom:
     def perform_PCA(self, which: str = "S_norm",
                     n_components: Optional[int] = None,
                     div_by_std: bool = False) -> None:
-        """PCA with cells as samples, host LAPACK (reference :678-702)."""
-        X = getattr(self, which)
+        """PCA with cells as samples (reference :678-702), ops/pca.py on
+        self.device (a view normalize left pending is built there from
+        the raw counts); the eigensolver runs on the host."""
+        X = self._stage_input(which)
         self.pca = PCA(n_components=n_components)
         if div_by_std:
-            self.pcs = self.pca.fit_transform(X.T / X.std(0))
+            self.pcs = self.pca.fit_transform(X.T / X.std(0, correction=0))
         else:
             self.pcs = self.pca.fit_transform(X.T)
 
     def _perform_PCA_imputed(self, n_components: Optional[int] = None) -> None:
-        """PCA of the smoothed Sx_norm (host, ops/pca.py): pcax / pcsx."""
+        """PCA of the smoothed Sx_norm (ops/pca.py on self.device):
+        pcax / pcsx."""
         self.pcax = PCA(n_components=n_components)
-        self.pcsx = self.pcax.fit_transform(self.Sx_norm.T)
+        self.pcsx = self.pcax.fit_transform(self._stage_input("Sx_norm").T)
 
     def knn_imputation(self, k: Optional[int] = None, pca_space: bool = True,
                        metric: str = "euclidean", diag: float = 1,
@@ -1114,20 +1248,34 @@ class VelocytoLoom:
         keep = torch.as_tensor(np.flatnonzero(tmp_filter), device=self.device)
         dev_state = self.__dict__.get("_dev_state") or {}
         filtered = {}                        # id(tensor) -> (tensor, rows)
-        for name in ("U", "U_sz", "U_norm", "Ux", "Ux_sz", "Ux_norm",
-                     "S", "S_sz", "S_norm", "Sx", "Sx_sz", "Sx_norm"):
-            if name in dev_state:
-                src = self._host_view_or_dev(name)
-                if isinstance(src, np.ndarray):
-                    self._set_dev(name, torch.as_tensor(
-                        src[tmp_filter], dtype=dev_state[name].dtype,
-                        device=self.device))
-                    continue
-                if id(src) not in filtered:
-                    filtered[id(src)] = (src, src.index_select(0, keep))
-                self._set_dev(name, filtered[id(src)][1])
-            elif name in self.__dict__:
-                setattr(self, name, self.__dict__[name][tmp_filter, :])
+        # normalize's pending views stay pending, over the kept rows of
+        # their raw counts (the factors are per cell): set aside while S
+        # and U are written, which would build them
+        plan = self.__dict__.pop(self._NORM_PLAN, None)
+        try:
+            for name in ("U", "U_sz", "U_norm", "Ux", "Ux_sz", "Ux_norm",
+                         "S", "S_sz", "S_norm", "Sx", "Sx_sz", "Sx_norm"):
+                if name in dev_state:
+                    src = self._host_view_or_dev(name)
+                    if isinstance(src, np.ndarray):
+                        self._set_dev(name, torch.as_tensor(
+                            src[tmp_filter], dtype=dev_state[name].dtype,
+                            device=self.device))
+                        continue
+                    if id(src) not in filtered:
+                        filtered[id(src)] = (src, src.index_select(0, keep))
+                    self._set_dev(name, filtered[id(src)][1])
+                elif name in self.__dict__:
+                    setattr(self, name, self.__dict__[name][tmp_filter, :])
+        finally:
+            if plan:
+                self.__dict__[self._NORM_PLAN] = plan
+        kept = {}                            # id(entry) -> kept entry
+        for view, entry in (plan or {}).items():
+            if id(entry) not in kept:
+                kept[id(entry)] = (entry[0], entry[1][tmp_filter]) + \
+                    entry[2:]
+            plan[view] = kept[id(entry)]
         for name in ("gammas", "q", "R2"):
             if name in self.__dict__:
                 setattr(self, name, self.__dict__[name][tmp_filter])
