@@ -143,6 +143,8 @@ import time
 import numpy as np
 import torch
 
+from benchmark.roofline import PEAK_BYTES, PEAK_FP32
+
 CELLS, GENES = 20000, 2000
 K, B_SIGHT, B_MAXL, N_NEIGHBORS = 500, 3000, 1500, 3500
 # the tutorial session: GENES expressed genes plus a block of LOW_GENES
@@ -169,14 +171,16 @@ PEAK_FP64 = 34e12
 SAMPLED_FRACTION = 0.5
 NN_SAMPLED = int(SAMPLED_FRACTION * (N_NEIGHBORS + 1))     # 1750
 RTOL, ATOL = 2e-3, 2e-4          # the JAX tests' colDeltaCor tolerances
-# H100 SXM data sheet: FP32 outside the tensor cores, HBM3 bandwidth; the
+# H100 SXM data sheet (FP32 and HBM3 peaks: benchmark/roofline.py): the
 # SFU rate is 16 MUFU ops per SM per clock at the 1.98 GHz boost clock
-PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 PEAK_MUFU = 16 * 132 * 1.98e9
 FMA_RTOL = 1e-5                  # one rounding per step against two
 SPOT_ROWS = 256
 DENSE_CHECK_SHAPES = ((37, 29), (2000, 2048))   # (G, N) of the dense checks
 DEVICE = "cuda"
+# the (cells, cells) attributes, which the pipelines keep as rows
+DENSE_VIEWS = ("corrcoef", "corrcoef_random", "transition_prob",
+               "transition_prob_random")
 # the JAX harness's stage names at this operating point
 # (bench_pipeline.py:98-122); the port's harness keeps them
 PIPELINE_STAGES = ["normalize", "pca", "knn_imputation(k=500,sight=3000)",
@@ -342,6 +346,14 @@ def _err(got, want, mask=None):
     diff = (got[fin] - want[fin]).abs()
     ok = same_nan and bool(torch.all(diff <= ATOL + RTOL * want[fin].abs()))
     return (float(diff.max()) if diff.numel() else 0.0), ok
+
+
+def _device_backed(v):
+    """{name: tensor} of the loom's device-backed attributes (its table's
+    device entries)."""
+    from velocyto_tpu_torch.analysis import _Device
+    return {name: v._get_dev(name, None) for name, entry in
+            v._table().items() if isinstance(entry, _Device)}
 
 
 def _bitwise(a, b):
@@ -925,7 +937,7 @@ def _check_transition_call(v, transition, sampler, smi):
     host = v._get_dev("delta_S").cpu().numpy().astype(np.float64)
     np.random.seed(15071990)             # the call's numba_random_seed
     analysis.permute_rows_nsign(host)
-    got = v.__dict__["_dev_state"]["delta_S_rndm"].cpu().numpy()
+    got = v._get_dev("delta_S_rndm", None).cpu().numpy()
     same = got.dtype == np.float32 and np.array_equal(
         got.view(np.uint32), host.astype(np.float32).view(np.uint32))
     print(f"# delta_S_rndm (device permutation) against permute_rows_nsign "
@@ -1018,7 +1030,7 @@ def _permutation_timing(v, smi, n=3):
           for _ in range(n)]
     got = ms[-1][1]
     ms = statistics.median(t for t, _ in ms)
-    assert _bitwise(got, v.__dict__["_dev_state"]["delta_S_rndm"])
+    assert _bitwise(got, v._get_dev("delta_S_rndm", None))
     nbytes = g * n_cells * (4 + perms.element_size() + 4) + bits.numel()
     bound = _bound(0, nbytes)
     print(f"# time device permutation (_permute_apply_dev, plain torch: "
@@ -1213,8 +1225,8 @@ def _check_sampled_state(v):
         t = v.__dict__[name]
         assert tuple(t.shape) == (CELLS, NN_SAMPLED) and \
             bool(torch.isfinite(t).all()), name
-    dense = [k for k in v._LAZY_DENSE + ("embedding_knn",)
-             if k in v.__dict__ or k in v.__dict__.get("_dev_state", {})]
+    dense = [k for k in DENSE_VIEWS + ("embedding_knn",)
+             if k in v.__dict__ or k in _device_backed(v)]
     assert not dense, f"dense (N, N) state built: {dense}"
     assert v.sampling_ixs.shape == (CELLS, NN_SAMPLED)
     print(f"# sampled state: {CELLS} x {NN_SAMPLED} neighbours, none self, "
@@ -1362,7 +1374,7 @@ def _check_session(v, counts, gamma_true, stages, smi):
     print(f"# gammas (no offset) against the truth: spearman {rho!r}",
           flush=True)
     assert rho > 0.9, f"gamma spearman {rho}"
-    ds = v._dev_state
+    ds = _device_backed(v)
     assert ds["Sx_sz"].shape[0] == len(kept) and ds["Sx_sz"].dtype == \
         torch.float64, "phase-portrait filter left Sx_sz off the device"
     for name in ("delta_embedding", "delta_embedding_random", "flow",
@@ -1376,9 +1388,9 @@ def _check_session(v, counts, gamma_true, stages, smi):
     mass_err = abs(float(diffused.sum()) - 1)
     assert row_err < 1e-9, f"tr rows sum to 1 +- {row_err}"
     assert mass_err < 1e-4, f"diffused sums to 1 +- {mass_err}"
-    assert "tr" not in v.__dict__ and "tr" not in v._dev_host_cache, \
+    assert "tr" not in v.__dict__ and v._table()["tr"].view is None, \
         "a host csr of tr was built"
-    dense = [k for k in v._LAZY_DENSE if k in v.__dict__ or k in ds]
+    dense = [k for k in DENSE_VIEWS if k in v.__dict__ or k in ds]
     assert not dense, f"dense (N, N) state built: {dense}"
     gbps = MARKOV_STEPS * CELLS * CELLS * 4 / stages["run_markov"] / 1e9
     print(f"# markov: tr {CELLS} x {CELLS} float64 on the card, rows sum to "
@@ -2427,7 +2439,7 @@ def checkpoint_phase(v):
     equal."""
     from velocyto_tpu_torch.io.checkpoint import load_state, save_state
     phase("checkpoint of the default-mode session (io.checkpoint, DCP)")
-    tensors = dict(v.__dict__["_dev_state"])
+    tensors = _device_backed(v)
     arrays = {k: a for k, a in v.__dict__.items()
               if isinstance(a, np.ndarray)}
     meta = {k: m for k, m in v.__dict__.items()
@@ -2484,7 +2496,7 @@ def _check_plot_inputs(v):
     """Every attribute the plots read, materialised: finite, one cached
     host copy (a second read is the same object), and, where the value
     lives on the card, equal to its device tensor."""
-    dev_state = v.__dict__["_dev_state"]
+    dev_state = _device_backed(v)
     on_card = []
     for name in PLOT_INPUTS:
         val = getattr(v, name)
@@ -2906,8 +2918,9 @@ def mesh_pipeline_phase(mesh, v1, knn_random, smi, sampler=None):
             np.array_equal(vm.sampling_ixs, sampler["rows"])
         checks["numpy state"] = _same_state(after["rng_state"],
                                             sampler["state"])
-        tp1 = v1._transition_prob_dev()
-        checks["transition_prob"] = _bits64(tp1, vm._transition_prob_dev())
+        tp1 = v1._stage_input("transition_prob", torch.float64)
+        checks["transition_prob"] = _bits64(
+            tp1, vm._stage_input("transition_prob", torch.float64))
         del tp1
         torch.cuda.empty_cache()
     else:

@@ -22,8 +22,16 @@ from scipy import sparse
 import velocyto_tpu as vt
 
 import velocyto_tpu_torch as vtt
+from velocyto_tpu_torch.analysis import _Device
 
 from test_torch_pipeline import CPU, _fresh, _front
+
+
+def _device_backed(v):
+    """{name: tensor} of the loom's device-backed attributes."""
+    return {name: v._get_dev(name, None) for name, entry in
+            v._table().items() if isinstance(entry, _Device)}
+
 
 GAMMA_TOL = dict(rtol=1e-4, atol=1e-5)
 DEV_TOL = dict(rtol=1e-5, atol=1e-12)
@@ -273,7 +281,7 @@ def test_imputed_normalize_on_device_matches_jax(golden, case):
     jax_v, port = _pair(golden)
     for v in (jax_v, port):
         DEVICE_NORMALIZE[case](v)
-    ds = port.__dict__["_dev_state"]
+    ds = _device_backed(port)
     n_checked = 0
     for name in DEVICE_ATTRS:
         if name not in jax_v.__dict__:      # not set by this normalization
@@ -316,8 +324,8 @@ def test_knn_imputation_precomputed_matches_jax(smoothed, maximum):
     w = sparse.csr_matrix(jax_v.knn_smoothing_w)
     for v in (jax_v, port):
         v.knn_imputation_precomputed(w, maximum=maximum)
-    assert port.__dict__["_dev_state"]["Sx_sz"] is \
-        port.__dict__["_dev_state"]["Sx"]
+    ds = _device_backed(port)
+    assert ds["Sx_sz"] is ds["Sx"]
     for name in ("Sx", "Ux", "Sx_sz", "Ux_sz"):
         np.testing.assert_allclose(getattr(port, name), getattr(jax_v, name),
                                    rtol=1e-4, atol=1e-4, err_msg=name)
@@ -393,7 +401,7 @@ def test_phase_portrait_filter_then_predict_U(golden, method, kwargs):
         v.predict_U()
     assert 0 < len(port.ra["Gene"]) < 80
     assert list(port.ra["Gene"]) == list(jax_v.ra["Gene"])
-    ds = port.__dict__["_dev_state"]
+    ds = _device_backed(port)
     assert all(n in ds for n in ("Sx", "Ux", "Sx_norm", "Ux_norm"))
     for name in ("S", "U", "S_sz", "U_sz", "S_norm"):
         np.testing.assert_array_equal(getattr(port, name),
@@ -410,11 +418,12 @@ def test_phase_portrait_keeps_aliases_and_honours_host_edits(golden):
     jax_v, port = _pair(golden)
     for v in (jax_v, port):
         v.fit_gammas(fit_offset=True)
-    ds = port.__dict__["_dev_state"]
+    ds = _device_backed(port)
     assert ds["Sx_sz"] is ds["Sx"]
     for v in (jax_v, port):
         v.Ux_sz[:, :5] = 0.0             # an edit of the handed-out view
         v.filter_genes_by_phase_portrait(minCorr=None)
+    ds = _device_backed(port)
     assert ds["Sx_sz"] is ds["Sx"]       # filtered once, still one tensor
     assert ds["Sx"].shape[0] == len(port.ra["Gene"]) < 80
     for name in ("Sx", "Ux", "Sx_sz", "Ux_sz"):

@@ -153,14 +153,14 @@ def test_markov_matches_golden_and_jax(sessions):
                          direction="forward")
         if tag == "port":
             assert "transition_prob" not in v.__dict__
-            assert "tr" not in v.__dict__ and \
-                "tr" not in v.__dict__.get("_dev_host_cache", {})
-            tr_dev = v._dev_state["tr"]
+            tr = v._table()["tr"]
+            assert "tr" not in v.__dict__ and tr.view is None
+            tr_dev = v._get_dev("tr", None)
             assert tr_dev.dtype == torch.float64
             np.testing.assert_allclose(tr_dev.sum(1).numpy(), 1.0,
                                        rtol=1e-12)
             v.run_markov(n_steps=500)
-            assert "tr" not in v.__dict__.get("_dev_host_cache", {})
+            assert tr.view is None
         else:
             v.run_markov(n_steps=500)
         assert sparse.issparse(v.tr)
@@ -229,7 +229,7 @@ def test_run_markov_on_a_tr_from_the_jax_package(sessions):
     jax_v.prepare_markov(sigma_D=1.0, sigma_W=0.5)
     jax_v.run_markov(n_steps=100)
     port = vtt.state_from_numpy({"tr": jax_v.tr}, "cpu")
-    assert port._dev_state["tr"].dtype == torch.float64
+    assert port._get_dev("tr", None).dtype == torch.float64
     port.run_markov(n_steps=100)
     np.testing.assert_allclose(port.diffused, jax_v.diffused, rtol=1e-4,
                                atol=1e-9)

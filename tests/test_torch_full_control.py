@@ -43,7 +43,7 @@ def _port(golden, authority):
 def _rows(v, authority):
     """delta_S as the call reads it, in float64."""
     if authority == "device_f32":
-        return v._dev_state["delta_S"].numpy().astype(np.float64)
+        return v._get_dev("delta_S", None).numpy().astype(np.float64)
     return np.array(v.delta_S, dtype=np.float64)
 
 
@@ -101,13 +101,14 @@ def test_numpy_stream_after_the_call_is_the_host_loops(calls, authority):
 def test_control_is_not_kept_on_the_device(authority):
     v = _port(np.load(GOLDEN), authority)
     v.estimate_transition_prob(**KW)
-    assert "delta_S_rndm" not in (v.__dict__.get("_dev_state") or {})
+    plan = v._table()["delta_S_rndm"]
+    assert type(plan) is tanalysis._Permuted
     assert "delta_S_rndm" not in v.__dict__         # built on first read
-    plan = v.__dict__[v._RNDM_PLAN]
-    assert all(isinstance(a, np.ndarray) for a in plan[1:])
-    assert isinstance(plan[0], torch.Tensor) == (authority == "device_f32")
+    assert all(isinstance(a, np.ndarray) for a in (plan.perms,
+                                                   plan.sign_bits))
+    assert isinstance(plan.src, torch.Tensor) == (authority == "device_f32")
     assert isinstance(v.delta_S_rndm, np.ndarray)
-    assert v._RNDM_PLAN not in v.__dict__
+    assert "delta_S_rndm" not in v._table()
 
 
 @pytest.mark.parametrize("authority", AUTHORITY)
@@ -170,6 +171,5 @@ def test_failed_call_leaves_no_thread_and_no_control(monkeypatch, authority,
     with pytest.raises(RuntimeError, match="failed"):
         v.estimate_transition_prob(**KW)
     assert threading.active_count() == threads
-    assert v._RNDM_PLAN not in v.__dict__
-    assert "delta_S_rndm" not in (v.__dict__.get("_dev_state") or {})
+    assert "delta_S_rndm" not in v._table()
     assert not hasattr(v, "delta_S_rndm")

@@ -7,13 +7,16 @@ arithmetic written out here in float64 (the masked softmax over
 embedding_knn, the unit-vector shift, the expression scaling) on the
 loom's own correlations; with its neighbour ids on the device, with the
 ids read from an embedding_knn csr, with a mesh of CPU shards and with
-expression scaling.  The call makes no (N, N) tensor, and the dense
-transition probabilities exist only once read; a checkpoint carries
-them either way."""
+expression scaling; embedding_knn built on first read against the JAX
+package's.  The call makes no (N, N) tensor, and the dense transition
+probabilities exist only once read; a checkpoint carries them either
+way."""
 import numpy as np
 import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+
+import velocyto_tpu as vt
 
 from velocyto_tpu_torch import analysis
 from velocyto_tpu_torch.io.checkpoint import load_vlm, save_vlm
@@ -106,12 +109,26 @@ def _from_numpy(v):
     return analysis.state_from_numpy({n: getattr(v, n) for n in names}, "cpu")
 
 
+def _jax_embedding_knn(v):
+    """The JAX package's full-mode embedding_knn on v's inputs."""
+    jax_v = vt.VelocytoLoom.__new__(vt.VelocytoLoom)
+    for name in ("S", "Sx_sz", "delta_S", "ts", "used_delta_t"):
+        setattr(jax_v, name, np.array(getattr(v, name)))
+    jax_v.estimate_transition_prob(hidim="Sx_sz", embed="ts",
+                                   transform="sqrt", psc=1e-10,
+                                   knn_random=False, n_neighbors=NN - 1,
+                                   calculate_randomized=False)
+    return jax_v.embedding_knn
+
+
 CASES = {
     "device_ids": dict(scaling=False, mesh=False, csr=False),
     "csr_ids": dict(scaling=False, mesh=False, csr=True),
     "mesh": dict(scaling=False, mesh=True, csr=False),
     "expression_scaling": dict(scaling=True, mesh=False, csr=False),
     "expression_scaling_mesh": dict(scaling=True, mesh=True, csr=True),
+    "embedding_knn_read": dict(scaling=False, mesh=False, csr=False,
+                               read=True),
 }
 
 
@@ -119,10 +136,23 @@ CASES = {
 def test_full_shift_matches_the_dense_reference(session, case):
     """Shifts and scalings to 1e-5 of their scale, transition
     probabilities to 1e-5 relative: the port's float32 softmax and
-    contraction on the same float32 correlations as the reference."""
+    contraction on the same float32 correlations as the reference.  The
+    call keeps its neighbour ids on the device and builds embedding_knn
+    from them on first read: the JAX package's csr, to the index dtype;
+    the shift then reads its ids from that csr."""
     c = CASES[case]
     v = _from_numpy(session) if c["csr"] else _session()
-    assert (analysis.VelocytoLoom._KNN_IXS in v.__dict__) != c["csr"]
+    assert ("embedding_knn" in v._table()) != c["csr"]
+    if c.get("read"):
+        assert "embedding_knn" not in v.__dict__
+        got, want = v.embedding_knn, _jax_embedding_knn(v)
+        assert v.__dict__["embedding_knn"] is got
+        assert "embedding_knn" not in v._table()
+        assert got.shape == want.shape
+        for part in ("indptr", "indices", "data"):
+            a, b = getattr(got, part), getattr(want, part)
+            assert a.dtype == b.dtype, part
+            np.testing.assert_array_equal(a, b, err_msg=part)
     if c["mesh"]:
         v.mesh = make_mesh(devices=[CPU] * 2)
     want = _dense_reference(v, c["scaling"])
@@ -174,26 +204,29 @@ def test_full_shift_makes_no_dense_matrix_and_builds_views_on_read():
         v.calculate_embedding_shift(sigma_corr=SIGMA,
                                     expression_scaling=False)
     assert rec.shapes and not [s for s in rec.shapes if _square(s)]
-    d = v.__dict__
-    dense = [n for n, t in d["_dev_state"].items() if _square(t.shape)]
+    d, table = v.__dict__, v._table()
+    dense = [n for n, e in table.items()
+             if isinstance(e, analysis._Device) and _square(e.t.shape)]
     assert sorted(dense) == ["corrcoef", "corrcoef_random"]
     for name in TP_NAMES + ("K",):
-        assert name not in d and name not in d["_dev_state"]
-        assert name not in d.get("_dev_host_cache", {})
-    rows = d[analysis.VelocytoLoom._TP_ROWS]
-    assert sorted(rows) == sorted(TP_NAMES)
-    for ixs, p in rows.values():
-        assert tuple(ixs.shape) == tuple(p.shape) == (CELLS, NN)
+        assert name not in d
+        assert not isinstance(table.get(name), analysis._Device)
+    for name in TP_NAMES:
+        rows = table[name]
+        assert type(rows) is analysis._ProbRows
+        assert tuple(rows.ixs.shape) == tuple(rows.rows.shape) == (CELLS, NN)
 
     dev = {n: v._get_dev(n) for n in TP_NAMES}
     assert all(t.dtype == torch.float32 and t.shape == (CELLS, CELLS)
                for t in dev.values())
-    assert not any(n in d or n in d["_dev_state"] for n in TP_NAMES)
-    assert torch.equal(v._transition_prob_dev(),
+    assert not any(n in d or not isinstance(table[n], analysis._ProbRows)
+                   for n in TP_NAMES)
+    assert torch.equal(v._stage_input("transition_prob", torch.float64),
                        dev["transition_prob"].double())
     for name in TP_NAMES:
         host = getattr(v, name)
         assert d[name] is host and host.dtype == np.float32
+        assert name not in table
         np.testing.assert_array_equal(host, dev[name].numpy())
     # an edit of the host view reaches the next device read
     v.transition_prob[:, :5] = 0.0

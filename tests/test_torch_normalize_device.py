@@ -77,7 +77,10 @@ def test_normalize_and_pca_build_no_host_view(case):
     port.knn_imputation(k=10, balanced=True, b_sight=30, b_maxl=15)
     views1, grams1 = _counters()
     assert (views1 - views0, grams1 - grams0) == (0, 1)
-    assert set(port.__dict__[port._NORM_PLAN]) == set(VIEWS)
+    plans = {n: e for n, e in port._table().items()
+             if isinstance(e, analysis._NormView)}
+    assert set(plans) == set(VIEWS)
+    assert plans["S_sz"] is plans["S_norm"] is not plans["U_sz"]
     assert not set(VIEWS) & set(port.__dict__)
 
 
@@ -181,7 +184,7 @@ def test_filter_cells_after_normalize_keeps_the_views(name):
         v.normalize("both")
         v.filter_cells(keep)
     # the writes of S and U built the views from the counts they replaced
-    assert port._NORM_PLAN not in port.__dict__
+    assert not set(VIEWS) & set(port._table())
     np.testing.assert_array_equal(port.S, jax_v.S)
     np.testing.assert_array_equal(getattr(port, name), getattr(jax_v, name))
 
@@ -219,7 +222,7 @@ def round_trip(tmp_path_factory):
 @pytest.mark.parametrize("name", VIEWS)
 def test_an_hdf5_round_trip_carries_the_views(round_trip, name):
     port, loaded = round_trip
-    assert port._NORM_PLAN not in port.__dict__
+    assert not set(VIEWS) & set(port._table())
     assert name in loaded.__dict__
     np.testing.assert_array_equal(loaded.__dict__[name], port.__dict__[name])
     S, U = _counts()

@@ -119,7 +119,7 @@ def test_snapshot_round_trip_is_exact(snapshots):
         dumped = {k.lstrip("&") for k in f}
     loaded = vtt.load_velocyto_hdf5(path, device="cpu")
     runtime = set(vtt.VelocytoLoom._RUNTIME)
-    assert dumped == set(port.__dict__) - runtime
+    assert dumped == (set(port.__dict__) | set(port._table())) - runtime
     assert set(loaded.__dict__) == dumped | {"device"}
     assert loaded.device == CPU
     bad = [k for k in dumped if not _same(getattr(port, k),
@@ -133,11 +133,32 @@ def test_snapshot_round_trip_is_exact(snapshots):
         assert {"_compact_ixs", "_compact_corr", "sampling_ixs"} <= dumped
 
 
+@pytest.mark.parametrize("knn_random", [True, False],
+                         ids=["sampled", "full"])
+def test_snapshot_holds_the_jax_packages_attribute_set(golden, tmp_path,
+                                                       knn_random):
+    """After the transition and the shift, each package's snapshot holds
+    the same attributes; the full mode's no _compact_ixs, since its
+    neighbour ids are kept on the device and embedding_knn is built from
+    them."""
+    dumped = {}
+    for tag, v in (("port", _fresh(vtt, golden, device=CPU)),
+                   ("jax", _fresh(vt, golden))):
+        _downstream(_session(v, golden, knn_random))
+        v.to_hdf5(str(tmp_path / f"{tag}.hdf5"))
+        with h5py.File(str(tmp_path / f"{tag}.hdf5"), "r") as f:
+            dumped[tag] = {k.lstrip("&") for k in f}
+    assert dumped["port"] == dumped["jax"]
+    assert ("_compact_ixs" in dumped["port"]) == knn_random
+    assert {"embedding_knn", "transition_prob",
+            "transition_prob_random"} <= dumped["port"]
+
+
 def test_to_hdf5_keeps_the_object_running(snapshots, tmp_path):
     """The runtime state comes back after the dump, and a stage run after
     it gives what a stage on a loaded snapshot gives."""
     port = snapshots["port"]
-    assert port.device == CPU and port.__dict__.get("_dev_state")
+    assert port.device == CPU and port._table()
     loaded = vtt.load_velocyto_hdf5(str(snapshots["dir"] / "port.hdf5"),
                                     device="cpu")
     a, b = _downstream(port), _downstream(loaded)

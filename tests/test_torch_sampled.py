@@ -276,7 +276,9 @@ def test_sampled_state_stays_compact(sampled_runs):
     n = ixs.shape[0]
     assert tuple(v._corr_dev.shape) == tuple(ixs.shape) == (n, 12)
     assert not any(t.dim() == 2 and t.shape == (n, n)
-                   for t in v.__dict__.get("_dev_state", {}).values())
+                   for t in (v._get_dev(name, None) for name, e in
+                             v._table().items()
+                             if isinstance(e, tanalysis._Device)))
     assert not bool((ixs == torch.arange(n)[:, None]).any())
     knn = tanalysis.kd.knn_search_dev(v.ts, 26, device=CPU)[1]
     assert bool((ixs[:, :, None] == knn[:, None, :]).any(-1).all())
@@ -394,10 +396,17 @@ def test_mode_switching_drops_stale_state(golden):
         np.testing.assert_allclose(port.delta_embedding,
                                    jax_v.delta_embedding, rtol=1e-3,
                                    atol=1e-5)
-        d = port.__dict__
+        d, table = port.__dict__, port._table()
+        # both modes keep their embedding neighbour ids on the device and
+        # build embedding_knn from them; the sampled mode its compact
+        # correlations too, the full mode its dense ones
+        n = len(port.ts)
+        assert tuple(d["_compact_ixs_dev"].shape) == \
+            (n, 10 if knn_random else 21)
         if knn_random:
-            assert "corrcoef" not in d.get("_dev_state", {})
+            assert not isinstance(table.get("corrcoef"), tanalysis._Device)
             assert d["_corr_dev"] is not None
         else:
-            assert "_compact_ixs_dev" not in d and "_corr_dev" not in d
-            assert "corrcoef" in d["_dev_state"]
+            assert "_corr_dev" not in d and "_compact_ixs" not in d
+            assert "_compact_ixs" not in table
+            assert isinstance(table["corrcoef"], tanalysis._Device)

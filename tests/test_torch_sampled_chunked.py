@@ -225,7 +225,7 @@ def test_failed_sampled_call_keeps_the_earlier_state(monkeypatch, fault):
     names = ("_corr_dev", "_corr_rndm_dev", "_compact_ixs_dev")
     before = {name: v.__dict__[name] for name in names}
     ixs_before = v.sampling_ixs.copy()
-    rndm_before = v._dev_state["delta_S_rndm"]
+    rndm_before = v._get_dev("delta_S_rndm", None)
     np.random.seed(3)
     np.random.rand(5)
     rng_before = np.random.get_state()
@@ -235,7 +235,7 @@ def test_failed_sampled_call_keeps_the_earlier_state(monkeypatch, fault):
     for name in names:
         assert v.__dict__[name] is before[name], name
     np.testing.assert_array_equal(v.sampling_ixs, ixs_before)
-    assert v._dev_state["delta_S_rndm"] is rndm_before
+    assert v._get_dev("delta_S_rndm", None) is rndm_before
     rng_after = np.random.get_state()
     assert rng_after[2] == rng_before[2]
     np.testing.assert_array_equal(rng_after[1], rng_before[1])

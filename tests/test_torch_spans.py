@@ -35,8 +35,7 @@ CATALOGUE = {
     "transition.locality_order", "transition.wait.control",
     "transition.wait.chunk", "transition.wait.replay", "transition.chunk",
     "transition.replay", "transition.replay.upload",
-    "transition.control.plan", "transition.control", "transition.knn_csr",
-    "transition.cor",
+    "transition.control.plan", "transition.control", "transition.cor",
     "shift.gather", "shift.softmax", "shift.project", "shift.scaling",
     "grid",
     "ring.upload", "ring.plan", "ring.schedule", "ring.launches",
@@ -62,8 +61,7 @@ SAMPLED = {
     "grid_arrows": ["grid"],
 }
 FULL_TRANSITION = ["transition.inputs", "transition.embedding_knn",
-                   "transition.knn_csr", "transition.control",
-                   "transition.cor"]
+                   "transition.control", "transition.cor"]
 FULL_SHIFT = ["shift.gather", "shift.softmax", "shift.project"]
 
 

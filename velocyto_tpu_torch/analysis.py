@@ -16,15 +16,16 @@ kNN candidate pass, the colDeltaCor kernels and the embedding shift then
 split cells over the mesh's shards with expression replicated, and every
 stage gives the mesh-free result; the rest runs on the mesh's first
 device.  The heavy (genes, cells) stage outputs, the correlation
-state and the Markov matrix stay on that device between stages; the
-numpy (or csr) attributes the reference exposes are materialized lazily
-on first read.  Both colDeltaCor variants run through hand-written CUDA
-kernels on a CUDA device (ops/coldeltacor.py), and so does the balanced
-kNN's greedy balance (ops/knn_device.py), which keeps the whole kNN chain
-on the device.  normalize keeps its four views as a plan (the raw
-counts, the cell factors, the pseudocount): PCA and the kNN smoothing
-build their own copies on the device from the uploaded raw counts, and
-the host views are built on first read.  Host stages (the filter/score
+state and the Markov matrix stay on that device between stages, and
+normalize's four views stay the plan that builds them (the raw counts,
+the cell factors, the pseudocount); stages read them there, and the
+numpy (or csr) attributes the reference exposes are built on first
+read, in both transition modes.  One table of lazy attributes holds all
+of these forms (see "lazy attributes" below).  Both colDeltaCor variants
+run through hand-written CUDA kernels on a CUDA device
+(ops/coldeltacor.py), and so does the balanced kNN's greedy balance
+(ops/knn_device.py), which keeps the whole kNN chain on the device.
+Host stages (the filter/score
 family, the normalizations' cell sizes and factors, PCA's eigensolver of
 the (genes, genes) Gram matrix, the gene-axis kNN balance, the
 randomized control's permutation plan, the neighbour-sampling replay and
@@ -46,7 +47,10 @@ import queue
 import threading
 import warnings
 from copy import deepcopy
-from typing import Any, Dict, List, Optional, Tuple, Union
+from functools import partial
+from operator import methodcaller
+from types import SimpleNamespace
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -128,6 +132,262 @@ def _torch_dtype(dt: np.dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dt)).dtype
 
 
+# ----------------------------------------------------------------------
+# lazy attributes: VelocytoLoom.__dict__ holds the plain host attributes
+# and the device tensors the transition state is built from
+# (_compact_ixs_dev, the embedding neighbour ids of both modes; _corr_dev,
+# _corr_rndm_dev; _knn_graph_dev).  Every other value an attribute can
+# have is an entry of one table, __dict__["_lazy"], keyed by name, of one
+# of the classes below.  The dispatch methods (__getattr__, __setattr__,
+# _drop, _set_dev, _get_dev, _stage_input, to_hdf5,
+# io.checkpoint.save_vlm) ask the entry and name no attribute, so a new
+# lazy form is a new entry class and edits none of them.
+# ----------------------------------------------------------------------
+
+
+class _Lazy:
+    """One attribute held in another form than its host value.
+
+    host(v, name) builds the host value; when ``keep``, __getattr__ then
+    stores it as the plain attribute and drops the entry.  dev(v, name,
+    dtype) is the value on v.device in dtype (the host value's own when
+    None), and keeps nothing.  stage(v, name, dtype) is what a stage
+    reads: a tensor, or a host value to upload.  saved(v, name) is what
+    io.checkpoint.save_vlm writes (None: nothing).  ``sources`` names the
+    attributes the entry was planned from: before one of them changes,
+    source_changed(v, name) acts, by default by dropping the entry.  An
+    entry is runtime state: to_hdf5 writes what snapshot(v, name) gives,
+    its host value."""
+    keep = True
+    sources: Tuple[str, ...] = ()
+
+    def host(self, v, name):
+        raise NotImplementedError
+
+    def dev(self, v, name, dtype):
+        return v._upload(name, getattr(v, name), dtype)
+
+    def stage(self, v, name, dtype):
+        return self.dev(v, name, dtype)
+
+    def saved(self, v, name):
+        return None
+
+    def snapshot(self, v, name):
+        return {name: getattr(v, name)}
+
+    def source_changed(self, v, name):
+        v._table().pop(name, None)
+
+
+class _Device(_Lazy):
+    """A stage output held as a tensor on the device; downstream stages
+    take the tensor (aliases allowed: Sx_sz may be Sx; nothing updates
+    one in place).  The host value (``form`` of the tensor's numpy copy)
+    is built on first read and kept here, not as the attribute: _get_dev
+    still gives the tensor, while stage() gives the handed-out view, so
+    the stages that read one (_stage_input, the shift's corrcoef,
+    prepare_markov's transition_prob, run_markov's tr) take its edits,
+    as the JAX package would."""
+    keep = False
+
+    def __init__(self, t: torch.Tensor, form: Callable) -> None:
+        self.t, self.form, self.view = t, form, None
+
+    def host(self, v, name):
+        if self.view is None:
+            self.view = self.form(self.t.cpu().numpy())
+        return self.view
+
+    def dev(self, v, name, dtype):
+        return self.t.to(dtype)
+
+    def stage(self, v, name, dtype):
+        return self.t if self.view is None else self.view
+
+    def saved(self, v, name):
+        return self.t
+
+
+class _NormView(_Lazy):
+    """normalize's <src>_sz = factor * <src> and <src>_norm =
+    log2(<src>_sz + pcount), held as the plan that builds them: the raw
+    counts (by reference: an in-place edit of S or U reaches the views
+    still pending), the factor, the pseudocount; one entry for a source's
+    views.  A host view is built on first read by _scaled_pair, bitwise
+    the eager value, with the size-normalized view it passes through
+    where that is pending from the same entry; a device consumer builds
+    its own copy from the uploaded raw counts.  A write to the source
+    builds the views still pending first."""
+
+    def __init__(self, src: str, M: Any, factor: Any, pcount: float,
+                 clean: bool) -> None:
+        self.src, self.M, self.factor, self.pcount, self.clean = \
+            src, M, factor, pcount, clean
+        self.sources = (src,)
+
+    def host(self, v, name):
+        global normalize_host_views
+        log = name.endswith("_norm")
+        sz, norm = _scaled_pair(self.M, self.factor, self.pcount, log,
+                                clean_nonfinite=self.clean)
+        normalize_host_views += 1
+        if log and v._table().get(self.src + "_sz") is self:
+            v._keep(self.src + "_sz", sz)
+            normalize_host_views += 1
+        return norm if log else sz
+
+    def dev(self, v, name, dtype):
+        """The view built on v.device from the uploaded raw counts, in the
+        host's order of operations and in the dtypes its 1-element probes
+        give (multiply; for U nonfinite to zero; add pcount; log2): the
+        size-normalized view is bitwise the host one, the log2 view
+        within the device log2's rounding.  One (genes, cells) buffer
+        where the dtypes agree, the upload's own."""
+        M, factor, pcount = self.M, self.factor, self.pcount
+        f_probe = factor if np.isscalar(factor) else np.ravel(factor)[:1]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            sz_probe = f_probe * np.ravel(M)[:1]
+            add_probe = sz_probe + pcount
+            log_probe = np.log2(add_probe)
+        sz_dt, add_dt, log_dt = (_torch_dtype(p.dtype) for p in
+                                 (sz_probe, add_probe, log_probe))
+        with span("normalize." + self.src):
+            with span("upload." + self.src):
+                x = torch.empty(np.shape(M), dtype=sz_dt, device=v.device)
+                x.copy_(_as_tensor(M))
+            x.mul_(torch.as_tensor(np.asarray(factor),
+                                   device=v.device).to(sz_dt))
+            if self.clean and x.is_floating_point():
+                x.nan_to_num_(nan=0.0, posinf=0.0, neginf=0.0)
+            if name.endswith("_norm"):
+                if isinstance(pcount, np.generic):
+                    pcount = pcount.item()
+                x = x.to(add_dt).add_(pcount).to(log_dt).log2_()
+            return x.to(dtype)
+
+    def saved(self, v, name):
+        return getattr(v, name)
+
+    def source_changed(self, v, name):
+        getattr(v, name)
+
+    def take(self, rows: np.ndarray) -> "_NormView":
+        """The plan over the rows (genes) `rows` of the raw counts."""
+        return _NormView(self.src, self.M[rows], self.factor, self.pcount,
+                         self.clean)
+
+
+class _Permuted(_Lazy):
+    """The full mode's delta_S_rndm held as the plan that draws it: the
+    call's delta_S (the device tensor, or a float64 host copy), the
+    permutations and the sign bits (host arrays).  _permute_apply_dev
+    builds it, bitwise permute_rows_nsign: on the host in float64 on
+    first read, on the device for a stage."""
+
+    def __init__(self, src: Any, perms: np.ndarray,
+                 sign_bits: np.ndarray) -> None:
+        self.src, self.perms, self.sign_bits = src, perms, sign_bits
+
+    def _apply(self, device: Any) -> torch.Tensor:
+        return _permute_apply_dev(
+            torch.as_tensor(self.src, device=device),
+            torch.from_numpy(self.perms).to(device),
+            torch.from_numpy(self.sign_bits).to(device))
+
+    def host(self, v, name):
+        return self._apply("cpu").numpy().astype(np.float64)
+
+    def dev(self, v, name, dtype):
+        return self._apply(v.device).to(_F64 if dtype is None else dtype)
+
+    def saved(self, v, name):
+        return getattr(v, name)
+
+
+class _Rows(_Lazy):
+    """A dense (N, N) attribute held as (N, nn) rows at neighbour ids,
+    both tensors: the sampled mode's corrcoef / corrcoef_random (its
+    compact correlations) and, given sigma, transition_prob /
+    transition_prob_random (their row softmax at sigma_corr), dense
+    float64 as the JAX package builds them, in numpy on the host and in
+    torch on the device."""
+    dtype = np.float64
+
+    def __init__(self, ixs: torch.Tensor, rows: torch.Tensor,
+                 sigma: Optional[float] = None,
+                 sources: Tuple[str, ...] = ()) -> None:
+        self.ixs, self.rows, self.sigma, self.sources = \
+            ixs, rows, sigma, sources
+
+    def host(self, v, name):
+        x = self.rows.cpu().numpy().astype(self.dtype)
+        if self.sigma is not None:
+            x = np.exp(x / self.sigma)
+            x = x / x.sum(1)[:, None]
+        ixs = self.ixs.cpu().numpy()
+        n = ixs.shape[0]
+        dense = np.zeros((n, n), dtype=self.dtype)
+        dense[np.arange(n)[:, None], ixs] = x
+        return dense
+
+    def dev(self, v, name, dtype):
+        x = self.rows
+        if self.sigma is not None:
+            x = torch.exp(x.to(_F64) / self.sigma)
+            x = x / x.sum(dim=1, keepdim=True)
+        if dtype is None:
+            dtype = _torch_dtype(np.dtype(self.dtype))
+        n = self.ixs.shape[0]
+        return torch.zeros((n, n), dtype=dtype, device=x.device).scatter_(
+            1, self.ixs.to(torch.int64), x.to(dtype))
+
+    def snapshot(self, v, name):
+        # the JAX package keeps sigma_corr beside its lazy views, and its
+        # snapshots carry it: so do this package's
+        out = super().snapshot(v, name)
+        if self.sigma is not None:
+            out["_tp_sigma"] = self.sigma
+        return out
+
+
+class _ProbRows(_Rows):
+    """transition_prob / transition_prob_random held as the float32
+    probability rows the shift computed on gathered correlations, at the
+    embedding neighbour ids: dense float32 on read, and in a
+    checkpoint."""
+    dtype = np.float32
+
+    def saved(self, v, name):
+        return self.dev(v, name, _F32)
+
+
+class _Built(_Lazy):
+    """A host attribute that build() makes from device tensors on first
+    read: knn and knn_smoothing_w from the kNN graph, embedding_knn from
+    the neighbour ids, the sampled mode's _compact_ixs, _compact_corr
+    and _compact_corr_random; dropped when a source changes."""
+
+    def __init__(self, build: Callable[[], Any],
+                 sources: Tuple[str, ...]) -> None:
+        self.build, self.sources = build, sources
+
+    def host(self, v, name):
+        return self.build()
+
+
+def _host_copy(t: torch.Tensor, dtype: Any) -> np.ndarray:
+    return t.cpu().numpy().astype(dtype)
+
+
+def _neighbour_csr(ixs: torch.Tensor) -> sparse.csr_matrix:
+    """The (N, N) unit connectivity csr of (N, nn) neighbour ids."""
+    n, nn = ixs.shape
+    return sparse.csr_matrix(
+        (np.ones(n * nn), _host_copy(ixs, np.int64).ravel(),
+         np.arange(0, n * nn + 1, nn)), shape=(n, n))
+
+
 class VelocytoLoom:
     """In-memory analysis object for a velocyto loom file.
 
@@ -170,312 +430,144 @@ class VelocytoLoom:
                 "but all will be taken in consideration")
 
     # ------------------------------------------------------------------
-    # device-resident pipeline state
+    # lazy attributes (the table: see the module's "lazy attributes")
     # ------------------------------------------------------------------
-    #
-    # Stage outputs (Sx, Ux, Upred, velocity, delta_S, corrcoef,
-    # transition_prob, ...) live on self.device as tensors in
-    # self._dev_state; downstream stages consume them directly, and the
-    # public numpy attribute is materialized on first read (cached in
-    # _dev_host_cache).  Assigning the attribute makes the host value
-    # authoritative again (the device entry is dropped).  Stage tensors
-    # may alias each other (Sx_sz is Sx): nothing updates them in place.
 
-    # the (cells, cells) state.  Full mode keeps its correlations on the
-    # device and exposes them as float32, like the JAX package's host
-    # arrays (every other device-backed attribute as float64), and keeps
-    # its transition probabilities in _TP_ROWS, built on read; knn_random
-    # mode builds all four from the compact (cells, nn) state on read
-    _LAZY_DENSE = ("corrcoef", "corrcoef_random",
-                   "transition_prob", "transition_prob_random")
-    # an embedding shift on gathered correlations (full mode, or an edited
-    # corrcoef) keeps each transition probability as {name: (ixs, p)}:
-    # (N, nn) neighbour ids and probabilities on the device; the dense
-    # (N, N) view is a float32 device tensor built on each _get_dev, and
-    # the host attribute a float32 array built on first read
-    _TP_ROWS = "_tp_rows"
-    # full mode's (N, nn) embedding neighbour ids on the device, the rows
-    # of embedding_knn; dropped when embedding_knn is assigned
-    _KNN_IXS = "_knn_ixs_dev"
-    # full mode keeps its randomized control as the plan that draws it:
-    # (the call's delta_S, the permutations, the sign bits), host arrays
-    # but for a device-backed delta_S; delta_S_rndm is built on first read
-    _RNDM_PLAN = "_rndm_plan"
-    # normalize keeps S_sz, S_norm, U_sz and U_norm as the plan that builds
-    # them, {view: (source name, raw counts, factor, pcount, clean)}, one
-    # entry shared by a source's two views.  A host view is built on first
-    # read by _scaled_pair, bitwise the eager value; until then a device
-    # consumer builds its own copy on self.device from the raw counts
-    # (_norm_view_dev).  Assigning a view drops its entry; a write to the
-    # source first builds the source's views still pending.  The raw
-    # counts are held by reference: an in-place edit of S or U after
-    # normalize reaches the views still pending
-    _NORM_PLAN = "_norm_plan"
+    # the host form of a device-backed attribute: float64, as the JAX
+    # package's host arrays, but float32 for the (cells, cells)
+    # correlations and probabilities, as its full mode keeps them, and the
+    # reference's csr for the Markov matrix
+    _HOST_FORM = {**dict.fromkeys(
+        ("corrcoef", "corrcoef_random", "transition_prob",
+         "transition_prob_random"), methodcaller("astype", np.float32)),
+        "tr": sparse.csr_matrix}
+
+    def _table(self) -> Dict[str, _Lazy]:
+        """The lazy attributes by name (a new empty dict when none was
+        planned)."""
+        return self.__dict__.get("_lazy") or {}
+
+    def _plan(self, name: str, entry: _Lazy) -> None:
+        """Hold `name` as `entry` in place of a value."""
+        self._drop(name)
+        self.__dict__.setdefault("_lazy", {})[name] = entry
+
+    def _keep(self, name: str, value: Any) -> None:
+        """Store a built host value as the plain attribute `name`."""
+        self._table().pop(name, None)
+        self.__dict__[name] = value
+
+    def _has(self, name: str) -> bool:
+        """hasattr(self, name), building nothing."""
+        return name in self.__dict__ or name in self._table()
 
     def __setattr__(self, name: str, value: Any) -> None:
-        ds = self.__dict__.get("_dev_state")
-        if ds is not None and name in ds:
-            del ds[name]
-            self.__dict__.get("_dev_host_cache", {}).pop(name, None)
-        if name == "delta_S_rndm":
-            self.__dict__.pop(self._RNDM_PLAN, None)
-        elif name == "embedding_knn":
-            self.__dict__.pop(self._KNN_IXS, None)
-        (self.__dict__.get(self._TP_ROWS) or {}).pop(name, None)
-        if self._NORM_PLAN in self.__dict__:
-            self._build_norm_views(src=name)
-            self._unplan(name)
+        self._drop(name)
         object.__setattr__(self, name, value)
 
     def __getattr__(self, name: str):
-        # only reached when normal lookup fails: materialize lazy views
-        d = self.__dict__
-        if name in (d.get("_dev_state") or ()):
-            return self._materialize_dev(name)
-        if name in self._LAZY_DENSE:
-            return self._materialize_dense(name)
-        if name == "delta_S_rndm" and self._RNDM_PLAN in d:
-            return self._materialize_rndm()
-        if name in (d.get(self._NORM_PLAN) or ()):
-            return self._build_norm_view(name)
-        if name in ("knn", "knn_smoothing_w") and \
-                d.get("_knn_graph_dev") is not None:
-            g = d["_knn_graph_dev"]
-            out = (kd.graph_to_csr(g) if name == "knn" else
-                   kd.weights_to_csr(g, diag=d.get("_knn_diag", 1)))
-            d[name] = out
-            return out
-        if name == "_compact_ixs" and d.get("_compact_ixs_dev") is not None:
-            d[name] = d["_compact_ixs_dev"].cpu().numpy().astype(np.int64)
-            return d[name]
-        if name == "embedding_knn" and d.get("_compact_ixs_dev") is not None:
-            ixs = self._compact_ixs
-            n, nn = ixs.shape
-            d[name] = sparse.csr_matrix(
-                (np.ones(n * nn), ixs.ravel(), np.arange(0, n * nn + 1, nn)),
-                shape=(n, n))
-            return d[name]
-        raise AttributeError(
-            f"'{type(self).__name__}' object has no attribute '{name}'")
+        # only reached when normal lookup fails: build a lazy attribute
+        entry = self._table().get(name)
+        if entry is None:
+            raise AttributeError(
+                f"'{type(self).__name__}' object has no attribute '{name}'")
+        value = entry.host(self, name)
+        if entry.keep:
+            self._keep(name, value)
+        return value
+
+    def _drop(self, *names: str) -> None:
+        """Forget attributes, plain values and table entries alike; the
+        entries planned from one of them act first (source_changed)."""
+        table = self._table()
+        for name in names:
+            for other, entry in list(table.items()):
+                if name in entry.sources and table.get(other) is entry:
+                    entry.source_changed(self, other)
+            table.pop(name, None)
+            self.__dict__.pop(name, None)
 
     def _set_dev(self, name: str, dev: torch.Tensor) -> None:
         """Store a device tensor as the authoritative value of `name`."""
-        self.__dict__.pop(name, None)
-        if name == "delta_S_rndm":
-            self.__dict__.pop(self._RNDM_PLAN, None)
-        self._unplan(name)
-        self.__dict__.setdefault("_dev_state", {})[name] = dev
-        self.__dict__.setdefault("_dev_host_cache", {}).pop(name, None)
+        self._plan(name, _Device(dev, self._HOST_FORM.get(
+            name, methodcaller("astype", np.float64))))
 
-    def _drop(self, *names: str) -> None:
-        """Forget attributes: host values, device tensors and cached host
-        views alike."""
-        d = self.__dict__
-        for name in names:
-            d.pop(name, None)
-            (d.get("_dev_state") or {}).pop(name, None)
-            (d.get("_dev_host_cache") or {}).pop(name, None)
-            (d.get(self._TP_ROWS) or {}).pop(name, None)
-            if name == "delta_S_rndm":
-                d.pop(self._RNDM_PLAN, None)
-        self._unplan(*names)
-
-    def _get_dev(self, name: str, dtype: torch.dtype = _F32) -> torch.Tensor:
-        """`name` as a tensor on self.device (no transfer when the
-        attribute is device-backed, or a transition probability kept as
-        rows, which is built dense here and not kept; a view normalize
-        left pending is built here from the uploaded raw counts, and not
-        kept; uploaded from the host otherwise)."""
-        d = self.__dict__
-        ds = d.get("_dev_state")
-        if ds is not None and name in ds:
-            return ds[name].to(dtype)
-        if name in (d.get(self._NORM_PLAN) or ()):
-            return self._norm_view_dev(name).to(dtype)
-        if name not in d and name in (d.get(self._TP_ROWS) or ()):
-            return self._tp_dense(name, dtype)
+    def _upload(self, name: str, x: Any,
+                dtype: Optional[torch.dtype]) -> torch.Tensor:
         with span("upload." + name):
-            return torch.as_tensor(np.asarray(getattr(self, name)),
-                                   dtype=dtype, device=self.device)
+            return torch.as_tensor(np.asarray(x), dtype=dtype,
+                                   device=self.device)
 
-    def _materialize_dev(self, name: str) -> Any:
-        dev = self.__dict__["_dev_state"][name]
-        cache = self.__dict__.setdefault("_dev_host_cache", {})
-        if name not in cache:
-            if name == "tr":         # the reference's csr Markov matrix
-                cache[name] = sparse.csr_matrix(dev.cpu().numpy())
-            else:
-                dt = np.float32 if name in self._LAZY_DENSE else np.float64
-                cache[name] = dev.cpu().numpy().astype(dt)
-        return cache[name]
+    def _get_dev(self, name: str,
+                 dtype: Optional[torch.dtype] = _F32) -> torch.Tensor:
+        """`name` as a tensor on self.device in `dtype` (its own when
+        None): a lazy attribute's entry gives it (a device-backed
+        attribute its tensor, with no copy; the others build it there and
+        keep nothing); a host value is uploaded."""
+        entry = self._table().get(name)
+        if entry is None:
+            return self._upload(name, getattr(self, name), dtype)
+        return entry.dev(self, name, dtype)
 
-    def _host_view_or_dev(self, name: str) -> Any:
-        """The value stages read for `name`: the host view once
-        __getattr__ handed it out (it may have been edited in place, and
-        the JAX package would read the edit), else the device tensor."""
-        cached = (self.__dict__.get("_dev_host_cache") or {}).get(name)
-        if cached is not None:
-            return cached
-        return self.__dict__["_dev_state"][name]
-
-    def _stage_input(self, name: str) -> torch.Tensor:
-        """`name` on self.device in its own dtype, as a stage reads it: a
-        view normalize left pending built there from the raw counts; a
+    def _stage_value(self, name: str,
+                     dtype: Optional[torch.dtype] = None) -> Any:
+        """`name` as a stage reads it: a lazy attribute's stage value (a
         device-backed attribute's tensor, or its host view once handed
-        out (it may have been edited in place); else the host value,
-        uploaded."""
-        d = self.__dict__
-        if name in (d.get(self._NORM_PLAN) or ()):
-            return self._norm_view_dev(name)
-        x = self._host_view_or_dev(name) \
-            if name in (d.get("_dev_state") or ()) else getattr(self, name)
+        out, edits included; the others built on the device), else the
+        attribute."""
+        entry = self._table().get(name)
+        if entry is None:
+            return getattr(self, name)
+        return entry.stage(self, name, dtype)
+
+    def _stage_input(self, name: str,
+                     dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """_stage_value on self.device in `dtype` (its own when None),
+        uploaded where it is a host value."""
+        x = self._stage_value(name, dtype)
         if isinstance(x, torch.Tensor):
-            return x
-        with span("upload." + name):
-            return torch.as_tensor(np.asarray(x), device=self.device)
+            return x.to(dtype)
+        return self._upload(name, x, dtype)
 
     def _plan_norm(self, src: str, factor: Any, pcount: float, log: bool,
                    clean: bool) -> None:
         """Plan <src>_sz = factor * <src> (and, with log, <src>_norm =
-        log2(<src>_sz + pcount)) in place of building them (_NORM_PLAN);
-        factor is copied, the raw counts are not."""
-        views = (src + "_sz",) + ((src + "_norm",) if log else ())
-        self._drop(*views)
+        log2(<src>_sz + pcount)) in place of building them; factor is
+        copied, the raw counts are not.  The log view is planned first: a
+        write to the source builds its pending views in the table's order,
+        and the log view carries the size-normalized one."""
         if isinstance(factor, np.ndarray):
             factor = factor.copy()
-        entry = (src, getattr(self, src), factor, pcount, clean)
-        plan = self.__dict__.setdefault(self._NORM_PLAN, {})
-        for view in views:
-            plan[view] = entry
-
-    def _unplan(self, *names: str) -> None:
-        """Drop the plan's entries of `names` (the plan itself once
-        empty)."""
-        plan = self.__dict__.get(self._NORM_PLAN)
-        if plan is None:
-            return
-        for name in names:
-            plan.pop(name, None)
-        if not plan:
-            del self.__dict__[self._NORM_PLAN]
-
-    def _build_norm_view(self, name: str) -> np.ndarray:
-        """Build the pending host view `name` with _scaled_pair (with the
-        size-normalized view it passes through, where that is pending from
-        the same entry) and keep it as the attribute."""
-        global normalize_host_views
-        plan = self.__dict__[self._NORM_PLAN]
-        entry = plan[name]
-        src, M, factor, pcount, clean = entry
-        log = name.endswith("_norm")
-        sz, norm = _scaled_pair(M, factor, pcount, log,
-                                clean_nonfinite=clean)
-        built = {name: norm if log else sz}
-        if log and plan.get(src + "_sz") is entry:
-            built[src + "_sz"] = sz
-        self._unplan(*built)
-        self.__dict__.update(built)
-        normalize_host_views += len(built)
-        return built[name]
-
-    def _build_norm_views(self, src: Optional[str] = None) -> None:
-        """Build every pending view (of the source `src` alone, if
-        given), each log view before the size-normalized one it carries."""
-        plan = self.__dict__.get(self._NORM_PLAN) or {}
-        views = sorted((v for v, e in plan.items() if src in (None, e[0])),
-                       key=lambda v: not v.endswith("_norm"))
-        for view in views:
-            if view in plan:
-                self._build_norm_view(view)
-
-    def _norm_view_dev(self, name: str) -> torch.Tensor:
-        """The pending view `name` built on self.device from the uploaded
-        raw counts, in the host's order of operations and in the dtypes
-        its 1-element probes give (multiply; for U nonfinite to zero; add
-        pcount; log2): the size-normalized view is bitwise the host one,
-        the log2 view within the device log2's rounding.  One (genes,
-        cells) buffer where the dtypes agree, the upload's own; nothing is
-        kept."""
-        src, M, factor, pcount, clean = self.__dict__[self._NORM_PLAN][name]
-        f_probe = factor if np.isscalar(factor) else np.ravel(factor)[:1]
-        with np.errstate(divide="ignore", invalid="ignore"):
-            sz_probe = f_probe * np.ravel(M)[:1]
-            add_probe = sz_probe + pcount
-            log_probe = np.log2(add_probe)
-        sz_dt, add_dt, log_dt = (_torch_dtype(p.dtype) for p in
-                                 (sz_probe, add_probe, log_probe))
-        with span("normalize." + src):
-            with span("upload." + src):
-                x = torch.empty(np.shape(M), dtype=sz_dt, device=self.device)
-                x.copy_(_as_tensor(M))
-            x.mul_(torch.as_tensor(np.asarray(factor),
-                                   device=self.device).to(sz_dt))
-            if clean and x.is_floating_point():
-                x.nan_to_num_(nan=0.0, posinf=0.0, neginf=0.0)
-            if not name.endswith("_norm"):
-                return x
-            if isinstance(pcount, np.generic):
-                pcount = pcount.item()
-            x = x.to(add_dt).add_(pcount).to(log_dt)
-            return x.log2_()
-
-    def _materialize_rndm(self) -> np.ndarray:
-        """The full mode's delta_S_rndm, float64: its plan applied to the
-        call's delta_S on the host (as _permute_apply_dev on CPU tensors,
-        bitwise permute_rows_nsign), then kept as a host attribute."""
-        d = self.__dict__
-        src, perms, sign_bits = d[self._RNDM_PLAN]
-        src = src.cpu() if isinstance(src, torch.Tensor) \
-            else torch.from_numpy(src)
-        out = _permute_apply_dev(src, torch.from_numpy(perms),
-                                 torch.from_numpy(sign_bits))
-        d["delta_S_rndm"] = out.numpy().astype(np.float64)
-        del d[self._RNDM_PLAN]
-        return d["delta_S_rndm"]
+        entry = _NormView(src, getattr(self, src), factor, pcount, clean)
+        for view in ((src + "_norm",) if log else ()) + (src + "_sz",):
+            self._plan(view, entry)
 
     # ------------------------------------------------------------------
     # serialization
     # ------------------------------------------------------------------
 
-    # runtime state, not data: the device, the mesh, the device tensors
-    # and the handles to them
-    _RUNTIME = ("device", "mesh", "_corr_dev", "_corr_rndm_dev", "_dev_state",
-                "_dev_host_cache", "_knn_graph_dev", "_compact_ixs_dev",
-                _KNN_IXS, _TP_ROWS)
+    # runtime state, not data: the device, the mesh, the table and the
+    # device tensors its entries are built from
+    _RUNTIME = ("device", "mesh", "_lazy", "_compact_ixs_dev", "_corr_dev",
+                "_corr_rndm_dev", "_knn_graph_dev")
 
     def to_hdf5(self, filename: str, **kwargs: Any) -> None:
         """Snapshot every attribute to hdf5 (resume with
-        load_velocyto_hdf5, in this package or the JAX package).  The
-        device and the device tensors are runtime state, not data: the
-        lazy dense views (corrcoef / transition_prob), the full mode's
-        delta_S_rndm, the device-backed attributes and the kNN and
-        sampled-neighbour views and normalize's pending views are
-        materialized on the host first, so
-        the snapshot carries the reference's attribute set, then the
-        runtime state (the mesh too) is left out of the dump and stays
+        load_velocyto_hdf5, in this package or the JAX package).  A lazy
+        attribute goes in as its host value, built here (and kept where
+        its entry keeps it), so the snapshot carries the reference's
+        attribute set; the runtime state (_RUNTIME) is left out and stays
         attached.  Raises TypeError, writing nothing, if any other
         attribute holds a torch object."""
-        for name in VelocytoLoom._LAZY_DENSE + ("delta_S_rndm",):
-            try:
-                getattr(self, name)
-            except AttributeError:
-                pass
-        self._build_norm_views()
-        for name in list(self.__dict__.get("_dev_state", ())):
-            self.__dict__[name] = self._materialize_dev(name)
-        if self.__dict__.get("_knn_graph_dev") is not None:
-            self.knn_smoothing_w   # noqa: B018 - forces knn materialization
-            self.knn
-        if self.__dict__.get("_compact_ixs_dev") is not None:
-            self.embedding_knn
-            self._compact_ixs
-        runtime = {k: self.__dict__.pop(k) for k in self._RUNTIME
-                   if k in self.__dict__}
-        try:
-            _check_no_torch(self.__dict__)
-            dump_hdf5(self, filename, **kwargs)
-        finally:
-            self.__dict__.update(runtime)
+        lazy = {}
+        for name, entry in list(self._table().items()):
+            if self._table().get(name) is entry:
+                lazy.update(entry.snapshot(self, name))
+        attrs = {k: a for k, a in self.__dict__.items()
+                 if k not in self._RUNTIME}
+        attrs.update(lazy)
+        _check_no_torch(attrs)
+        dump_hdf5(SimpleNamespace(**attrs), filename, **kwargs)
 
     # ------------------------------------------------------------------
     # cell/gene bookkeeping (reference :137-201), host numpy
@@ -1022,10 +1114,12 @@ class VelocytoLoom:
             g = kd.knn_graph_dev(space, k=k, metric=metric,
                                  device=self.device,
                                  mesh=getattr(self, "mesh", None))
-        for stale in ("knn", "knn_smoothing_w"):
-            self.__dict__.pop(stale, None)
         self._knn_graph_dev = g
         self._knn_diag = diag
+        self._plan("knn", _Built(partial(kd.graph_to_csr, g),
+                                 ("_knn_graph_dev",)))
+        self._plan("knn_smoothing_w", _Built(
+            partial(kd.weights_to_csr, g, diag=diag), ("_knn_graph_dev",)))
         with span("knn.smooth"):
             nbr_idx, nbr_w = kd.compact_weights_dev(g, diag=diag)
             S_src = self._get_dev("S_sz" if size_norm else "S")
@@ -1246,20 +1340,22 @@ class VelocytoLoom:
             tmp_filter = tmp_filter & (Corr.cpu().numpy() > minCorr)
         self.ra = {k: v[tmp_filter] for k, v in self.ra.items()}
         keep = torch.as_tensor(np.flatnonzero(tmp_filter), device=self.device)
-        dev_state = self.__dict__.get("_dev_state") or {}
         filtered = {}                        # id(tensor) -> (tensor, rows)
         # normalize's pending views stay pending, over the kept rows of
         # their raw counts (the factors are per cell): set aside while S
         # and U are written, which would build them
-        plan = self.__dict__.pop(self._NORM_PLAN, None)
+        table = self._table()
+        pending = {name: table.pop(name) for name, entry in list(table.items())
+                   if isinstance(entry, _NormView)}
         try:
             for name in ("U", "U_sz", "U_norm", "Ux", "Ux_sz", "Ux_norm",
                          "S", "S_sz", "S_norm", "Sx", "Sx_sz", "Sx_norm"):
-                if name in dev_state:
-                    src = self._host_view_or_dev(name)
+                entry = self._table().get(name)
+                if isinstance(entry, _Device):
+                    src = entry.stage(self, name, None)
                     if isinstance(src, np.ndarray):
                         self._set_dev(name, torch.as_tensor(
-                            src[tmp_filter], dtype=dev_state[name].dtype,
+                            src[tmp_filter], dtype=entry.t.dtype,
                             device=self.device))
                         continue
                     if id(src) not in filtered:
@@ -1268,14 +1364,13 @@ class VelocytoLoom:
                 elif name in self.__dict__:
                     setattr(self, name, self.__dict__[name][tmp_filter, :])
         finally:
-            if plan:
-                self.__dict__[self._NORM_PLAN] = plan
+            if pending:
+                self.__dict__.setdefault("_lazy", {}).update(pending)
         kept = {}                            # id(entry) -> kept entry
-        for view, entry in (plan or {}).items():
+        for view, entry in pending.items():
             if id(entry) not in kept:
-                kept[id(entry)] = (entry[0], entry[1][tmp_filter]) + \
-                    entry[2:]
-            plan[view] = kept[id(entry)]
+                kept[id(entry)] = entry.take(tmp_filter)
+            self._plan(view, kept[id(entry)])
         for name in ("gammas", "q", "R2"):
             if name in self.__dict__:
                 setattr(self, name, self.__dict__[name][tmp_filter])
@@ -1617,17 +1712,32 @@ class VelocytoLoom:
                 "isolated cluster converging after imputation.")
         self.sampling_ixs = sampling_ixs
         self.corr_calc = "knn_random"
-        # embedding_knn materializes lazily from the sampled indices
-        self._drop("embedding_knn", "_compact_ixs", self._KNN_IXS)
-        self._compact_ixs_dev = torch.cat(neigh)
-        self._corr_dev = corr_m
-        # the reference overwrites corrcoef here but leaves any old
-        # transition_prob stale until the next embedding-shift call
-        self._drop("_compact_corr", "corrcoef", "_tp_sigma")
+        # the compact (N, nn) state stays on the device and its host views
+        # are built on read.  The reference overwrites corrcoef here but
+        # leaves an old transition_prob stale until the next shift; a
+        # lazy one goes with the state it was planned from
+        ixs = torch.cat(neigh)
+        self._keep_neighbours(ixs)
+        self._plan("_compact_ixs", _Built(partial(_host_copy, ixs, np.int64),
+                                          ("_compact_ixs_dev",)))
+        fields = [("_corr_dev", "_compact_corr", "corrcoef", corr_m)]
         if corr_r is not None:
             self._set_dev("delta_S_rndm", delta_rndm)
-            self._corr_rndm_dev = corr_r
-            self._drop("_compact_corr_random", "corrcoef_random")
+            fields.append(("_corr_rndm_dev", "_compact_corr_random",
+                           "corrcoef_random", corr_r))
+        for key, compact, dense, corr in fields:
+            setattr(self, key, corr)
+            self._plan(compact, _Built(partial(_host_copy, corr, np.float64),
+                                       (key,)))
+            self._plan(dense, _Rows(ixs, corr,
+                                    sources=(key, "_compact_ixs_dev")))
+
+    def _keep_neighbours(self, ixs: torch.Tensor) -> None:
+        """Keep each cell's (N, nn) embedding neighbour ids on the device
+        (both modes); embedding_knn is built from them on read."""
+        self._compact_ixs_dev = ixs
+        self._plan("embedding_knn", _Built(partial(_neighbour_csr, ixs),
+                                           ("_compact_ixs_dev",)))
 
     def _estimate_full(self, hidim: str, ndims: Optional[int],
                        transform: str, psc: float, calculate_randomized: bool,
@@ -1636,7 +1746,8 @@ class VelocytoLoom:
         correlations against every cell, the two fields of one dual
         colDeltaCor launch, kept on the device (corrcoef and
         corrcoef_random read them), and the embedding neighbours, kept
-        on the device as (N, nn_k) ids beside their csr embedding_knn:
+        on the device as (N, nn_k) ids, as the sampled mode keeps its own
+        (embedding_knn is built from them on read):
         calculate_embedding_shift gathers the correlations at those ids
         and works on the compact (N, nn_k) form, with no other (N, N)
         tensor.
@@ -1646,8 +1757,8 @@ class VelocytoLoom:
         right after numba_random_seed), and applied on the device to
         delta_S as its authoritative value holds it (the device tensor
         itself, or the host array in float64), as the sampled mode does.
-        Meanwhile this thread computes the transforms, the embedding kNN
-        and its csr; then it joins the worker, sets numpy's stream where
+        Meanwhile this thread computes the transforms and the embedding
+        kNN; then it joins the worker, sets numpy's stream where
         permute_rows_nsign leaves it, transforms the permuted rows and
         frees them, and makes one dual colDeltaCor launch (one a shard
         with a mesh).  The plan stays on the host with the call's delta_S,
@@ -1655,23 +1766,20 @@ class VelocytoLoom:
         fails waits for the worker and keeps nothing of the control.
 
         Spans (utils.profiling.span): on this thread transition.inputs,
-        .embedding_knn, .knn_csr, .control (the join and the control's
+        .embedding_knn, .control (the join and the control's
         transform) and .cor; on the worker transition.control.plan."""
         self.corr_calc = "full"
         self._drop("_corr_dev", "_corr_rndm_dev", "_compact_corr",
-                   "_compact_corr_random", "_compact_ixs", "_compact_ixs_dev",
-                   "_tp_sigma")
+                   "_compact_corr_random", "_compact_ixs", "_compact_ixs_dev")
         control = delta = dev_delta = None
         if calculate_randomized:
             self._drop("delta_S_rndm")
-            ds = self.__dict__.get("_dev_state") or {}
-            if "delta_S" in ds:
-                delta = dev_delta = ds["delta_S"]
+            if isinstance(self._table().get("delta_S"), _Device):
+                delta = dev_delta = self._get_dev("delta_S", None)
             else:
                 # a private copy: the plan keeps it for delta_S_rndm
                 delta = np.array(self.delta_S, dtype=np.float64)
-                with span("upload.delta_S"):
-                    dev_delta = torch.as_tensor(delta, device=self.device)
+                dev_delta = self._upload("delta_S", delta, None)
             # this thread draws nothing from numpy until the join
             control = _Worker(_permute_rows_nsign_drawn, dev_delta,
                               np.random.get_state())
@@ -1696,11 +1804,7 @@ class VelocytoLoom:
                 neigh_full = idx[keep].reshape(N, idx.shape[1] - 1)[:, :nn_k]
                 # K1's two (N, N) fields come next: free the search's rows
                 del _dists, idx, rows, is_self, first_self, keep
-            with span("transition.knn_csr"):
-                self.embedding_knn = sparse.csr_matrix(
-                    (np.ones(N * nn_k), neigh_full.cpu().numpy().ravel(),
-                     np.arange(0, N * nn_k + 1, nn_k)), shape=(N, N))
-            self.__dict__[self._KNN_IXS] = neigh_full
+            self._keep_neighbours(neigh_full)
             d_rndm = None
             if control is not None:
                 with span("transition.control"):
@@ -1725,7 +1829,7 @@ class VelocytoLoom:
             if corr_r is not None:
                 corr_r.fill_diagonal_(0.0)
                 self._set_dev("corrcoef_random", corr_r)
-                self.__dict__[self._RNDM_PLAN] = (delta, perms, sign_bits)
+                self._plan("delta_S_rndm", _Permuted(delta, perms, sign_bits))
 
     def _pcs_inputs(self, hidim: str, ndims: Optional[int], transform: str,
                     psc: float):
@@ -1763,95 +1867,26 @@ class VelocytoLoom:
                 delta = self._get_dev("delta_S", _F64)
             return tf, emat.to(_F32).contiguous(), dmat_of(delta), dmat_of
 
-    # ------------------------------------------------------------------
-    # lazy dense views of the compact correlation state
-    # ------------------------------------------------------------------
-    #
-    # estimate_transition_prob(knn_random=True) keeps only the compact
-    # (N, nn) sampled correlations, as device tensors.  The dense (N, N)
-    # corrcoef / transition_prob the reference API exposes
-    # (analysis.py:1604-1683) are f64 host arrays built on first read, so
-    # a pipeline that never reads them never pays for them.  The full
-    # mode's transition probabilities (_TP_ROWS) are built on read too,
-    # as float32.
-
-    def _compact_corr_host(self, which: str = "main") -> np.ndarray:
-        """Host f64 copy of the compact correlations, pulled from the
-        device on first use and cached."""
-        key = "_compact_corr" if which == "main" else "_compact_corr_random"
-        d = self.__dict__
-        if d.get(key) is None:
-            dev = d.get("_corr_dev" if which == "main" else "_corr_rndm_dev")
-            if dev is None:
-                raise AttributeError(key)
-            d[key] = dev.cpu().numpy().astype(np.float64)
-        return d[key]
-
-    def _compact_ixs_or_none(self) -> Optional[np.ndarray]:
-        ixs = self.__dict__.get("_compact_ixs")
-        if ixs is None and self.__dict__.get("_compact_ixs_dev") is not None:
-            ixs = self._compact_ixs          # lazy pull + cache
-        return ixs
-
-    def _tp_dense(self, name: str, dtype: torch.dtype) -> torch.Tensor:
-        """The dense (N, N) view of a transition probability kept as rows
-        (_TP_ROWS), on the device in `dtype`."""
-        ixs, p = self.__dict__[self._TP_ROWS][name]
-        n = ixs.shape[0]
-        return torch.zeros((n, n), dtype=dtype, device=p.device).scatter_(
-            1, ixs.to(torch.int64), p.to(dtype))
-
-    def _materialize_dense(self, name: str) -> np.ndarray:
-        if name in (self.__dict__.get(self._TP_ROWS) or ()):
-            dense = self._tp_dense(name, _F32).cpu().numpy()
-            self.__dict__[name] = dense
-            return dense
-        ixs = self._compact_ixs_or_none()
-        if ixs is None:
-            raise AttributeError(name)
-        cm = self._compact_corr_host(
-            "rndm" if name.endswith("_random") else "main")
-        if name.startswith("transition_prob"):
-            sig = self.__dict__.get("_tp_sigma")
-            if sig is None:                      # no embedding-shift call yet
-                raise AttributeError(name)
-            cm = np.exp(cm / sig)
-            cm = cm / cm.sum(1)[:, None]
-        n = ixs.shape[0]
-        dense = np.zeros((n, n), dtype=np.float64)
-        dense[np.arange(n)[:, None], ixs] = cm
-        self.__dict__[name] = dense
-        return dense
-
-    def _has_rndm_state(self) -> bool:
-        """hasattr(self, 'corrcoef_random') without building a dense
-        view."""
-        d = self.__dict__
-        return ("corrcoef_random" in d or "_compact_corr_random" in d
-                or "corrcoef_random" in (d.get("_dev_state") or ())
-                or d.get("_corr_rndm_dev") is not None)
-
     def _compact_state_valid(self) -> bool:
-        """Whether the compact (N, nn) correlation state stored by
-        estimate_transition_prob still corresponds to self.corrcoef.  If
-        the dense view was built (and perhaps edited by the caller), it
-        is spot-checked on a random sample of entries."""
+        """Whether the sampled mode's compact (N, nn) correlation state
+        still corresponds to self.corrcoef.  If the dense view was built
+        (and perhaps edited by the caller), it is spot-checked on a random
+        sample of entries."""
         d = self.__dict__
-        ixs_any = d.get("_compact_ixs")
+        ixs_any = d.get("_compact_ixs_dev")
         if ixs_any is None:
-            ixs_any = d.get("_compact_ixs_dev")
+            ixs_any = d.get("_compact_ixs")
         if ixs_any is None or getattr(self, "corr_calc", None) != "knn_random":
             return False
         if d.get("_corr_dev") is None and d.get("_compact_corr") is None:
             return False
         dense = d.get("corrcoef")
         if dense is None:
-            return True                      # never materialized => pristine
+            return True                      # never built => pristine
         n = ixs_any.shape[0]
         if dense.shape[0] != n:
             return False
-        ixs = self._compact_ixs_or_none()
-        cm = self._compact_corr_host("main")
+        ixs, cm = self._compact_ixs, self._compact_corr
         if ixs.shape != cm.shape:
             return False
         rng = np.random.RandomState(0)
@@ -1859,25 +1894,15 @@ class VelocytoLoom:
         c = rng.randint(0, ixs.shape[1], size=len(r))
         return bool(np.array_equal(dense[r, ixs[r, c]], cm[r, c]))
 
-    def _corr_dev_view(self, name: str) -> torch.Tensor:
-        """corrcoef / corrcoef_random on the device as the JAX package
-        reads them: it keeps the full mode's as host arrays, so an
-        in-place edit of the host view is honoured.  The view is uploaded
-        only if __getattr__ handed it out."""
-        cached = (self.__dict__.get("_dev_host_cache") or {}).get(name)
-        if cached is not None:
-            return torch.as_tensor(cached, dtype=_F32, device=self.device)
-        return self._get_dev(name)
-
     def _embedding_neighbours(self) -> torch.Tensor:
         """The (N, nn) ids of each cell's embedding neighbours, the kNN
-        mask of the embedding shift, on the device: the full mode's own,
-        else the rows of embedding_knn, which has to hold the same number
-        of unit entries in every row, as every kNN graph of this package
-        and of the reference does (ValueError otherwise)."""
-        ixs = self.__dict__.get(self._KNN_IXS)
-        if ixs is not None:
-            return ixs
+        mask of the embedding shift, on the device: the ids the transition
+        kept while embedding_knn is still built from them, else the rows
+        of embedding_knn, which has to hold the same number of unit
+        entries in every row, as every kNN graph of this package and of
+        the reference does (ValueError otherwise)."""
+        if "embedding_knn" in self._table():
+            return self._compact_ixs_dev
         m = sparse.csr_matrix(self.embedding_knn)
         counts = np.diff(m.indptr)
         if not len(counts) or np.any(counts != counts[0]) or \
@@ -1916,7 +1941,7 @@ class VelocytoLoom:
             raise NotImplementedError(
                 f"Weird value self.corr_calc={self.corr_calc}")
         d = self.__dict__
-        have_rndm = self._has_rndm_state()
+        have_rndm = self._has("corrcoef_random")
         names = ("transition_prob", "transition_prob_random") if have_rndm \
             else ("transition_prob",)
         gathered = not self._compact_state_valid()
@@ -1924,35 +1949,37 @@ class VelocytoLoom:
             ixs = self._embedding_neighbours()
 
             def corr_of(i):
-                name = ("corrcoef", "corrcoef_random")[i]
                 with span("shift.gather"):
-                    return torch.gather(self._corr_dev_view(name), 1,
-                                        ixs.to(torch.int64))
+                    return torch.gather(
+                        self._stage_input(("corrcoef", "corrcoef_random")[i],
+                                          _F32), 1, ixs.to(torch.int64))
         else:
             ixs = d.get("_compact_ixs_dev")
             if ixs is None:
-                ixs = torch.as_tensor(self._compact_ixs, device=self.device)
+                ixs = self._stage_input("_compact_ixs")
 
             def corr_of(i):
                 corr = d.get(("_corr_dev", "_corr_rndm_dev")[i])
-                return corr if corr is not None else torch.as_tensor(
-                    self._compact_corr_host(("main", "rndm")[i]),
-                    dtype=_F32, device=self.device)
+                return corr if corr is not None else self._stage_input(
+                    ("_compact_corr", "_compact_corr_random")[i], _F32)
         dt = _F64 if gathered else _F32
 
+        # the probabilities stay as rows at the neighbour ids: the sampled
+        # form as its correlations and sigma_corr, the gathered one as the
+        # float32 probabilities; the dense views are built on read
         probs = []
-        for i in range(len(names)):
+        for i, name in enumerate(names):
             corr = corr_of(i)
             with span("shift.softmax"):
                 probs.append(_compact_softmax(corr, float(sigma_corr)))
+            self._plan(name, _ProbRows(ixs, probs[-1]) if gathered else
+                       _Rows(ixs, corr, float(sigma_corr),
+                             (("_corr_dev", "_corr_rndm_dev")[i],
+                              "_compact_ixs_dev")))
             del corr
-        self._drop(*names)
-        d.pop("_tp_sigma", None)
-        if gathered:
-            d[self._TP_ROWS] = {name: (ixs, p) for name, p in zip(names,
-                                                                  probs)}
-        else:
-            self._tp_sigma = float(sigma_corr)
+        if not have_rndm and isinstance(
+                self._table().get("transition_prob_random"), _Rows):
+            self._table().pop("transition_prob_random")
 
         emb = torch.as_tensor(np.asarray(self.embedding, np.float32),
                               device=self.device)
@@ -2043,7 +2070,7 @@ class VelocytoLoom:
         self.flow_norm = flow / scale
         self.flow_norm_magnitude = np.linalg.norm(self.flow_norm, axis=1)
 
-        if self._has_rndm_state():
+        if self._has("corrcoef_random"):
             flow_rndm = kernel_average(
                 getattr(self, f"delta_{embed}_random"))
             self.flow_rndm = flow_rndm
@@ -2055,47 +2082,17 @@ class VelocytoLoom:
     # markov diffusion (reference :1818-1887), on the device
     # ------------------------------------------------------------------
 
-    def _transition_prob_dev(self) -> torch.Tensor:
-        """transition_prob as a dense float64 (N, N) tensor on the device:
-        the host value when there is one (assigned, or a lazy view handed
-        out, perhaps edited), else a device-backed value (a restored
-        checkpoint's), else built on the device from the rows the full
-        mode's shift kept, else from the compact knn_random state exactly
-        as the lazy view would be (softmax over the sampled candidates,
-        scattered)."""
-        d = self.__dict__
-        tp = d.get("transition_prob")
-        if tp is None and "transition_prob" in (d.get("_dev_state") or ()):
-            tp = self._host_view_or_dev("transition_prob")
-        if tp is not None:
-            return torch.as_tensor(tp, dtype=_F64, device=self.device)
-        if "transition_prob" in (d.get(self._TP_ROWS) or ()):
-            return self._tp_dense("transition_prob", _F64)
-        sig = d.get("_tp_sigma")
-        if sig is None or self._compact_ixs_or_none() is None:
-            raise AttributeError("transition_prob")
-        ixs = d.get("_compact_ixs_dev")
-        if ixs is None:
-            ixs = torch.as_tensor(self._compact_ixs, device=self.device)
-        corr = d.get("_compact_corr")
-        corr = d["_corr_dev"] if corr is None else torch.as_tensor(
-            corr, device=self.device)
-        cm = torch.exp(corr.to(_F64) / sig)
-        cm = cm / cm.sum(dim=1, keepdim=True)
-        n = ixs.shape[0]
-        return torch.zeros((n, n), dtype=_F64, device=self.device).scatter_(
-            1, ixs.to(torch.int64), cm)
-
     def prepare_markov(self, sigma_D: float, sigma_W: float,
                        direction: str = "forward",
                        cells_ixs: Optional[np.ndarray] = None) -> None:
         """Build the Markov transition matrix (reference :1818-1863) in
-        float64 on the device.  tr stays device-resident; the reference's
-        csr form is built only when .tr is read."""
+        float64 on the device, from transition_prob as a stage reads it
+        (_stage_input).  tr stays device-resident; the reference's csr
+        form is built only when .tr is read."""
         if direction not in ("forward", "backwards"):
             raise NotImplementedError(
                 f"{direction} is not an implemented direction")
-        p = self._transition_prob_dev()
+        p = self._stage_input("transition_prob", _F64)
         emb = np.asarray(self.embedding)
         if cells_ixs is not None:
             ix = torch.as_tensor(np.ascontiguousarray(cells_ixs),
@@ -2113,8 +2110,7 @@ class VelocytoLoom:
                    mode: str = "time_evolution") -> None:
         """Run the diffusion (reference :1865-1887) on the device tr (or
         the host tr when one was assigned or its csr view handed out)."""
-        ds = self.__dict__.get("_dev_state") or {}
-        tr = self._host_view_or_dev("tr") if "tr" in ds else self.tr
+        tr = self._stage_value("tr")
         if starting_p is None:
             starting_p = np.ones(tr.shape[0]) / tr.shape[0]
         self.diffused = Diffusion(self.device).diffuse(

@@ -94,21 +94,18 @@ def load_state(path: str, device="cuda",
 
 def save_vlm(path: str, vlm, attributes: Optional[list] = None) -> None:
     """Checkpoint the array state of a VelocytoLoom: by default every numpy
-    attribute and every device-backed stage output (as its tensor); the
-    full mode's delta_S_rndm is built from its plan first, and so are
-    normalize's pending views, and a
-    transition probability kept as rows goes in as its dense float32
-    tensor unless its host view was handed out (and is saved as such)."""
+    attribute and what each lazy attribute's entry gives to a checkpoint
+    (a device-backed stage output its tensor, a value built from a plan
+    its host array, built here, probability rows their dense float32
+    tensor)."""
     if attributes is None:
-        if vlm._RNDM_PLAN in vlm.__dict__:
-            vlm._materialize_rndm()
-        vlm._build_norm_views()
-        state = {k: v for k, v in vlm.__dict__.items()
-                 if isinstance(v, np.ndarray)}
-        state.update(vlm.__dict__.get("_dev_state") or {})
-        for name in vlm.__dict__.get(vlm._TP_ROWS) or ():
-            if name not in state:
-                state[name] = vlm._tp_dense(name, torch.float32)
+        state = {}
+        for name, entry in list(vlm._table().items()):
+            value = entry.saved(vlm, name)
+            if value is not None:
+                state[name] = value
+        state.update((k, v) for k, v in vlm.__dict__.items()
+                     if isinstance(v, np.ndarray))
     else:
         state = {k: getattr(vlm, k) for k in attributes}
     save_state(path, state)
