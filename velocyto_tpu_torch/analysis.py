@@ -2867,15 +2867,26 @@ def permute_rows_nsign(A: np.ndarray) -> None:
         A[i, :] = A[i, :] * np.random.choice(plmi, size=A.shape[1])
 
 
-# Copied from velocyto_tpu/analysis.py::_permute_rows_nsign_plan.
 def _permute_rows_nsign_plan(g: int, n: int, rng=np.random):
     """The row permutations and sign flips permute_rows_nsign would
     apply to a (g, n) matrix, drawn from the same np.random sequence
     without touching the data: (g, n) uint16 (int32 past 65,536 columns)
     permutations and the signs bit-packed, (g, ceil(n / 8)) uint8 with
     the first column in the top bit and 1 for +1.  rng: the global
-    np.random module or a RandomState at the same state (the same
-    draws; shuffling an int row draws as shuffling a float row)."""
+    np.random module or a RandomState, left at the state the draws
+    leave.  The draws are replayed in C++ (native.permute_rows_nsign_plan)
+    from rng's state, bitwise _permute_rows_nsign_plan_plain."""
+    perms, sign_bits, end = native.permute_rows_nsign_plan(
+        g, n, rng.get_state())
+    rng.set_state(end)
+    return perms, sign_bits
+
+
+# Copied from velocyto_tpu/analysis.py::_permute_rows_nsign_plan.
+def _permute_rows_nsign_plan_plain(g: int, n: int, rng=np.random):
+    """_permute_rows_nsign_plan as numpy's loop draws it, one shuffle
+    and one choice a row (the same draws whether it shuffles an int row
+    or a float row): the plain version the native replay is held to."""
     perms = np.empty((g, n), np.uint16 if n <= 65536 else np.int32)
     signs = np.empty((g, n), np.int8)
     plmi = np.array([+1, -1])

@@ -12,6 +12,13 @@ the JAX package's ``vtpu.cpp``); ``balance_knn_loop`` below binds it with
 the JAX package's signature, and the numpy loop of ``ops/knn.py`` stays
 as its plain version, held to it bitwise by the tests.
 
+``permute.cpp`` draws the randomized control's plan (the row
+permutations and sign flips of ``analysis.permute_rows_nsign``) from a
+given numpy MT19937 state; ``permute_rows_nsign_plan`` below binds it,
+and ``analysis._permute_rows_nsign_plan_plain`` is the numpy loop it
+replays, held to it bitwise by the tests.  ``permute_plans`` counts its
+calls and the words they drew.
+
 ``bam.cpp`` is the counting engine's BGZF/BAM decoder, its exact hash
 factorize and its external sorter by cell tag (the counting half of the
 JAX package's ``velocyto_tpu/native/vtpu.cpp``).  The wrappers below
@@ -21,7 +28,7 @@ package's (``velocyto_tpu/native/__init__.py``).  As there, counting
 falls back to its Python and numpy paths when the library cannot be
 built; ``available()`` then logs the compiler's error once.
 
-All three are compiled on first use (never at import) with the host C++
+All four are compiled on first use (never at import) with the host C++
 compiler into ``_build/``, named by the hash of their source, so an
 edited source is rebuilt.
 """
@@ -34,6 +41,7 @@ import os
 import shutil
 import struct
 import subprocess
+import threading
 from pathlib import Path
 from typing import List, Optional, Tuple
 
@@ -46,11 +54,17 @@ _BUILD = _HERE / "_build"
 SOURCE = _HERE / "sampler.cpp"
 BAM_SOURCE = _HERE / "bam.cpp"
 BALANCE_SOURCE = _HERE / "balance.cpp"
+PERMUTE_SOURCE = _HERE / "permute.cpp"
 
 _lib = None
 _balance_lib = None
+_permute_lib = None
+_permute_lock = threading.Lock()     # the library's load and the counter
 _bam_lib = None
 _bam_error: Optional[str] = None     # the compiler's error, once logged
+
+# the control's plans drawn by permute.cpp, and the MT19937 words they drew
+permute_plans = {"plans": 0, "words": 0}
 
 # most record boundaries bam_record_ranges holds at once (bam.cpp thins
 # them, doubling their spacing, when more qualify)
@@ -98,6 +112,12 @@ def build_balance() -> Path:
     """Compile balance.cpp unless a library built from the same source
     exists; returns the library's path.  Raises on any compiler error."""
     return _compile(BALANCE_SOURCE, "vtt_balance", [], [])
+
+
+def build_permute() -> Path:
+    """Compile permute.cpp unless a library built from the same source
+    exists; returns the library's path.  Raises on any compiler error."""
+    return _compile(PERMUTE_SOURCE, "vtt_permute", [], [])
 
 
 def _load_sampler():
@@ -192,6 +212,60 @@ def choice_rows_plain(seed: int, n_rows: int, pop: int, size: int,
     rows = np.stack([np.random.choice(pop, size=(size,), replace=False, p=p)
                      for _ in range(n_rows)], 0)
     return rows, np.random.get_state()
+
+
+# -- the randomized control's plan (permute.cpp) ----------------------------
+
+def _load_permute():
+    global _permute_lib
+    with _permute_lock:
+        if _permute_lib is None:
+            lib = ctypes.CDLL(str(build_permute()))
+            lib.vtt_permute_plan.argtypes = [
+                ctypes.c_void_p,                     # state (625,) uint32
+                ctypes.c_int64, ctypes.c_int64,      # g, n
+                ctypes.c_int,                        # perm_bytes
+                ctypes.c_void_p, ctypes.c_void_p]    # out perms, sign bits
+            lib.vtt_permute_plan.restype = ctypes.c_int64
+            _permute_lib = lib
+    return _permute_lib
+
+
+def permute_rows_nsign_plan(g: int, n: int, state: tuple
+                            ) -> Tuple[np.ndarray, np.ndarray, tuple]:
+    """For each of g rows, ``RandomState.shuffle(np.arange(n))`` then
+    ``RandomState.choice([+1, -1], size=n)``, replayed in C++
+    (permute.cpp) from ``state``, an ``np.random.get_state()`` tuple.
+
+    Returns (perms (g, n), uint16, or int32 past 65,536 columns; the
+    signs bit-packed (g, ceil(n / 8)) uint8, the first column in the top
+    bit and 1 for +1; numpy's state after the draws, with has_gauss and
+    the cached gaussian carried through).  Bitwise
+    ``analysis._permute_rows_nsign_plan_plain``.  Releases the GIL while
+    it draws."""
+    name, key, pos, has_gauss, cached = state[:5]
+    key = np.asarray(key)
+    if name != "MT19937" or key.shape != (624,):
+        raise ValueError(f"not an MT19937 state: {name!r}, key {key.shape}")
+    if not 0 <= int(pos) <= 624:
+        raise ValueError(f"MT19937 position {pos} outside [0, 624]")
+    if g < 0 or not 0 <= n < 2 ** 31:
+        raise ValueError(f"no plan for ({g}, {n})")
+    lib = _load_permute()
+    st = np.empty(625, np.uint32)
+    st[:624] = key
+    st[624] = int(pos)
+    perms = np.empty((g, n), np.uint16 if n <= 65536 else np.int32)
+    bits = np.empty((g, (n + 7) // 8), np.uint8)
+    words = lib.vtt_permute_plan(st.ctypes.data, g, n, perms.itemsize,
+                                 perms.ctypes.data, bits.ctypes.data)
+    if words < 0:
+        raise RuntimeError(f"permute.cpp refused the plan ({g}, {n})")
+    with _permute_lock:
+        permute_plans["plans"] += 1
+        permute_plans["words"] += int(words)
+    return perms, bits, ("MT19937", st[:624].copy(), int(st[624]),
+                         has_gauss, cached)
 
 
 # -- the greedy kNN balance (balance.cpp) -----------------------------------
