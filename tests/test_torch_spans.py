@@ -10,7 +10,9 @@ outside the catalogue; trace() also holds the sampled transition's
 worker spans, on their own threads; the full mode holds its host round
 trips, and its control's plan on a worker beside the embedding kNN, with
 no upload of the permuted rows; bench_common.transition_split reads a call's split from them; a
-profiled session gives the same outputs, bitwise."""
+profiled session gives the same outputs, bitwise. prepare_markov and
+run_markov open exactly the Markov spans, and diffusion.power_steps
+counts the steps' calls, steps and bytes."""
 import contextlib
 import threading
 
@@ -37,7 +39,7 @@ CATALOGUE = {
     "transition.replay", "transition.replay.upload",
     "transition.control.plan", "transition.control", "transition.cor",
     "shift.gather", "shift.softmax", "shift.project", "shift.scaling",
-    "grid",
+    "grid", "markov.tp", "markov.matrix", "markov.steps",
     "ring.upload", "ring.plan", "ring.schedule", "ring.launches",
     "ring.gather"}
 FAMILIES = ("upload.", "build.")
@@ -63,6 +65,7 @@ SAMPLED = {
 FULL_TRANSITION = ["transition.inputs", "transition.embedding_knn",
                    "transition.control", "transition.cor"]
 FULL_SHIFT = ["shift.gather", "shift.softmax", "shift.project"]
+MARKOV = ["markov.tp", "markov.matrix", "markov.steps"]
 
 
 def _loom(seed=0):
@@ -358,3 +361,40 @@ def test_spans_change_no_output(mode, sampled, full):
                  "flow"):
         np.testing.assert_array_equal(getattr(profiled, name),
                                       getattr(plain, name), err_msg=name)
+
+
+@pytest.mark.parametrize("direction", ["forward", "backwards"])
+def test_markov_session_names_exactly_its_spans(direction, sampled):
+    """prepare_markov + run_markov on the sampled session open
+    markov.tp inside markov's first call, markov.matrix after it, and
+    markov.steps in run_markov, each once, and no other span."""
+    v = sampled[0]
+    with _default_profile() as prof:
+        with torch.profiler.record_function("stage:prepare"):
+            v.prepare_markov(sigma_D=0.5, sigma_W=0.25, direction=direction)
+        with torch.profiler.record_function("stage:run"):
+            v.run_markov(n_steps=20)
+    stages, spans = _ranges(prof, "stage:"), _ranges(prof, "vtt.")
+    assert sorted(spans) == sorted(MARKOV)
+    assert all(len(rs) == 1 for rs in spans.values())
+    for name in MARKOV[:2]:
+        assert _inside(spans[name][0], stages["prepare"]), name
+    assert _inside(spans["markov.steps"][0], stages["run"])
+    (tp,), (matrix,) = spans["markov.tp"], spans["markov.matrix"]
+    assert tp[1] <= matrix[0]
+
+
+def test_power_steps_counts_calls_steps_and_bytes():
+    from velocyto_tpu_torch import diffusion
+    n = 100                                    # 2 blocks of 64 rows
+    tr = np.full((n, n), 1.0 / n)
+    before = dict(diffusion.power_steps)
+    x = analysis.Diffusion(CPU).diffuse(np.ones(n), tr, n_steps=7,
+                                        mode="time_evolution")
+    analysis.Diffusion(CPU).diffuse(np.ones(n), tr, n_steps=3,
+                                    mode="path_integral")
+    analysis.Diffusion(CPU).diffuse(np.ones(n), tr, n_steps=3,
+                                    mode="map_trajectory")
+    got = {k: diffusion.power_steps[k] - before[k] for k in before}
+    assert got == {"calls": 2, "steps": 10, "bytes": 10 * 128 * n * 4}
+    np.testing.assert_allclose(x[0], 1.0 / n, rtol=1e-6)

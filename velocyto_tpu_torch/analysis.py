@@ -2087,12 +2087,13 @@ class VelocytoLoom:
                        cells_ixs: Optional[np.ndarray] = None) -> None:
         """Build the Markov transition matrix (reference :1818-1863) in
         float64 on the device, from transition_prob as a stage reads it
-        (_stage_input).  tr stays device-resident; the reference's csr
-        form is built only when .tr is read."""
+        (_stage_input; span markov.tp).  tr stays device-resident; the
+        reference's csr form is built only when .tr is read."""
         if direction not in ("forward", "backwards"):
             raise NotImplementedError(
                 f"{direction} is not an implemented direction")
-        p = self._stage_input("transition_prob", _F64)
+        with span("markov.tp"):
+            p = self._stage_input("transition_prob", _F64)
         emb = np.asarray(self.embedding)
         if cells_ixs is not None:
             ix = torch.as_tensor(np.ascontiguousarray(cells_ixs),
@@ -2109,12 +2110,15 @@ class VelocytoLoom:
                    n_steps: int = 2500,
                    mode: str = "time_evolution") -> None:
         """Run the diffusion (reference :1865-1887) on the device tr (or
-        the host tr when one was assigned or its csr view handed out)."""
+        the host tr when one was assigned or its csr view handed out).
+        Span markov.steps: tr's float32 copy, the steps and the result's
+        copy to the host, which waits for them."""
         tr = self._stage_value("tr")
         if starting_p is None:
             starting_p = np.ones(tr.shape[0]) / tr.shape[0]
-        self.diffused = Diffusion(self.device).diffuse(
-            starting_p, tr, n_steps=n_steps, mode=mode)[0]
+        with span("markov.steps"):
+            self.diffused = Diffusion(self.device).diffuse(
+                starting_p, tr, n_steps=n_steps, mode=mode)[0]
 
     # ------------------------------------------------------------------
     # deprecated one-shot defaults (reference :1889-1964)
@@ -2551,6 +2555,7 @@ def _paired_correlation_rows(A: torch.Tensor, B: torch.Tensor
                                  torch.linalg.norm(B_m, dim=1))
 
 
+@spanned("markov.matrix")
 def _markov_matrix(p: torch.Tensor, emb: torch.Tensor, sigma_D: float,
                    sigma_W: float) -> torch.Tensor:
     """prepare_markov's transition matrix (reference :1835-1845), float64,

@@ -8,6 +8,11 @@ array or a tensor, densifies it on the device in float32 (as the JAX
 package does), and runs path_integral / time_evolution there as a
 matrix-vector loop; map_trajectory, frontier and trajectory walk on the
 host with numpy (trajectory draws from numpy's global stream).
+
+``power_steps`` counts the matrix-vector loops of path_integral /
+time_evolution (``_power_steps``): the calls, the steps, and the bytes
+of the float32 tr the steps read (its rows padded to the block, times N,
+times 4, a step).
 """
 from __future__ import annotations
 
@@ -19,6 +24,9 @@ from scipy import sparse
 from scipy.stats import norm
 
 from .ops.knn import _knn_query_impl, full_f32
+
+# _power_steps' calls, steps, and bytes of tr read by the steps
+power_steps = {"calls": 0, "steps": 0, "bytes": 0}
 
 
 def _l1_normalize_rows(m: sparse.spmatrix) -> sparse.csr_matrix:
@@ -45,6 +53,9 @@ def _power_steps(x: torch.Tensor, tr: torch.Tensor, n_steps: int,
     pad = blocks * rows - n
     tr_b = torch.nn.functional.pad(tr, (0, 0, 0, pad)).view(
         blocks, rows, tr.shape[1])
+    power_steps["calls"] += 1
+    power_steps["steps"] += n_steps
+    power_steps["bytes"] += n_steps * tr_b.numel() * tr_b.element_size()
     total = torch.zeros_like(x) if accumulate else None
     with full_f32():
         for _ in range(n_steps):
