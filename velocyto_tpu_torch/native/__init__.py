@@ -4,7 +4,9 @@
 sampling of ``estimate_transition_prob(knn_random=True)``, resumably, so
 the rows come out in chunks (``choice_noreplace_rows_chunked``).
 ``choice_rows_plain`` is the numpy loop it replaces: the tests and
-``chip_smoke.py`` hold the two to bit equality.
+``chip_smoke.py`` hold the two to bit equality.  ``sampler_replays``
+counts its calls, the rows they sampled, the rounds of numpy's rejection
+loop those rows took and the doubles they drew.
 
 ``balance.cpp`` is the greedy balanced-kNN loop of ``BalancedKNN``,
 ``knn_balance`` and ``ops.knn.balance_knn_loop`` (the balance half of
@@ -59,12 +61,15 @@ PERMUTE_SOURCE = _HERE / "permute.cpp"
 _lib = None
 _balance_lib = None
 _permute_lib = None
-_permute_lock = threading.Lock()     # the library's load and the counter
+_lock = threading.Lock()    # the plan library's load; both counters
 _bam_lib = None
 _bam_error: Optional[str] = None     # the compiler's error, once logged
 
 # the control's plans drawn by permute.cpp, and the MT19937 words they drew
 permute_plans = {"plans": 0, "words": 0}
+# the replays of sampler.cpp (one choice_noreplace_rows_chunked call each),
+# their rows, the rounds of the rejection loop and the doubles drawn
+sampler_replays = {"calls": 0, "rows": 0, "rounds": 0, "doubles": 0}
 
 # most record boundaries bam_record_ranges holds at once (bam.cpp thins
 # them, doubling their spacing, when more qualify)
@@ -127,8 +132,11 @@ def _load_sampler():
         lib.vtt_mt19937_seed.argtypes = [ctypes.c_uint32, ctypes.c_void_p]
         lib.vtt_mt19937_seed.restype = None
         fn = lib.vtt_choice_noreplace_resume
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p,                  # state (625,) uint32
+                       ctypes.c_int64, ctypes.c_int64,   # n_rows, pop
+                       ctypes.c_int64, ctypes.c_void_p,  # size, p (pop,)
+                       ctypes.c_void_p,                  # out (n_rows, size)
+                       ctypes.POINTER(ctypes.c_int64)]   # rounds, added to
         fn.restype = ctypes.c_int64
         _lib = lib
     return _lib
@@ -173,7 +181,10 @@ def choice_noreplace_rows_chunked(seed: int, n_rows: int, pop: int,
     ValueError when fewer than ``size`` weights are positive, checked
     before the first chunk (so no ``on_chunk`` fires before a refusal),
     and a RuntimeError when the state between two chunks is not a
-    valid position (``state[624]`` past 624)."""
+    valid position (``state[624]`` past 624).  A weight that is negative
+    or not finite, a sum of them that is not finite or 2**31 weights or
+    more is a ValueError before the first chunk too.  Adds one call, the rows, their rounds
+    and their doubles to ``sampler_replays`` once every chunk is in."""
     lib = _load_sampler()
     p = np.ascontiguousarray(p, dtype=np.float64)
     if p.shape != (pop,):
@@ -184,21 +195,30 @@ def choice_noreplace_rows_chunked(seed: int, n_rows: int, pop: int,
     lib.vtt_mt19937_seed(seed & 0xFFFFFFFF, state.ctypes.data)
     out = np.empty((n_rows, size), np.int64)
     draws = 0
+    rounds = ctypes.c_int64(0)
     bounds = np.linspace(0, n_rows, max(1, n_chunks) + 1).astype(np.int64)
     for lo, hi in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
         if hi <= lo:
             continue
         d = lib.vtt_choice_noreplace_resume(
             state.ctypes.data, hi - lo, pop, size, p.ctypes.data,
-            out[lo:].ctypes.data)
-        if d < 0:
+            out[lo:].ctypes.data, ctypes.byref(rounds))
+        if d == -1:
             raise ValueError("Fewer non-zero entries in p than size")
-        if state[624] > 624:
+        if d == -2:
+            raise ValueError("p holds a negative or non-finite weight, its "
+                             "sum is not finite or it has 2**31 or more")
+        if d < 0 or state[624] > 624:
             raise RuntimeError(f"MT19937 position {state[624]} past 624 "
                                f"after rows [{lo}, {hi})")
         draws += d
         if on_chunk is not None:
             on_chunk(lo, hi, out[lo:hi])
+    with _lock:
+        sampler_replays["calls"] += 1
+        sampler_replays["rows"] += n_rows
+        sampler_replays["rounds"] += rounds.value
+        sampler_replays["doubles"] += int(draws)
     return out, int(draws), ("MT19937", state[:624].copy(), int(state[624]),
                              0, 0.0)
 
@@ -218,7 +238,7 @@ def choice_rows_plain(seed: int, n_rows: int, pop: int, size: int,
 
 def _load_permute():
     global _permute_lib
-    with _permute_lock:
+    with _lock:
         if _permute_lib is None:
             lib = ctypes.CDLL(str(build_permute()))
             lib.vtt_permute_plan.argtypes = [
@@ -261,7 +281,7 @@ def permute_rows_nsign_plan(g: int, n: int, state: tuple
                                  perms.ctypes.data, bits.ctypes.data)
     if words < 0:
         raise RuntimeError(f"permute.cpp refused the plan ({g}, {n})")
-    with _permute_lock:
+    with _lock:
         permute_plans["plans"] += 1
         permute_plans["words"] += int(words)
     return perms, bits, ("MT19937", st[:624].copy(), int(st[624]),
